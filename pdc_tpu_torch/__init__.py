@@ -1,0 +1,19 @@
+"""pdc_tpu_torch — the PyTorch/CUDA port of :mod:`pdc_tpu`.
+
+The JAX package stays the reference; this package mirrors its module paths so
+each port module sits where its counterpart does (``models/resnet.py``,
+``ops/matching.py``, ``apps/serve.py``, ...). It imports torch, numpy and the
+standard library only, never ``jax``, ``flax`` or ``pdc_tpu``; optional
+third-party packages (``yaml``, ``cv2``/``PIL``) are imported inside the
+functions that need them.
+
+Every entry point takes an explicit ``device`` that defaults to ``"cuda"``
+and raises when CUDA is absent unless the caller asks for ``"cpu"``. The
+hand-written CUDA kernels live in ``csrc/`` and are built with ``nvcc`` on
+first use (:mod:`pdc_tpu_torch.ops._build`).
+
+Ported so far: the serving path (ResNet-18/34-8s descriptor inference, best
+match with the streaming argmin kernel, the microbatching TCP server).
+"""
+
+__version__ = "0.1.0"

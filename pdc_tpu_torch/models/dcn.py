@@ -1,0 +1,310 @@
+"""DenseCorrespondenceNetwork — the user-facing model wrapper, in PyTorch.
+
+Port of :class:`pdc_tpu.models.dcn.DenseCorrespondenceNetwork` with the same
+public contracts: ``[B, H, W, 3]`` images in and ``[B, H, W, D]`` descriptor
+images out (NHWC at the API, NCHW inside the module), flat pixel index
+``n = v*W + u``, and the model-folder layout (``training.yaml`` +
+``%06d.ckpt``). Checkpoints are the JAX package's flax msgpack files, read
+and written by :mod:`pdc_tpu_torch.models.checkpoint`, so a folder trained by
+``pdc_tpu`` serves here and the other way round.
+
+Every constructor takes ``device`` (default ``"cuda"``), and raises without
+CUDA unless ``device="cpu"`` is asked for. Inference only: the module stays
+in eval mode.
+"""
+
+from __future__ import annotations
+
+import glob
+import os
+from typing import Optional
+
+import numpy as np
+import torch
+
+from pdc_tpu_torch.models.checkpoint import read_checkpoint, write_checkpoint
+from pdc_tpu_torch.models.convert import flax_to_state_dict, state_dict_to_flax
+from pdc_tpu_torch.models.resnet import ResNet18_8s, ResNet34_8s, init_weights_
+from pdc_tpu_torch.ops.matching import (
+    best_match_for_descriptor,
+    best_matches_batch,
+)
+from pdc_tpu_torch.utils.constants import (
+    DEFAULT_IMAGE_HEIGHT,
+    DEFAULT_IMAGE_MEAN,
+    DEFAULT_IMAGE_STD,
+    DEFAULT_IMAGE_WIDTH,
+)
+from pdc_tpu_torch.utils.device import resolve_device
+from pdc_tpu_torch.utils.yaml_io import load_yaml
+
+_FACTORIES = {"Resnet18_8s": ResNet18_8s, "Resnet34_8s": ResNet34_8s}
+
+
+def build_backbone(config: dict):
+    """The FCN for a ``dense_correspondence_network`` config block.
+
+    Ported: ResNet-18/34-8s in float32. Options the JAX package offers
+    beyond that (other backbones, ``compute_dtype: bfloat16``,
+    ``dilated_s2b``, ``quant_int8``) raise ``NotImplementedError`` until
+    their slice lands; ``remat`` only changes the training backward and has
+    no effect on inference.
+    """
+    backbone = config.get("backbone", {"model_class": "Resnet", "resnet_name": "Resnet34_8s"})
+    if backbone["model_class"] != "Resnet":
+        raise NotImplementedError(
+            f"backbone {backbone['model_class']!r} is not ported yet (UNet waits "
+            "for the model-variants slice)")
+    name = backbone.get("resnet_name", "Resnet34_8s")
+    if name not in _FACTORIES:
+        raise NotImplementedError(
+            f"resnet_name {name!r} is not ported yet (ported: {sorted(_FACTORIES)}; "
+            "ResNet-50/101-8s wait for the model-variants slice)")
+    if config.get("compute_dtype", "float32") != "float32":
+        raise NotImplementedError("only compute_dtype float32 is ported")
+    for key in ("dilated_s2b", "quant_int8"):
+        if config.get(key, False):
+            raise NotImplementedError(f"{key} is not ported yet")
+    return _FACTORIES[name](config["descriptor_dimension"])
+
+
+class DenseCorrespondenceNetwork:
+    def __init__(self, module, descriptor_dimension: int,
+                 image_width: int = DEFAULT_IMAGE_WIDTH,
+                 image_height: int = DEFAULT_IMAGE_HEIGHT,
+                 normalize: bool = False, config: Optional[dict] = None,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        self.module = module.to(self.device).eval()
+        self._descriptor_dimension = descriptor_dimension
+        self._image_width = image_width
+        self._image_height = image_height
+        self._normalize = normalize
+        self.config = dict(config or {})
+        self._image_mean = np.asarray(DEFAULT_IMAGE_MEAN)
+        self._image_std_dev = np.asarray(DEFAULT_IMAGE_STD)
+        self._descriptor_image_stats = None
+        self.model_folder = None
+
+    # -- properties mirroring the reference ----------------------------------
+
+    @property
+    def descriptor_dimension(self):
+        return self._descriptor_dimension
+
+    @property
+    def image_shape(self):
+        return [self._image_height, self._image_width]
+
+    @property
+    def image_mean(self):
+        return self._image_mean
+
+    @image_mean.setter
+    def image_mean(self, value):
+        self._image_mean = np.asarray(value)
+
+    @property
+    def image_std_dev(self):
+        return self._image_std_dev
+
+    @image_std_dev.setter
+    def image_std_dev(self, value):
+        self._image_std_dev = np.asarray(value)
+
+    @property
+    def path_to_network_params_folder(self):
+        if "path_to_network_params_folder" not in self.config:
+            raise ValueError("config has no path_to_network_params_folder entry")
+        return self.config["path_to_network_params_folder"]
+
+    @property
+    def descriptor_image_stats(self):
+        """Lazily loads descriptor_statistics.yaml from the model folder."""
+        if self._descriptor_image_stats is None:
+            stats_file = os.path.join(
+                self.path_to_network_params_folder, "descriptor_statistics.yaml")
+            self._descriptor_image_stats = load_yaml(stats_file)
+        return self._descriptor_image_stats
+
+    @property
+    def fcn(self):
+        """The backbone module."""
+        return self.module
+
+    @property
+    def unique_identifier(self):
+        """'<id>+<checkpoint tail>' for a folder with an identifier.yaml,
+        else None."""
+        folder = self.config.get("path_to_network_params_folder")
+        if not folder:
+            return None
+        path = os.path.join(folder, "identifier.yaml")
+        if not os.path.exists(path):
+            return None
+        ident = load_yaml(path).get("id")
+        if ident is None:
+            return None
+        tail = self.config.get("model_param_filename_tail", "")
+        return f"{ident}+{tail}"
+
+    @property
+    def constructed_from_model_folder(self) -> bool:
+        return bool(self.config.get("path_to_network_params_folder"))
+
+    # -- forward passes -------------------------------------------------------
+
+    def forward(self, img_tensor):
+        """Forward a batch of already-normalized images.
+
+        :param img_tensor: [B, H, W, 3] float32 (NHWC, as in ``pdc_tpu``)
+        :return: [B, H, W, D] float32 descriptor images on ``self.device``
+        """
+        x = torch.as_tensor(img_tensor, dtype=torch.float32, device=self.device)
+        with torch.inference_mode():
+            out = self.module(x.permute(0, 3, 1, 2).contiguous())
+            if self._normalize:
+                norm = torch.linalg.vector_norm(out, dim=1, keepdim=True)
+                out = out / torch.clamp(norm, min=1e-12)
+            return out.permute(0, 2, 3, 1).contiguous()
+
+    def forward_single_image_tensor(self, img_tensor):
+        """[H, W, 3] normalized image -> [H, W, D] descriptor image."""
+        x = torch.as_tensor(img_tensor, dtype=torch.float32, device=self.device)
+        if x.dim() != 3:
+            raise ValueError(f"need one [H, W, 3] image, got shape {tuple(x.shape)}")
+        return self.forward(x[None])[0]
+
+    def forward_on_img(self, img):
+        """uint8 RGB [H, W, 3] -> descriptor image; applies the stored
+        mean/std normalization."""
+        x = torch.as_tensor(np.asarray(img), device=self.device).to(torch.float32) / 255.0
+        mean = torch.as_tensor(self._image_mean, dtype=torch.float32, device=self.device)
+        std = torch.as_tensor(self._image_std_dev, dtype=torch.float32, device=self.device)
+        return self.forward_single_image_tensor((x - mean) / std)
+
+    def process_network_output(self, image_pred, N: int):
+        """[N, H, W, D] -> [N, H*W, D]; row-major over (v, u), so flat index
+        n = v*W + u."""
+        D = self._descriptor_dimension
+        return torch.reshape(torch.as_tensor(image_pred),
+                             (N, self._image_height * self._image_width, D))
+
+    def clip_pixel_to_image_size_and_round(self, uv):
+        u = min(int(round(uv[0])), self._image_width - 1)
+        v = min(int(round(uv[1])), self._image_height - 1)
+        return [max(u, 0), max(v, 0)]
+
+    # -- best match ------------------------------------------------------------
+
+    @staticmethod
+    def find_best_match(pixel_a, res_a, res_b, mask_b=None):
+        """Best match in image b for the descriptor at ``pixel_a`` in image a.
+
+        :return: (best_match_uv [2] int32, best_match_diff, norm_diffs [H, W]).
+            ``mask_b`` is accepted and ignored, as in ``pdc_tpu``.
+        """
+        res_a = torch.as_tensor(res_a)
+        d = res_a[int(pixel_a[1]), int(pixel_a[0])]
+        return best_match_for_descriptor(d, torch.as_tensor(res_b, device=res_a.device))
+
+    @staticmethod
+    def find_best_match_for_descriptor(descriptor, res):
+        return best_match_for_descriptor(descriptor, res)
+
+    @staticmethod
+    def find_best_matches_batch(queries, res, mask=None):
+        return best_matches_batch(queries, res, mask=mask)
+
+    def evaluate_descriptor_at_keypoints(self, res, keypoints_uv):
+        """Gather descriptors at (u, v) keypoints -> [N, D] float32 numpy."""
+        res = torch.as_tensor(res)
+        kp = np.asarray(keypoints_uv)
+        u = np.clip(np.round(kp[:, 0]).astype(int), 0, self._image_width - 1)
+        v = np.clip(np.round(kp[:, 1]).astype(int), 0, self._image_height - 1)
+        return res[torch.as_tensor(v), torch.as_tensor(u), :].cpu().numpy().astype(np.float32)
+
+    # -- constructors ----------------------------------------------------------
+
+    @staticmethod
+    def from_config(config: dict, generator: Optional[torch.Generator] = None,
+                    load_stored_params: bool = False,
+                    model_param_file: Optional[str] = None, device="cuda"):
+        """Build (and optionally load) a network from a
+        ``dense_correspondence_network`` config block.
+
+        Weights are drawn on the CPU from ``generator`` (default: seed 0), so
+        they are the same on every device. There is no pretrained download:
+        ``backbone.pretrained`` without stored params raises.
+        """
+        device = resolve_device(device)
+        if (config.get("backbone") or {}).get("pretrained") and not load_stored_params:
+            raise NotImplementedError(
+                "ImageNet-pretrained initialisation is not ported yet (it waits "
+                "for the training slice)")
+        module = build_backbone(config)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        init_weights_(module, generator)
+        dcn = DenseCorrespondenceNetwork(
+            module,
+            descriptor_dimension=config["descriptor_dimension"],
+            image_width=config.get("image_width", DEFAULT_IMAGE_WIDTH),
+            image_height=config.get("image_height", DEFAULT_IMAGE_HEIGHT),
+            normalize=config.get("normalize", False),
+            config=config,
+            device=device,
+        )
+        if load_stored_params:
+            if model_param_file is None:
+                raise ValueError("load_stored_params needs model_param_file")
+            dcn.load_checkpoint(model_param_file)
+        return dcn
+
+    @staticmethod
+    def from_model_folder(model_folder: str, model_param_file: Optional[str] = None,
+                          iteration: Optional[int] = None, device="cuda"):
+        """Reconstruct a network from a training output folder holding
+        ``training.yaml`` and ``%06d.ckpt`` files."""
+        device = resolve_device(device)
+        training_config = load_yaml(os.path.join(model_folder, "training.yaml"))
+        config = dict(training_config["dense_correspondence_network"])
+        config["path_to_network_params_folder"] = model_folder
+        if model_param_file is None:
+            model_param_file = find_latest_checkpoint(model_folder, iteration)
+        config["model_param_filename_tail"] = os.path.basename(model_param_file)
+        dcn = DenseCorrespondenceNetwork.from_config(
+            config, load_stored_params=True, model_param_file=model_param_file,
+            device=device)
+        dcn.model_folder = model_folder
+        return dcn
+
+    # -- persistence -----------------------------------------------------------
+
+    def save_checkpoint(self, path: str):
+        """Write the weights as a flax msgpack ``.ckpt`` that ``pdc_tpu``
+        loads."""
+        write_checkpoint(state_dict_to_flax(self.module.state_dict()), path)
+
+    def load_checkpoint(self, path: str):
+        self.module.load_state_dict(flax_to_state_dict(read_checkpoint(path)), strict=True)
+
+
+def find_latest_checkpoint(model_folder: str, iteration: Optional[int] = None,
+                           suffix: str = ".ckpt") -> str:
+    """Find a ``%06d.ckpt`` in a model folder: the given ``iteration``, else
+    the highest all-digit step."""
+    if iteration is not None:
+        path = os.path.join(model_folder, "%06d" % iteration + suffix)
+        if not os.path.exists(path):
+            raise FileNotFoundError(path)
+        return path
+    # all-digit stems only (sidecars such as '000100.ckpt.opt' never match);
+    # numeric sort because '%06d' grows to 7 digits past step 999999
+    files = sorted(
+        (f for f in glob.glob(os.path.join(model_folder, "*" + suffix))
+         if os.path.basename(f)[: -len(suffix)].isdigit()),
+        key=lambda f: int(os.path.basename(f)[: -len(suffix)]))
+    if not files:
+        raise FileNotFoundError(f"no {suffix} files in {model_folder}")
+    return files[-1]
