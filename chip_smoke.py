@@ -12,16 +12,29 @@ Phases, each fatal on failure:
   3. the best-match kernel against its plain PyTorch version and against
      float64 distances, on random shapes and on real 640x480 descriptor
      images of the network;
-  4. the main path: a ``DescriptorServer`` with ResNet-34-8s, D=3, 640x480,
-     seeded random weights, answering concurrent ``descriptors`` and
-     ``best_match`` requests from several client threads; its answers are
-     checked against ``forward_on_img`` and the plain best match, and the
-     kernel's launch count must show that serving went through it;
-  5. timings (CUDA events, after warm-up): kernel, plain version and
-     ``torch.cdist`` + ``argmin`` with the kernel's bound, forward images/s.
+  4. the pooled-hinge forward and backward kernels (K1, K2) against their
+     plain version at the training shapes (B=4, Nm=10000, P=1024, D=3),
+     with and without the pixel weight: random rows, rows of the network's
+     640x480 descriptor images, many collisions, no valid row, and a
+     ragged B=3, Nm=777, P=1000, D=16 case;
+  5. the main path, serving: a ``DescriptorServer`` with ResNet-34-8s, D=3,
+     640x480, seeded random weights, answering concurrent ``descriptors``
+     and ``best_match`` requests from several client threads; its answers
+     are checked against ``forward_on_img`` and the plain best match, and
+     the best-match kernel's launch count must show that serving went
+     through it;
+  6. the main path, training: ``make_train_step`` with the values of
+     ``configs/training.yaml`` (ResNet-34-8s, D=3, 640x480, B=4 within-scene
+     pairs of a synthetic scene, seeded random weights) takes a few steps;
+     the loss must stay finite, the weights must move, and K1 and K2 must
+     launch twice each per step. Then one step with the kernels and one with
+     the plain pooled hinge, on the same batch and weights, must agree;
+  7. timings (CUDA events, after warm-up): every kernel, its plain version,
+     its bound and a library yardstick where one exists; forward images/s;
+     serving latency; the train step and its split.
 
-The last lines are a JSON object with the kernel's numbers, the nvidia-smi
-line, and ``{"ok": true, "device": {...}}``. Without CUDA, or when the
+The last lines are a JSON object with every kernel's numbers, the
+nvidia-smi line, and ``{"ok": true, "device": {...}}``. Without CUDA, or when the
 package is not beside this script, it exits non-zero and prints no result.
 A watchdog turns a hang into a traceback and a non-zero exit.
 """
@@ -45,6 +58,34 @@ N_CLIENTS, REQUESTS_PER_CLIENT, SERVE_QUERIES = 4, 4, 16
 # differences in the same order and differ only by the FMA's rounding.
 TIE_TOL_D2, DIST_TOL, PLAIN_TOL = 1e-5, 1e-4, 1e-4
 DESC_TOL = 1e-4  # served descriptors vs forward_on_img (other batch, other cuDNN algorithm)
+# The training values of configs/training.yaml, stated inline because the
+# card's machine has no yaml (tests/test_torch_port_train.py holds them
+# against the file).
+TRAINING_CONFIG = {
+    "training": {
+        "learning_rate": 1.0e-4, "learning_rate_decay": 0.9,
+        "steps_between_learning_rate_decay": 250, "weight_decay": 1.0e-4, "batch_size": 4,
+        "domain_randomize": True, "num_matching_attempts": 10000,
+        "sample_matches_only_off_mask": True, "num_non_matches_per_match": 150,
+        "fraction_masked_non_matches": 0.5, "fraction_background_non_matches": 0.5,
+        "use_image_b_mask_inv": True, "cross_scene_num_samples": 10000,
+        "data_type_probabilities": {"SINGLE_OBJECT_WITHIN_SCENE": 1,
+                                    "SINGLE_OBJECT_ACROSS_SCENE": 0, "DIFFERENT_OBJECT": 0,
+                                    "MULTI_OBJECT": 0, "SYNTHETIC_MULTI_OBJECT": 0},
+        "use_matrix_loss": True, "masked_pool_size": 1024, "background_pool_size": 1024,
+        "num_blind_samples": 5000, "cache_dataset_on_device": True, "flip_augmentation": True,
+    },
+    "dense_correspondence_network": {
+        "descriptor_dimension": 3, "image_width": 640, "image_height": 480, "normalize": False,
+        "backbone": {"model_class": "Resnet", "resnet_name": "Resnet34_8s"},
+    },
+    "loss_function": {
+        "M_masked": 0.5, "M_background": 0.5, "M_pixel": 50, "match_loss_weight": 1.0,
+        "non_match_loss_weight": 1.0, "use_l2_pixel_loss_on_masked_non_matches": False,
+        "use_l2_pixel_loss_on_background_non_matches": False, "scale_by_hard_negatives": True,
+        "scale_by_hard_negatives_DIFFERENT_OBJECT": True, "alpha_triplet": 0.1,
+    },
+}
 # H100 SXM data-sheet peaks: HBM bytes/s and fp32 FLOP/s outside the tensor cores
 PEAK_BYTES_S, PEAK_FP32_S = 3.35e12, 67e12
 
@@ -104,6 +145,140 @@ def check_matches(torch, bm, res, queries, idx, dist):
     return bad, err
 
 
+# -- pooled hinge (K1 forward, K2 backward) -----------------------------------
+
+# main-path shapes: B pairs, Nm match rows, P pool rows (configs/training.yaml)
+HINGE_B, HINGE_NM, HINGE_P = 4, 10000, 1024
+# K1/K2 against their plain version. Every term is bit-identical (the kernels
+# round each product and sum on its own, as the plain version's elementwise
+# ops do), so the hard-negative count must be equal (a difference of 0) and
+# only the order of the final sums differs: loss within rtol 1e-5, gradients
+# within 1e-5 of the plain gradient's largest magnitude.
+HINGE_LOSS_RTOL, HINGE_HARD_TOL, HINGE_GRAD_TOL = 1e-5, 0, 1e-5
+# one train step with the kernels against one with the plain pooled hinge, on
+# the same batch and weights: the same forward, so the loss differs only in
+# the hinge's summation order (rtol 1e-5); gradients by relative L2 norm over
+# all parameters, 1e-4 (hinge sums plus the atomics of index_select's and
+# cuDNN's backward); after Adam's first step, which moves each parameter by
+# about lr * sign(g), every element within 2 lr and 99.9% of those whose |g|
+# exceeds 1e-3 of its tensor's largest within 1e-2 lr
+STEP_LOSS_RTOL, STEP_GRAD_RTOL, STEP_PARAM_SHARE = 1e-5, 1e-4, 0.999
+TRAIN_STEPS, TRAIN_TIMED_STEPS = 5, 5
+# H100 SXM special-function units: 16 per SM per clock, 132 SMs, 1.98 GHz boost
+PEAK_SFU_S = 16 * 132 * 1.98e9
+
+
+def hinge_inputs(torch, np, rng, dev, B, Nm, P, da=None, db=None, scale=0.3, coord_max=None,
+                 valid_frac=0.9, Dd=D):
+    """K1/K2 arguments: rows (given, or random at ``scale``), match and pool
+    pixels on a 640x480 image (or in [0, coord_max)^2, which makes
+    collisions common), validity."""
+    def t(x):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=torch.float32, device=dev)
+    if da is None:
+        da = t(rng.standard_normal((B, Nm, Dd)) * scale)
+        db = t(rng.standard_normal((B, P, Dd)) * scale)
+    um, vm = (coord_max, coord_max) if coord_max else (W, H)
+    return [da.contiguous(), db.contiguous(),
+            t(rng.integers(0, um, (B, Nm))), t(rng.integers(0, vm, (B, Nm))),
+            t(rng.random((B, Nm)) < valid_frac),
+            t(rng.integers(0, um, (B, P))), t(rng.integers(0, vm, (B, P))),
+            t(rng.random((B, P)) < valid_frac)]
+
+
+def hinge_bound(args, use_pix, backward):
+    """Least time of one K1 (or K2) call on these inputs: bytes (each input
+    read once, each output written once) over the memory rate against fp32
+    operations over the fp32 rate. Per (row, pool) pair the code does D
+    subtractions and D multiply-adds for d2, the sqrt, 2 for the hinge, 4
+    for |du|, |dv| and 2 compares; K2 adds, per counted pair, 4 for c and
+    2D multiply-adds into gda and gdb (counted from this run's data).
+    Returns (ms, "bytes" or "operations", sqrt count)."""
+    da, db = args[0], args[1]
+    B, Nm, Dd = da.shape
+    P = db.shape[1]
+    pairs = B * Nm * P
+    nbytes = 4 * (B * Nm * Dd + B * P * Dd + 3 * B * Nm + 3 * B * P)
+    flops = pairs * (3 * Dd + 8 + (4 if use_pix else 0))
+    sqrts = pairs * (2 if use_pix else 1)
+    if backward:
+        import torch
+        from pdc_tpu_torch.ops.pooled_hinge import _tables
+        with torch.no_grad():
+            counted = int(_tables(*args, 0.5, use_pix, 50.0)[-1].sum())
+        nbytes += 4 * B + 4 * (B * Nm * Dd + B * P * Dd)
+        flops += counted * (4 + 4 * Dd)
+        sqrts += counted
+    else:
+        nbytes += 12 * B
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FP32_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), sqrts
+
+
+def check_pooled_hinge(torch, ph, name, args, use_pix):
+    """K1 and K2 against the plain version on one case; fatal on
+    disagreement. Returns (max |loss diff|, max |grad diff|)."""
+    da = args[0].clone().requires_grad_()
+    db = args[1].clone().requires_grad_()
+    g = torch.linspace(0.5, 1.5, da.shape[0], device=da.device)
+    loss, hard = ph.pooled_hinge(da, db, *args[2:], 0.5, use_pix, 50.0)
+    (loss * g).sum().backward()
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        ploss, phard = ph.pooled_hinge_reference(*args, 0.5, use_pix, 50.0)
+        pgda, pgdb = ph.pooled_hinge_backward_reference(g, *args, 0.5, use_pix, 50.0)
+    loss_err = float((loss.detach() - ploss).abs().max())
+    hard_diff = int((hard - phard).abs().max())
+    grad_err, ok_grad = 0.0, True
+    for got, want in ((da.grad, pgda), (db.grad, pgdb)):
+        err = float((got - want).abs().max())
+        grad_err = max(grad_err, err)
+        ok_grad &= err <= HINGE_GRAD_TOL * float(want.abs().max())
+    ok_loss = bool(((loss.detach() - ploss).abs() <= HINGE_LOSS_RTOL * ploss.abs()).all())
+    log(f"pooled hinge {name} use_pix={use_pix}: hard {phard.tolist()} (max diff {hard_diff}), "
+        f"max|loss diff| {loss_err:.3g} of {float(ploss.abs().max()):.6g}, "
+        f"max|grad diff| {grad_err:.3g} of {float(max(pgda.abs().max(), pgdb.abs().max())):.3g}")
+    if not ok_loss or hard_diff > HINGE_HARD_TOL or not ok_grad:
+        fail(f"pooled hinge kernels disagree with the plain version on {name}")
+    return loss_err, grad_err
+
+
+def device_frames(torch, np, dev, scene):
+    """The scene's frames on the card, as a device cache holds them:
+    rgb, depth (int32 millimetres), mask, poses, K and the valid-first
+    pixel permutations of the masks."""
+    from pdc_tpu_torch.ops.sampling import build_pixel_perm
+    rgb, depth, mask, poses = scene.render_all()
+    f = {"rgb": torch.as_tensor(rgb, device=dev),
+         "depth": torch.as_tensor(depth.astype(np.int32), device=dev),
+         "mask": torch.as_tensor(mask, device=dev),
+         "pose": torch.as_tensor(poses, dtype=torch.float32, device=dev),
+         "K": torch.as_tensor(scene.K, dtype=torch.float32, device=dev)}
+    f["perm"], f["count"] = build_pixel_perm(f["mask"])
+    return f
+
+
+def pair_batch(torch, frames, ia, ib):
+    """A within-scene batch of pairs (frames ia[k], ib[k]) from the device
+    frames, with the keys assemble_batch_matrix reads."""
+    ia = torch.as_tensor(ia, device=frames["rgb"].device)
+    ib = torch.as_tensor(ib, device=frames["rgb"].device)
+    batch = {"K": frames["K"].expand(len(ia), 3, 3),
+             "match_type": torch.zeros(len(ia), dtype=torch.int64, device=ia.device)}
+    for s, idx in (("a", ia), ("b", ib)):
+        for key, src in (("rgb", "rgb"), ("depth", "depth"), ("mask", "mask"), ("pose", "pose"),
+                         ("perm", "perm"), ("count", "count")):
+            batch[f"{key}_{s}"] = frames[src][idx]
+    return batch
+
+
+def draw_pairs(np, rng, B, n_frames):
+    """B within-scene pairs of distinct frames."""
+    ia = rng.integers(0, n_frames, B)
+    ib = (ia + rng.integers(1, n_frames, B)) % n_frames
+    return ia, ib
+
+
 def main():
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     here = os.path.dirname(os.path.abspath(__file__))
@@ -122,6 +297,7 @@ def main():
     from pdc_tpu_torch.models.dcn import DenseCorrespondenceNetwork
     from pdc_tpu_torch.ops import _build
     from pdc_tpu_torch.ops import best_match as bm
+    from pdc_tpu_torch.ops import pooled_hinge as ph
 
     # 1. environment ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -144,6 +320,7 @@ def main():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"  nvcc: {line.strip()}")
     bm._library()
+    ph._library()
     phase("build", t0)
 
     # 3. kernel against plain version -------------------------------------------
@@ -200,7 +377,36 @@ def main():
     torch.cuda.empty_cache()
     phase("kernel vs plain", t0)
 
-    # 4. the main path: serving -------------------------------------------------
+    # 4. pooled hinge kernels (K1, K2) against their plain version -------------
+    t0 = time.perf_counter()
+    Bh, Nm, P = HINGE_B, HINGE_NM, HINGE_P
+
+    def image_rows(n, frame_of):
+        """Rows of the net's 640x480 descriptor images at random pixels."""
+        px = torch.as_tensor(rng.integers(0, H * W, (Bh, n)), device=dev)
+        return torch.stack([images[frame_of(b)][:, px[b]].t() for b in range(Bh)]).contiguous()
+
+    hinge_cases = [
+        ("random rows (scale 0.3) B=4 Nm=10000 P=1024 D=3",
+         hinge_inputs(torch, np, rng, dev, Bh, Nm, P)),
+        ("rows of 640x480 descriptor images B=4 Nm=10000 P=1024 D=3",
+         hinge_inputs(torch, np, rng, dev, Bh, Nm, P, da=image_rows(Nm, lambda b: b),
+                      db=image_rows(P, lambda b: b))),
+        ("collision-heavy (pixels in [0, 8)^2)",
+         hinge_inputs(torch, np, rng, dev, Bh, Nm, P, coord_max=8)),
+        ("all rows invalid", hinge_inputs(torch, np, rng, dev, Bh, Nm, P, valid_frac=0.0)),
+        ("ragged B=3 Nm=777 P=1000 D=16", hinge_inputs(torch, np, rng, dev, 3, 777, 1000, Dd=16)),
+    ]
+    k1_err = k2_err = 0.0
+    for name, args in hinge_cases:
+        for use_pix in (False, True):
+            e1, e2 = check_pooled_hinge(torch, ph, name, args, use_pix)
+            k1_err, k2_err = max(k1_err, e1), max(k2_err, e2)
+    del hinge_cases
+    torch.cuda.empty_cache()
+    phase("pooled hinge vs plain", t0)
+
+    # 5. the main path, serving ---------------------------------------------------
     t0 = time.perf_counter()
     n_req = N_CLIENTS * REQUESTS_PER_CLIENT
     plan = []  # (frame, queries or None)
@@ -295,7 +501,94 @@ def main():
     lat = [x for x in latencies if x is not None]
     phase("serving", t0)
 
-    # 5. timings ---------------------------------------------------------------
+    # 6. the main path, training -------------------------------------------------
+    t0 = time.perf_counter()
+    from pdc_tpu_torch.data.assembler import AssemblerConfig
+    from pdc_tpu_torch.data.synthetic import SyntheticScene
+    from pdc_tpu_torch.losses.pixelwise_contrastive import LossConfig
+    from pdc_tpu_torch.models.dcn import build_backbone
+    from pdc_tpu_torch.models.resnet import init_weights_
+    from pdc_tpu_torch.training.train import build_loss_fn, create_train_state, make_train_step
+
+    tc = TRAINING_CONFIG
+    net_cfg = tc["dense_correspondence_network"]
+    Bt = tc["training"]["batch_size"]
+    loss_cfg = LossConfig.from_dict(tc["loss_function"])
+    asm_cfg = AssemblerConfig.from_training_config(tc)
+    Ht, Wt = net_cfg["image_height"], net_cfg["image_width"]
+    scene = SyntheticScene(width=Wt, height=Ht, num_frames=N_FRAMES)
+    t_render = time.perf_counter()
+    frames_t = device_frames(torch, np, dev, scene)
+    log(f"synthetic scene: {N_FRAMES} frames {Wt}x{Ht} rendered and on the card in "
+        f"{time.perf_counter() - t_render:.2f} s; object pixels per frame "
+        f"{frames_t['count'].tolist()}")
+
+    def new_state():
+        module = init_weights_(build_backbone(net_cfg), torch.Generator().manual_seed(SEED))
+        return create_train_state(module, tc, device="cuda")
+
+    state = new_state()
+    initial = {k: v.detach().clone() for k, v in state.module.state_dict().items()}
+    step = make_train_step(tc, loss_cfg, asm_cfg, Wt)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    pair_rng = np.random.default_rng(SEED)
+    batches = [pair_batch(torch, frames_t, *draw_pairs(np, pair_rng, Bt, N_FRAMES))
+               for _ in range(TRAIN_STEPS)]
+    ph.forward_launches = ph.backward_launches = 0
+    history = [{k: float(v) for k, v in step(state, b, gen).items()} for b in batches]
+    torch.cuda.synchronize()
+    k1_launches, k2_launches = ph.forward_launches, ph.backward_launches
+    for i, m in enumerate(history):
+        log(f"train step {i}: " + ", ".join(f"{k} {v:.6g}" for k, v in m.items()))
+    if not all(np.isfinite(v) for m in history for v in m.values()):
+        fail("a training metric is not finite")
+    still = [k for k, v in state.module.named_parameters()
+             if v.dim() > 1 and torch.equal(v.detach(), initial[k])]
+    log(f"training: {net_cfg['backbone']['resnet_name']} D={net_cfg['descriptor_dimension']} "
+        f"{Wt}x{Ht} B={Bt}, {TRAIN_STEPS} steps through "
+        f"make_train_step; weight tensors unchanged: {len(still)}; launches K1 "
+        f"{k1_launches}, K2 {k2_launches} (2 per step expected)")
+    if still:
+        fail(f"training left weights unchanged: {still[:5]}")
+    if k1_launches != 2 * TRAIN_STEPS or k2_launches != 2 * TRAIN_STEPS:
+        fail(f"K1/K2 launched {k1_launches}/{k2_launches} times in {TRAIN_STEPS} steps, "
+             f"not 2 per step each")
+
+    # one step with the kernels and one with the plain hinge, same batch and weights
+    from pdc_tpu_torch.ops.pooled_hinge import pooled_hinge_reference
+    assembled = step.assemble(state, pair_batch(torch, frames_t, *draw_pairs(
+        np, pair_rng, Bt, N_FRAMES)), torch.Generator(device=dev).manual_seed(SEED + 1))
+    s_kernel, s_plain = new_state(), new_state()
+    m_kernel = step.update(s_kernel, *assembled)
+    m_plain = make_train_step(tc, loss_cfg, asm_cfg, Wt,
+                              hinge=pooled_hinge_reference).update(s_plain, *assembled)
+    lr = tc["training"]["learning_rate"]
+    num = den = 0.0
+    close = total = 0
+    param_max = 0.0
+    plain_params = dict(s_plain.module.named_parameters())
+    for name, p in s_kernel.module.named_parameters():
+        q = plain_params[name]
+        num += float(((p.grad - q.grad) ** 2).sum())
+        den += float((q.grad ** 2).sum())
+        d = (p.detach() - q.detach()).abs()
+        param_max = max(param_max, float(d.max()))
+        sig = q.grad.abs() > 1e-3 * float(q.grad.abs().max())
+        close += int((d[sig] <= 1e-2 * lr).sum())
+        total += int(sig.sum())
+    grad_rel = (num / den) ** 0.5
+    loss_k, loss_p = float(m_kernel["loss"]), float(m_plain["loss"])
+    log(f"train step, kernels vs plain hinge: loss {loss_k:.8g} vs {loss_p:.8g}, gradient "
+        f"relative L2 {grad_rel:.3g}, parameters max|diff| {param_max:.3g} (lr {lr}), "
+        f"{close}/{total} significant elements within 1e-2 lr")
+    if abs(loss_k - loss_p) > STEP_LOSS_RTOL * abs(loss_p) or grad_rel > STEP_GRAD_RTOL \
+            or param_max > 2 * lr * (1 + 1e-3) or close < STEP_PARAM_SHARE * total:
+        fail("the train step with the kernels disagrees with the plain-hinge step")
+    del s_kernel, s_plain, plain_params
+    torch.cuda.empty_cache()
+    phase("training", t0)
+
+    # 7. timings ---------------------------------------------------------------
     t0 = time.perf_counter()
     log(smi)
     res1 = images[:1].contiguous()
@@ -351,10 +644,94 @@ def main():
                 f"request(s): median {1e3 * sorted(times)[2]:.2f} ms")
     finally:
         server.shutdown()
+
+    # training step: the whole step, then its parts, each between CUDA events
+    def events(n):
+        return [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+
+    step_ms, wall = [], []
+    for _ in range(TRAIN_TIMED_STEPS):
+        batch = pair_batch(torch, frames_t, *draw_pairs(np, pair_rng, Bt, N_FRAMES))
+        e = events(2)
+        t = time.perf_counter()
+        e[0].record()
+        step(state, batch, gen)
+        e[1].record()
+        torch.cuda.synchronize()
+        wall.append(1e3 * (time.perf_counter() - t))
+        step_ms.append(e[0].elapsed_time(e[1]))
+    parts = {"assembly": [], "forward+backward": [], "optimizer": []}
+    captured = []
+
+    def capture(*args):
+        captured.append([a.detach() for a in args[:8]])
+        return ph.pooled_hinge(*args)
+
+    loss_fn = build_loss_fn(state.module, loss_cfg, Wt, hinge=capture)
+    for _ in range(TRAIN_TIMED_STEPS):
+        batch = pair_batch(torch, frames_t, *draw_pairs(np, pair_rng, Bt, N_FRAMES))
+        e = events(4)
+        e[0].record()
+        assembled = step.assemble(state, batch, gen)
+        e[1].record()
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, _ = loss_fn(*assembled)
+        loss.backward()
+        e[2].record()
+        state.optimizer.step()
+        e[3].record()
+        torch.cuda.synchronize()
+        for k, (a, b) in zip(parts, ((0, 1), (1, 2), (2, 3))):
+            parts[k].append(e[a].elapsed_time(e[b]))
+    mean_step = sum(step_ms) / len(step_ms)
+    log(smi)
+    log(f"train step {net_cfg['backbone']['resnet_name']} fp32 {Wt}x{Ht} B={Bt} (CUDA events, "
+        f"{TRAIN_TIMED_STEPS} steps after {TRAIN_STEPS + 1} warm-up): {mean_step:.3f} ms "
+        f"[{', '.join(f'{x:.3f}' for x in step_ms)}], {1e3 * Bt / mean_step:.2f} pairs/s; "
+        f"host wall clock {sum(wall) / len(wall):.3f} ms")
+    split = {k: sum(v) / len(v) for k, v in parts.items()}
+    log("train step split (separate steps, CUDA events): " + ", ".join(
+        f"{k} {v:.3f} ms ({100 * v / sum(split.values()):.1f}%)" for k, v in split.items()))
+
+    # K1 and K2 at the main path's shapes: the masked pool's rows of a real step
+    hargs = [a.contiguous() for a in captured[0]]
+    g_one = torch.ones(hargs[0].shape[0], device=dev)
+    k1_ms = time_cuda(torch, lambda: ph._forward_kernel(*hargs, 0.5, False, 50.0))
+    k2_ms = time_cuda(torch, lambda: ph._backward_kernel(g_one, *hargs, 0.5, False, 50.0))
+    with torch.no_grad():
+        p1_ms = time_cuda(torch, lambda: ph.pooled_hinge_reference(*hargs, 0.5, False, 50.0),
+                          iters=5)
+        p2_ms = time_cuda(torch, lambda: ph.pooled_hinge_backward_reference(
+            g_one, *hargs, 0.5, False, 50.0), iters=5)
+        cdist_ms = time_cuda(torch, lambda: torch.cdist(hargs[0], hargs[1]), iters=5)
+    b1_ms, b1_by, sq1 = hinge_bound(hargs, False, backward=False)
+    b2_ms, b2_by, sq2 = hinge_bound(hargs, False, backward=True)
+    hard = int(ph.pooled_hinge_reference(*hargs, 0.5, False, 50.0)[1].sum())
+    log(f"pooled hinge at the main path's shapes {tuple(hargs[0].shape)} x "
+        f"{tuple(hargs[1].shape)} ({hard} hard negatives): K1 {k1_ms:.4f} ms, plain "
+        f"{p1_ms:.4f} ms, bound {b1_ms:.5f} ms ({b1_by}), at {100 * b1_ms / k1_ms:.1f}% of "
+        f"bound; K2 {k2_ms:.4f} ms, plain {p2_ms:.4f} ms, bound {b2_ms:.5f} ms ({b2_by}), at "
+        f"{100 * b2_ms / k2_ms:.1f}% of bound")
+    log(f"pooled hinge sqrt count: K1 {sq1} ({1e3 * sq1 / PEAK_SFU_S:.5f} ms at the SFU rate), "
+        f"K2 {sq2} ({1e3 * sq2 / PEAK_SFU_S:.5f} ms); no single PyTorch call computes the "
+        f"pooled hinge (library: none); torch.cdist of the same rows, the distance part "
+        f"alone: {cdist_ms:.4f} ms")
+    log(f"K1+K2 share of a train step: 2 x ({k1_ms:.4f} + {k2_ms:.4f}) ms = "
+        f"{100 * 2 * (k1_ms + k2_ms) / mean_step:.2f}% of {mean_step:.3f} ms")
+    k1_entry = {"name": "pooled_hinge_fwd", "route": "cuda",
+                "source": "pdc_tpu_torch/csrc/pooled_hinge.cu",
+                "replaces": "pdc_tpu/ops/pallas_loss.py:42", "launches": k1_launches,
+                "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": p1_ms, "bound_ms": b1_ms,
+                "bound_by": b1_by, "library_ms": None}
+    k2_entry = {"name": "pooled_hinge_bwd", "route": "cuda",
+                "source": "pdc_tpu_torch/csrc/pooled_hinge.cu",
+                "replaces": "pdc_tpu/ops/pallas_loss.py:77", "launches": k2_launches,
+                "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": p2_ms, "bound_ms": b2_ms,
+                "bound_by": b2_by, "library_ms": None}
     phase("timings", t0)
 
     faulthandler.cancel_dump_traceback_later()
-    log(json.dumps({"kernels": [entry]}))
+    log(json.dumps({"kernels": [entry, k1_entry, k2_entry]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,82 @@
+"""SE(3) and quaternion helpers.
+
+Port of :mod:`pdc_tpu.geom.transforms` (:20-163). The host-side helpers
+work in float64 numpy, as there; ``invert_se3`` takes numpy or torch, and
+``transform_points`` is torch, batched over leading axes. Quaternions are
+(w, x, y, z).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _quat_to_mat_np(w, x, y, z):
+    return np.array(
+        [
+            [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+            [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+            [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+        ]
+    )
+
+
+def quaternion_matrix(q):
+    """3x3 rotation (numpy) of a quaternion (w, x, y, z), normalised first;
+    the identity for a (near-)zero quaternion."""
+    q = np.asarray(q, dtype=np.float64)
+    n = np.dot(q, q)
+    if n < 1e-12:
+        return np.eye(3)
+    w, x, y, z = q / np.sqrt(n)
+    return _quat_to_mat_np(w, x, y, z)
+
+
+def se3_from_quat_trans(quat_wxyz, translation):
+    """4x4 homogeneous transform (numpy) from a quaternion and a translation."""
+    T = np.eye(4)
+    w, x, y, z = np.asarray(quat_wxyz, dtype=np.float64)
+    T[:3, :3] = _quat_to_mat_np(w, x, y, z)
+    T[:3, 3] = np.asarray(translation, dtype=np.float64)
+    return T
+
+
+def invert_se3(T):
+    """Inverse of ``[..., 4, 4]`` rigid transforms: ``[R^T, -R^T t]``.
+    Numpy in, numpy out; torch in, torch out."""
+    if isinstance(T, torch.Tensor):
+        R, t = T[..., :3, :3], T[..., :3, 3]
+        Rt = R.transpose(-1, -2)
+        out = torch.zeros_like(T)
+        out[..., :3, :3] = Rt
+        out[..., :3, 3] = -(Rt @ t[..., None])[..., 0]
+        out[..., 3, 3] = 1.0
+        return out
+    T = np.asarray(T)
+    Rt = np.swapaxes(T[..., :3, :3], -1, -2)
+    out = np.zeros_like(T)
+    out[..., :3, :3] = Rt
+    out[..., :3, 3] = -(Rt @ T[..., :3, 3][..., None])[..., 0]
+    out[..., 3, 3] = 1.0
+    return out
+
+
+def transform_points(T, points):
+    """Apply ``[..., 4, 4]`` transforms to ``[..., N, 3]`` points (float32)."""
+    points = torch.as_tensor(points).to(torch.float32)
+    T = torch.as_tensor(T, device=points.device).to(torch.float32)
+    return points @ T[..., :3, :3].transpose(-1, -2) + T[..., None, :3, 3]
+
+
+def pose_distance(T_a, T_b) -> float:
+    """Euclidean distance between the translations."""
+    T_a, T_b = np.asarray(T_a), np.asarray(T_b)
+    return float(np.linalg.norm(T_a[:3, 3] - T_b[:3, 3]))
+
+
+def pose_angle(T_a, T_b) -> float:
+    """Relative rotation angle in radians."""
+    T_a, T_b = np.asarray(T_a), np.asarray(T_b)
+    c = (np.trace(T_a[:3, :3].T @ T_b[:3, :3]) - 1.0) / 2.0
+    return float(np.arccos(np.clip(c, -1.0, 1.0)))

@@ -9,8 +9,10 @@ and written by :mod:`pdc_tpu_torch.models.checkpoint`, so a folder trained by
 ``pdc_tpu`` serves here and the other way round.
 
 Every constructor takes ``device`` (default ``"cuda"``), and raises without
-CUDA unless ``device="cpu"`` is asked for. Inference only: the module stays
-in eval mode.
+CUDA unless ``device="cpu"`` is asked for. The wrapper puts its module in
+eval mode and its forward passes run without gradients; training drives the
+module itself (:mod:`pdc_tpu_torch.training.train` switches it to train
+mode, and ``dcn.module.eval()`` switches it back for inference).
 """
 
 from __future__ import annotations
@@ -241,7 +243,7 @@ class DenseCorrespondenceNetwork:
         if (config.get("backbone") or {}).get("pretrained") and not load_stored_params:
             raise NotImplementedError(
                 "ImageNet-pretrained initialisation is not ported yet (it waits "
-                "for the training slice)")
+                "for the DenseCorrespondenceTraining slice)")
         module = build_backbone(config)
         if generator is None:
             generator = torch.Generator().manual_seed(0)

@@ -1,4 +1,4 @@
-"""Dilated ResNet FCN (ResNet-18/34-8s) in PyTorch, eval mode.
+"""Dilated ResNet FCN (ResNet-18/34-8s) in PyTorch.
 
 Port of :mod:`pdc_tpu.models.resnet` (``BasicBlock`` :110-155, ``ResNetFCN``
 :226-328, ``ResNet18_8s``/``ResNet34_8s`` :336-349): a ResNet whose last
@@ -11,15 +11,16 @@ leaf. What must equal flax:
 
   * padding: 3x3 convs pad by their dilation, the 7x7/2 stem by 3, 1x1
     convs by 0 (flax ``SAME`` on a 1x1 kernel pads nothing);
-  * BatchNorm eps 1e-5, running statistics only;
+  * BatchNorm eps 1e-5; in eval mode the running statistics, in train
+    mode flax's rule (:class:`FlaxBatchNorm2d`);
   * max-pool 3x3/2 with padding 1 (padded with -inf in both);
   * upsample ``F.interpolate(mode="bilinear", align_corners=False)``, which
     matches ``jax.image.resize(..., "linear")`` to ~2e-5
     (``tests/test_torch_import_numerics.py:95-134``).
 
-Only eval-mode BatchNorm is ported: flax updates its running variance with
-the biased batch variance where torch uses the unbiased one, so training
-waits for the training slice and raises here.
+The mode is torch's: ``module.train()`` normalises with the statistics of
+the batch in hand and updates the running ones, ``module.eval()`` (the
+default after construction) uses the running ones.
 """
 
 from __future__ import annotations
@@ -31,9 +32,35 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-_TRAIN_MSG = ("train-mode BatchNorm is not ported yet: it waits for the "
-              "training slice (flax's running-variance rule differs from "
-              "torch's)")
+
+class FlaxBatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm with flax's train-mode rule (``nn.BatchNorm(momentum=0.9)``,
+    ``pdc_tpu/models/resnet.py:132,142,151,268``): normalise with the
+    biased variance of the batch, and update the running statistics as
+    ``ra = 0.9 * ra + 0.1 * batch_stat`` with that same biased variance.
+    Torch's own update uses the unbiased variance, so ``F.batch_norm`` is
+    only used in eval mode."""
+
+    MOMENTUM = 0.9
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-5)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        # flax's fast variance: E[x^2] - E[x]^2, clipped at 0
+        mean = x.mean(dim=(0, 2, 3))
+        var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = self.MOMENTUM
+            self.running_mean.mul_(m).add_((1.0 - m) * mean)
+            self.running_var.mul_(m).add_((1.0 - m) * var)
+            self.num_batches_tracked.add_(1)
+        # flax's order: (x - mean) * (rsqrt(var + eps) * scale) + bias
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[None, :, None, None]) * mul[None, :, None, None] \
+            + self.bias[None, :, None, None]
 
 
 class BasicBlock(nn.Module):
@@ -44,16 +71,16 @@ class BasicBlock(nn.Module):
         super().__init__()
         self.conv1 = nn.Conv2d(in_features, features, 3, stride=stride,
                                padding=dilation, dilation=dilation, bias=False)
-        self.bn1 = nn.BatchNorm2d(features, eps=1e-5)
+        self.bn1 = FlaxBatchNorm2d(features)
         self.conv2 = nn.Conv2d(features, features, 3, padding=dilation,
                                dilation=dilation, bias=False)
-        self.bn2 = nn.BatchNorm2d(features, eps=1e-5)
+        self.bn2 = FlaxBatchNorm2d(features)
         self.proj_conv: Optional[nn.Conv2d] = None
-        self.proj_bn: Optional[nn.BatchNorm2d] = None
+        self.proj_bn: Optional[FlaxBatchNorm2d] = None
         if in_features != features or stride != 1:
             self.proj_conv = nn.Conv2d(in_features, features, 1, stride=stride,
                                        bias=False)
-            self.proj_bn = nn.BatchNorm2d(features, eps=1e-5)
+            self.proj_bn = FlaxBatchNorm2d(features)
 
     def forward(self, x):
         y = F.relu(self.bn1(self.conv1(x)))
@@ -80,7 +107,7 @@ class ResNetFCN(nn.Module):
             raise ValueError(f"output_stride must be 8, 16 or 32, got {output_stride}")
         strides, dilations = self._LAYOUTS[output_stride]
         self.stem_conv = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.stem_bn = nn.BatchNorm2d(64, eps=1e-5)
+        self.stem_bn = FlaxBatchNorm2d(64)
         self.block_names = []
         in_features = 64
         for stage, (blocks, feats) in enumerate(zip(stage_sizes, (64, 128, 256, 512))):
@@ -95,9 +122,7 @@ class ResNetFCN(nn.Module):
         self.head = nn.Conv2d(in_features, num_classes, 1, bias=True)
         self.eval()
 
-    def forward(self, x, train: bool = False):
-        if train or self.training:
-            raise NotImplementedError(_TRAIN_MSG)
+    def forward(self, x):
         in_h, in_w = x.shape[-2:]
         x = F.relu(self.stem_bn(self.stem_conv(x)))
         x = F.max_pool2d(x, 3, stride=2, padding=1)

@@ -1,5 +1,7 @@
-"""The port's CUDA kernel on the card: the best-match kernel against its
-plain version, its launch counter, and the server's batched best match.
+"""The port's CUDA kernels on the card: the best-match kernel (K3) and the
+pooled-hinge forward and backward (K1, K2) against their plain versions,
+their launch counters, determinism, the server's batched best match and one
+train step through K1/K2.
 
 Needs an NVIDIA GPU with nvcc; skips elsewhere. Imports no JAX, so it runs
 on a GPU host without the JAX package's dependencies:
@@ -12,6 +14,7 @@ import pytest
 import torch
 
 from pdc_tpu_torch.ops import best_match as bm
+from pdc_tpu_torch.ops import pooled_hinge as ph
 
 torch.set_num_threads(2)
 
@@ -103,3 +106,120 @@ def test_server_best_match_runs_the_kernel(cuda):
     idx = torch.as_tensor(uv[:, 1] * 64 + uv[:, 0], device=cuda)[None]
     _check(planar, torch.as_tensor(q, device=cuda)[None], idx,
            torch.as_tensor(np.array(dist), device=cuda)[None])
+
+
+def _hinge_case(dev, B, Nm, P, D, seed, valid_frac=0.8, scale=0.3, collide=0):
+    """Random rows at the loss's scale, match/pool pixels on a 64x48 image;
+    ``collide`` pool entries are moved onto row 0's true match."""
+    g = np.random.default_rng(seed)
+    da = (g.standard_normal((B, Nm, D)) * scale).astype(np.float32)
+    db = (g.standard_normal((B, P, D)) * scale).astype(np.float32)
+    mu = g.integers(0, 64, (B, Nm)).astype(np.float32)
+    mv = g.integers(0, 48, (B, Nm)).astype(np.float32)
+    pu = g.integers(0, 64, (B, P)).astype(np.float32)
+    pv = g.integers(0, 48, (B, P)).astype(np.float32)
+    pu[:, :collide] = mu[:, :1]
+    pv[:, :collide] = mv[:, :1]
+    mvalid = (g.random((B, Nm)) < valid_frac).astype(np.float32)
+    pvalid = (g.random((B, P)) < valid_frac).astype(np.float32)
+    return [torch.as_tensor(x, device=dev) for x in (da, db, mu, mv, mvalid, pu, pv, pvalid)]
+
+
+def _kernel_and_plain(case, use_pix, M_pixel=20.0):
+    da, db = case[0].clone().requires_grad_(), case[1].clone().requires_grad_()
+    g = torch.linspace(0.5, 1.5, case[0].shape[0], device=case[0].device)
+    f0, b0 = ph.forward_launches, ph.backward_launches
+    loss, hard = ph.pooled_hinge(da, db, *case[2:], 0.5, use_pix, M_pixel)
+    (loss * g).sum().backward()
+    torch.cuda.synchronize()
+    assert (ph.forward_launches, ph.backward_launches) == (f0 + 1, b0 + 1)
+    ploss, phard = ph.pooled_hinge_reference(*case, 0.5, use_pix, M_pixel)
+    pgda, pgdb = ph.pooled_hinge_backward_reference(g, *case, 0.5, use_pix, M_pixel)
+    return (loss, hard, da.grad, db.grad), (ploss, phard, pgda, pgdb)
+
+
+# (B, Nm, P, D): ragged Nm (not a multiple of the 64-row tile), P beyond one
+# 512-entry pool chunk, every D template (<=4, <=8, <=16)
+@pytest.mark.parametrize("use_pix", [False, True])
+@pytest.mark.parametrize("B,Nm,P,D", [(2, 700, 256, 3), (1, 65, 1030, 1), (3, 130, 77, 16),
+                                      (4, 10000, 1024, 3)])
+def test_pooled_hinge_kernels_match_plain(cuda, B, Nm, P, D, use_pix):
+    case = _hinge_case(cuda, B, Nm, P, D, seed=Nm + P + D, collide=5)
+    (loss, hard, gda, gdb), (ploss, phard, pgda, pgdb) = _kernel_and_plain(case, use_pix)
+    assert hard.dtype == torch.int64 and loss.shape == hard.shape == (B,)
+    # every term is bit-identical (no FMA contraction in the kernel), so the
+    # count is exact and only the order of the sums differs
+    assert torch.equal(hard, phard)
+    torch.testing.assert_close(loss, ploss, rtol=1e-5, atol=0)
+    for got, want in ((gda, pgda), (gdb, pgdb)):
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_pooled_hinge_all_invalid_and_collisions(cuda):
+    case = _hinge_case(cuda, 2, 100, 64, 3, seed=4)
+    case[4].zero_()  # no valid match row
+    (loss, hard, gda, gdb), _ = _kernel_and_plain(case, False)
+    assert loss.tolist() == [0.0, 0.0] and hard.tolist() == [0, 0]
+    assert not gda.any() and not gdb.any()
+    # every pool entry on every row's match pixel: all pairs collide
+    case = _hinge_case(cuda, 1, 50, 40, 3, seed=5)
+    case[2].fill_(10.0), case[3].fill_(10.0), case[5].fill_(10.0), case[6].fill_(20.0)
+    (loss, hard, _, _), _ = _kernel_and_plain(case, False)
+    assert loss.item() == 0.0 and hard.item() == 0
+
+
+def test_pooled_hinge_identical_rows_zero_grad(cuda):
+    case = _hinge_case(cuda, 1, 8, 16, 3, seed=6, valid_frac=1.0)
+    case[0].zero_(), case[1].zero_()
+    case[2].fill_(30.0), case[3].fill_(30.0)
+    case[5].copy_(torch.arange(16.0, device=cuda)[None]), case[6].zero_()  # far from (30, 30)
+    (loss, hard, gda, gdb), _ = _kernel_and_plain(case, False)
+    assert hard.item() == 8 * 16 and loss.item() == pytest.approx(8 * 16 * 0.25)
+    assert not gda.any() and not gdb.any()
+
+
+def test_pooled_hinge_is_deterministic(cuda):
+    case = _hinge_case(cuda, 4, 3000, 1024, 3, seed=7)
+    a, _ = _kernel_and_plain(case, True)
+    b, _ = _kernel_and_plain(case, True)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_pooled_hinge_raises_instead_of_falling_back(cuda, monkeypatch):
+    case = _hinge_case(cuda, 1, 10, 10, 3, seed=8)
+    with pytest.raises(TypeError):
+        ph.pooled_hinge(case[0].double(), *case[1:], 0.5, False, 50.0)
+
+    def no_library():
+        raise RuntimeError("no library")
+    monkeypatch.setattr(ph, "_library", no_library)
+    with pytest.raises(RuntimeError, match="no library"):
+        ph.pooled_hinge(*case, 0.5, False, 50.0)
+
+
+def test_train_step_runs_the_pooled_hinge_kernels(cuda):
+    from pdc_tpu_torch.data.assembler import AssemblerConfig
+    from pdc_tpu_torch.data.synthetic import SyntheticScene
+    from pdc_tpu_torch.losses.pixelwise_contrastive import LossConfig
+    from pdc_tpu_torch.models.resnet import ResNet18_8s, init_weights_
+    from pdc_tpu_torch.training.train import create_train_state, make_train_step
+
+    scene = SyntheticScene(width=64, height=48, num_frames=4)
+    rgb, depth, mask, poses = scene.render_all()
+    ia, ib = np.array([0, 1]), np.array([2, 3])
+    batch = dict(rgb_a=rgb[ia], depth_a=depth[ia], mask_a=mask[ia], pose_a=poses[ia],
+                 rgb_b=rgb[ib], depth_b=depth[ib], mask_b=mask[ib], pose_b=poses[ib],
+                 K=np.stack([scene.K] * 2), match_type=np.zeros(2, np.int32))
+    tc = {"training": {"learning_rate": 1e-4, "learning_rate_decay": 0.9,
+                       "steps_between_learning_rate_decay": 250, "weight_decay": 1e-4}}
+    state = create_train_state(init_weights_(ResNet18_8s(3), torch.Generator().manual_seed(0)),
+                               tc)  # default device: cuda
+    step = make_train_step(tc, LossConfig(), AssemblerConfig(
+        num_matching_attempts=500, masked_pool_size=128, background_pool_size=128,
+        num_blind_samples=200), 64)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    f0, b0 = ph.forward_launches, ph.backward_launches
+    losses = [float(step(state, batch, g)["loss"]) for _ in range(3)]
+    assert (ph.forward_launches - f0, ph.backward_launches - b0) == (6, 6)
+    assert np.isfinite(losses).all() and state.step == 3

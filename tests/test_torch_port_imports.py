@@ -73,8 +73,11 @@ def test_import_builds_nothing_and_needs_no_nvcc():
         "os.environ['PATH'] = ''\n"
         "os.environ.pop('CUDA_HOME', None)\n"
         "import pdc_tpu_torch.ops.best_match as bm\n"
+        "import pdc_tpu_torch.ops.pooled_hinge as ph\n"
+        "import pdc_tpu_torch.training.train\n"
         "from pdc_tpu_torch.ops import _build\n"
         "assert bm.launches == 0 and not _build._loaded\n"
+        "assert ph.forward_launches == ph.backward_launches == 0\n"
         "print('ok')\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

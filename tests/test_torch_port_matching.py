@@ -207,7 +207,7 @@ def test_nvcc_lookup_order(monkeypatch, tmp_path):
 
 
 def test_library_path_keyed_by_source_and_flags(monkeypatch):
-    assert [p.name for p in _build.sources()] == ["best_match.cu"]
+    assert [p.name for p in _build.sources()] == ["best_match.cu", "pooled_hinge.cu"]
     p = _build.library_path("best_match")
     assert p.parent == _build.BUILD_DIR and p.parent.name == "pdc_tpu_torch_kernels"
     assert p.parent.parent.parent == _build.SOURCE_DIR.parent.parent  # <repo>/build/

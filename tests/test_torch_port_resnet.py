@@ -7,6 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from pdc_tpu.models.resnet import ResNetFCN as JaxResNetFCN
 from pdc_tpu_torch.models.convert import flax_to_state_dict
@@ -63,13 +64,26 @@ def test_forward_matches_jax(name, stride, h, w):
 
 
 def test_train_mode_raises():
-    port = ResNetFCN(D, stage_sizes=STAGES["Resnet18"])
-    x = torch.zeros(1, 3, 16, 16)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        port(x, train=True)
-    port.train()
-    with pytest.raises(NotImplementedError, match="training slice"):
+    """Train mode used to raise here; it is ported now. What stays checked:
+    ``train()`` normalises with the batch's biased statistics and moves the
+    running ones by flax's rule, and ``eval()`` gives back the running-stats
+    forward (tests/test_torch_port_train.py holds train mode against flax)."""
+    port = init_weights_(ResNetFCN(D, stage_sizes=STAGES["Resnet18"]),
+                         torch.Generator().manual_seed(0))
+    x = torch.randn(2, 3, 16, 16, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want_eval = port(x)
+        port.train()
         port(x)
+    bn = port.stem_bn
+    with torch.no_grad():
+        y = F.conv2d(x, port.stem_conv.weight, stride=2, padding=3)
+    var, mean = torch.var_mean(y, dim=(0, 2, 3), unbiased=False)
+    torch.testing.assert_close(bn.running_mean, 0.1 * mean, rtol=1e-5, atol=1e-7)
+    torch.testing.assert_close(bn.running_var, 0.9 + 0.1 * var, rtol=1e-5, atol=1e-7)
+    port.eval()
+    with torch.no_grad():
+        assert not torch.equal(port(x), want_eval)  # the running statistics moved
 
 
 def test_seeded_init_is_reproducible_and_lecun_scaled():
