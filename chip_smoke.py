@@ -15,8 +15,9 @@ Phases, each fatal on failure:
   4. the pooled-hinge forward and backward kernels (K1, K2) against their
      plain version at the training shapes (B=4, Nm=10000, P=1024, D=3),
      with and without the pixel weight: random rows, rows of the network's
-     640x480 descriptor images, many collisions, no valid row, and a
-     ragged B=3, Nm=777, P=1000, D=16 case;
+     640x480 descriptor images, many collisions, no valid row, a ragged
+     B=3, Nm=777, P=1000, D=16 case, and rows at scale 0.05, where most
+     pairs count;
   5. the main path, serving: a ``DescriptorServer`` with ResNet-34-8s, D=3,
      640x480, seeded random weights, answering concurrent ``descriptors``
      and ``best_match`` requests from several client threads; its answers
@@ -189,28 +190,40 @@ def hinge_inputs(torch, np, rng, dev, B, Nm, P, da=None, db=None, scale=0.3, coo
 def hinge_bound(args, use_pix, backward):
     """Least time of one K1 (or K2) call on these inputs: bytes (each input
     read once, each output written once) over the memory rate against fp32
-    operations over the fp32 rate. Per (row, pool) pair the code does D
-    subtractions and D multiply-adds for d2, the sqrt, 2 for the hinge, 4
-    for |du|, |dv| and 2 compares; K2 adds, per counted pair, 4 for c and
-    2D multiply-adds into gda and gdb (counted from this run's data).
-    Returns (ms, "bytes" or "operations", sqrt count)."""
+    operations over the fp32 rate, counting only the work this run's data
+    needs. Every pair of a valid row and a valid pool entry needs its
+    distance decided: D subtractions, D multiplies, D - 1 adds and the test
+    d2 < T (K1), 1e-24 < d2 < T (K2), where d2 < T is exactly hinge > 0.
+    A pair that passes adds the collision test and its weight (5). A pair
+    that counts adds the sqrt, the hinge, and then the term, the loss sum
+    and the count (K1: 4) or c and c * t into gda and gdb (K2: 3 + 3D);
+    with use_pix, 7 more for the pixel weight. K2 scales its B (Nm + P) D
+    outputs by g. Returns (ms, "bytes" or "operations", sqrt count), the
+    sqrts being the counted pairs'."""
+    import torch
+    from pdc_tpu_torch.ops.pooled_hinge import _tables
     da, db = args[0], args[1]
     B, Nm, Dd = da.shape
     P = db.shape[1]
-    pairs = B * Nm * P
+    mvalid, pvalid = args[4], args[7]
+    with torch.no_grad():
+        valid = int(((mvalid != 0).sum(1) * (pvalid != 0).sum(1)).sum())
+        _, d2, _, hinge, _, _, counted = _tables(*args, 0.5, use_pix, 50.0)
+        near = (mvalid[:, :, None] != 0) & (pvalid[:, None, :] != 0) & (hinge > 0)
+        if backward:
+            near &= d2 > 1e-24
+            counted = counted & (d2 > 1e-24)
+        near, counted = int(near.sum()), int(counted.sum())
+    pix = 7 if use_pix else 0
     nbytes = 4 * (B * Nm * Dd + B * P * Dd + 3 * B * Nm + 3 * B * P)
-    flops = pairs * (3 * Dd + 8 + (4 if use_pix else 0))
-    sqrts = pairs * (2 if use_pix else 1)
     if backward:
-        import torch
-        from pdc_tpu_torch.ops.pooled_hinge import _tables
-        with torch.no_grad():
-            counted = int(_tables(*args, 0.5, use_pix, 50.0)[-1].sum())
         nbytes += 4 * B + 4 * (B * Nm * Dd + B * P * Dd)
-        flops += counted * (4 + 4 * Dd)
-        sqrts += counted
+        flops = (valid * (3 * Dd + 1) + near * 5 + counted * (2 + 3 + 3 * Dd + pix)
+                 + B * (Nm + P) * Dd)
     else:
         nbytes += 12 * B
+        flops = valid * 3 * Dd + near * 5 + counted * (2 + 4 + pix)
+    sqrts = counted * (2 if use_pix else 1)
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FP32_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), sqrts
 
@@ -241,6 +254,18 @@ def check_pooled_hinge(torch, ph, name, args, use_pix):
     if not ok_loss or hard_diff > HINGE_HARD_TOL or not ok_grad:
         fail(f"pooled hinge kernels disagree with the plain version on {name}")
     return loss_err, grad_err
+
+
+def k2_templates(_build):
+    """ptxas registers and spills of K2's kernels (hinge_bwd<MAXD>,
+    hinge_bwd_final), from nvcc's saved output."""
+    import re
+    out = {}
+    for mangled, v in _build.ptxas_report(_build.build_log("pooled_hinge")).items():
+        m = re.search(r"hinge_bwd(?:ILi(\d+)EE|(_final))", mangled)
+        if m:
+            out[f"hinge_bwd<{m.group(1)}>" if m.group(1) else "hinge_bwd_final"] = v
+    return dict(sorted(out.items()))
 
 
 def device_frames(torch, np, dev, scene):
@@ -321,6 +346,10 @@ def main():
                 log(f"  nvcc: {line.strip()}")
     bm._library()
     ph._library()
+    k2_ptxas = k2_templates(_build)
+    log("K2 templates (ptxas): " + ("; ".join(
+        f"{k} {v['registers']} registers, spill stores {v['spill_stores']} B, spill loads "
+        f"{v['spill_loads']} B" for k, v in k2_ptxas.items()) or "no nvcc output kept"))
     phase("build", t0)
 
     # 3. kernel against plain version -------------------------------------------
@@ -396,6 +425,8 @@ def main():
          hinge_inputs(torch, np, rng, dev, Bh, Nm, P, coord_max=8)),
         ("all rows invalid", hinge_inputs(torch, np, rng, dev, Bh, Nm, P, valid_frac=0.0)),
         ("ragged B=3 Nm=777 P=1000 D=16", hinge_inputs(torch, np, rng, dev, 3, 777, 1000, Dd=16)),
+        ("most pairs count: random rows at scale 0.05, B=4 Nm=10000 P=1024 D=3",
+         hinge_inputs(torch, np, rng, dev, Bh, Nm, P, scale=0.05)),
     ]
     k1_err = k2_err = 0.0
     for name, args in hinge_cases:
@@ -698,6 +729,11 @@ def main():
     g_one = torch.ones(hargs[0].shape[0], device=dev)
     k1_ms = time_cuda(torch, lambda: ph._forward_kernel(*hargs, 0.5, False, 50.0))
     k2_ms = time_cuda(torch, lambda: ph._backward_kernel(g_one, *hargs, 0.5, False, 50.0))
+    Bk, Nk, Dk = hargs[0].shape
+    Pk = hargs[1].shape[1]
+    k2_blocks = ph._library().pdc_pooled_hinge_bwd_partials(Bk, Nk, Pk, Dk) // (Dk * Pk)
+    log(f"K2 grid {k2_blocks} blocks ({k2_blocks // Bk} per pair) of 256 threads on "
+        f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
     with torch.no_grad():
         p1_ms = time_cuda(torch, lambda: ph.pooled_hinge_reference(*hargs, 0.5, False, 50.0),
                           iters=5)

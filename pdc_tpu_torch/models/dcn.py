@@ -9,10 +9,13 @@ and written by :mod:`pdc_tpu_torch.models.checkpoint`, so a folder trained by
 ``pdc_tpu`` serves here and the other way round.
 
 Every constructor takes ``device`` (default ``"cuda"``), and raises without
-CUDA unless ``device="cpu"`` is asked for. The wrapper puts its module in
-eval mode and its forward passes run without gradients; training drives the
-module itself (:mod:`pdc_tpu_torch.training.train` switches it to train
-mode, and ``dcn.module.eval()`` switches it back for inference).
+CUDA unless ``device="cpu"`` is asked for. The wrapper's forward passes
+(``forward``, ``forward_single_image_tensor``, ``forward_on_img``) always run
+the module in eval mode and without gradients, as the reference applies
+``train=False``: whatever mode the caller left the module in (training
+switches it to train mode, :mod:`pdc_tpu_torch.training.train`), the call
+neither uses nor moves BatchNorm's batch statistics, and the caller's mode is
+restored afterwards.
 """
 
 from __future__ import annotations
@@ -157,18 +160,25 @@ class DenseCorrespondenceNetwork:
     # -- forward passes -------------------------------------------------------
 
     def forward(self, img_tensor):
-        """Forward a batch of already-normalized images.
+        """Forward a batch of already-normalized images, in eval mode
+        whatever the module's mode (restored afterwards, also on an error).
 
         :param img_tensor: [B, H, W, 3] float32 (NHWC, as in ``pdc_tpu``)
         :return: [B, H, W, D] float32 descriptor images on ``self.device``
         """
         x = torch.as_tensor(img_tensor, dtype=torch.float32, device=self.device)
-        with torch.inference_mode():
-            out = self.module(x.permute(0, 3, 1, 2).contiguous())
-            if self._normalize:
-                norm = torch.linalg.vector_norm(out, dim=1, keepdim=True)
-                out = out / torch.clamp(norm, min=1e-12)
-            return out.permute(0, 2, 3, 1).contiguous()
+        modes = [(m, m.training) for m in self.module.modules()]
+        self.module.eval()
+        try:
+            with torch.inference_mode():
+                out = self.module(x.permute(0, 3, 1, 2).contiguous())
+                if self._normalize:
+                    norm = torch.linalg.vector_norm(out, dim=1, keepdim=True)
+                    out = out / torch.clamp(norm, min=1e-12)
+                return out.permute(0, 2, 3, 1).contiguous()
+        finally:
+            for m, training in modes:
+                m.training = training
 
     def forward_single_image_tensor(self, img_tensor):
         """[H, W, 3] normalized image -> [H, W, D] descriptor image."""

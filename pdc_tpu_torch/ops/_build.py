@@ -19,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -91,7 +92,43 @@ def _finish(name: str, job) -> None:
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n{log}")
+    _log_path(out).write_text(log)
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+
+
+def _log_path(lib: Path) -> Path:
+    return lib.with_name(f"{lib.name}.log")
+
+
+def build_log(name: str) -> str:
+    """nvcc's output for the built ``csrc/<name>.cu`` (kept beside the
+    library), or "" if it was never built here."""
+    if name in build_logs:
+        return build_logs[name]
+    path = _log_path(library_path(name))
+    return path.read_text() if path.exists() else ""
+
+
+def ptxas_report(log: str) -> Dict[str, Dict[str, int]]:
+    """Registers and spill bytes per kernel from nvcc's ``-Xptxas=-v``
+    output: ``{mangled name: {"registers", "spill_stores", "spill_loads"}}``."""
+    out: Dict[str, Dict[str, int]] = {}
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)'?", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {"registers": 0, "spill_stores": 0, "spill_loads": 0})
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[name]["spill_stores"], out[name]["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 def build_all() -> Dict[str, float]:

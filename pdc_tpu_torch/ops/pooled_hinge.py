@@ -129,6 +129,10 @@ def _library():
     lib.pdc_pooled_hinge_bwd.restype = i
     lib.pdc_pooled_hinge_rows_per_block.argtypes = []
     lib.pdc_pooled_hinge_rows_per_block.restype = i
+    lib.pdc_pooled_hinge_bwd_partials.argtypes = [i, i, i, i]
+    lib.pdc_pooled_hinge_bwd_partials.restype = ctypes.c_longlong
+    lib.pdc_pooled_hinge_threshold.argtypes = [f]
+    lib.pdc_pooled_hinge_threshold.restype = f
     lib.pdc_error_string.argtypes = [i]
     lib.pdc_error_string.restype = ctypes.c_char_p
     return lib
@@ -168,8 +172,8 @@ def _backward_kernel(g_loss, da, db, mu, mv, mvalid, pu, pv, pvalid, M, use_pix,
     P = db.shape[1]
     dev = da.device
     lib = _library()
-    nblk = -(-Nm // lib.pdc_pooled_hinge_rows_per_block())
-    part_gdb = torch.empty((B, nblk, P, D), dtype=torch.float32, device=dev)
+    part_gdb = torch.empty((lib.pdc_pooled_hinge_bwd_partials(B, Nm, P, D),),
+                           dtype=torch.float32, device=dev)
     gda = torch.empty_like(da)
     gdb = torch.empty_like(db)
     stream = torch.cuda.current_stream(dev).cuda_stream

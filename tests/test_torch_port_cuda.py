@@ -138,13 +138,21 @@ def _kernel_and_plain(case, use_pix, M_pixel=20.0):
     return (loss, hard, da.grad, db.grad), (ploss, phard, pgda, pgdb)
 
 
-# (B, Nm, P, D): ragged Nm (not a multiple of the 64-row tile), P beyond one
-# 512-entry pool chunk, every D template (<=4, <=8, <=16)
+# (B, Nm, P, D, scale): ragged Nm (not a multiple of K1's 64-row tile or of
+# K2's 8-warp row tile), P beyond one pool chunk (K1: 512 entries; K2: 256
+# for D <= 4, 128 above) and not a multiple of 32, P below one chunk
+# and below one warp, every D template (K2: exact D up to 4, then 8 and 16),
+# and rows at scale 0.05, where most pairs count (the counted path and the
+# gb reduction under load)
 @pytest.mark.parametrize("use_pix", [False, True])
-@pytest.mark.parametrize("B,Nm,P,D", [(2, 700, 256, 3), (1, 65, 1030, 1), (3, 130, 77, 16),
-                                      (4, 10000, 1024, 3)])
-def test_pooled_hinge_kernels_match_plain(cuda, B, Nm, P, D, use_pix):
-    case = _hinge_case(cuda, B, Nm, P, D, seed=Nm + P + D, collide=5)
+@pytest.mark.parametrize("B,Nm,P,D,scale", [
+    (2, 700, 256, 3, 0.3), (1, 65, 1030, 1, 0.3), (3, 130, 77, 16, 0.3),
+    (4, 10000, 1024, 3, 0.3),
+    (2, 1001, 600, 3, 0.3), (3, 57, 513, 2, 0.3), (2, 333, 300, 8, 0.3), (1, 71, 257, 6, 0.3),
+    (2, 300, 20, 3, 0.3), (1, 9, 1, 4, 0.3), (2, 1000, 129, 12, 0.3),
+    (4, 3000, 1024, 3, 0.05), (2, 500, 700, 4, 0.05), (1, 200, 300, 16, 0.05)])
+def test_pooled_hinge_kernels_match_plain(cuda, B, Nm, P, D, scale, use_pix):
+    case = _hinge_case(cuda, B, Nm, P, D, seed=Nm + P + D, scale=scale, collide=5)
     (loss, hard, gda, gdb), (ploss, phard, pgda, pgdb) = _kernel_and_plain(case, use_pix)
     assert hard.dtype == torch.int64 and loss.shape == hard.shape == (B,)
     # every term is bit-identical (no FMA contraction in the kernel), so the
@@ -153,6 +161,51 @@ def test_pooled_hinge_kernels_match_plain(cuda, B, Nm, P, D, use_pix):
     torch.testing.assert_close(loss, ploss, rtol=1e-5, atol=0)
     for got, want in ((gda, pgda), (gdb, pgdb)):
         assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def _threshold(M):
+    """The least float32 T >= 0 with sqrt(T) >= M (numpy's sqrt is correctly
+    rounded), by bisection over the bit patterns of non-negative floats."""
+    M = np.float32(M)
+    lo, hi = 0, 0x7F800000
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if np.sqrt(np.array(mid, np.uint32).view(np.float32)) >= M:
+            hi = mid
+        else:
+            lo = mid + 1
+    return float(np.array(lo, np.uint32).view(np.float32))
+
+
+def test_pooled_hinge_threshold_matches_numpy(cuda):
+    lib = ph._library()
+    for M in (0.5, 0.3, 1.7, 2.0, 1e-13, 0.0, -1.0, float("inf"), 1e30):
+        assert lib.pdc_pooled_hinge_threshold(M) == _threshold(M), M
+    assert _threshold(0.5) == 0.25
+
+
+def test_pooled_hinge_boundary_rows_count_exactly(cuda):
+    # rows whose distance to the (zero) pool rows straddles M = 0.5 by a few
+    # ulps: d2 lands on both sides of the threshold 0.25, and the hard count
+    # and the gradients must still equal the plain version's
+    g = np.random.default_rng(11)
+    v = g.standard_normal((1, 64, 3)).astype(np.float32)
+    v *= np.float32(0.5) / np.linalg.norm(v, axis=-1, keepdims=True).astype(np.float32)
+    steps = np.arange(-32, 32, dtype=np.int32)
+    v[0, :, 0] = (v[0, :, 0].view(np.int32) + steps).view(np.float32)
+    d2 = ((v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1]).astype(np.float32)
+          + v[..., 2] * v[..., 2]).astype(np.float32)
+    assert (d2 < 0.25).any() and (d2 >= 0.25).any()
+    case = _hinge_case(cuda, 1, 64, 40, 3, seed=12, valid_frac=1.0)
+    case[0].copy_(torch.as_tensor(v, device=cuda))
+    case[1].zero_()
+    case[5].fill_(100.0), case[6].fill_(100.0)  # no collision
+    for use_pix in (False, True):
+        (loss, hard, gda, gdb), (ploss, phard, pgda, pgdb) = _kernel_and_plain(case, use_pix)
+        assert torch.equal(hard, phard) and 0 < hard.item() < 64 * 40
+        torch.testing.assert_close(loss, ploss, rtol=1e-5, atol=0)
+        for got, want in ((gda, pgda), (gdb, pgdb)):
+            assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
 def test_pooled_hinge_all_invalid_and_collisions(cuda):

@@ -217,3 +217,27 @@ def test_trained_resnet34_8s_matches_jax_at_640x480():
     assert torch.all(dist < 1e-3)
     np.testing.assert_allclose(got[uv[:, 1].long(), uv[:, 0].long()].numpy(), queries.numpy(),
                                atol=1e-3)
+
+
+def test_forward_runs_in_eval_mode_whatever_the_module_mode():
+    # after training switched the module to train mode, a forward must still
+    # give the eval-mode result, move no BatchNorm buffer and hand the mode back
+    cfg = _cfg("Resnet18_8s")
+    dcn = DenseCorrespondenceNetwork.from_config(
+        cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    fresh = DenseCorrespondenceNetwork.from_config(
+        cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    x = torch.randn(1, H, W, 3, generator=torch.Generator().manual_seed(0))
+    dcn.module.train()
+    buffers = {k: v.clone() for k, v in dcn.module.named_buffers()}
+    got = dcn.forward_single_image_tensor(x[0])
+    assert dcn.module.training and all(m.training for m in dcn.module.modules())
+    for k, v in dcn.module.named_buffers():
+        assert torch.equal(v, buffers[k]), k
+    want = fresh.forward_single_image_tensor(x[0])
+    assert not fresh.module.training
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    # the mode comes back also when the forward raises
+    with pytest.raises(RuntimeError):
+        dcn.forward(torch.zeros(1, H, W, 5))
+    assert dcn.module.training

@@ -214,3 +214,30 @@ def test_library_path_keyed_by_source_and_flags(monkeypatch):
     assert "code=sm_90a" in " ".join(_build.NVCC_FLAGS)
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
     assert _build.library_path("best_match") != p
+
+
+def test_ptxas_report_reads_registers_and_spills(tmp_path, monkeypatch):
+    log = (
+        "ptxas info    : 0 bytes gmem\n"
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_19hinge_bwdILi3EEEvPKf' "
+        "for 'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_19hinge_bwdILi3EEEvPKf\n"
+        "    0 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads\n"
+        "ptxas info    : Used 90 registers, used 1 barriers, 384 bytes cmem[0]\n"
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115hinge_bwd_finalEPKf' "
+        "for 'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_115hinge_bwd_finalEPKf\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 20 registers, 384 bytes cmem[0]\n")
+    assert _build.ptxas_report(log) == {
+        "_ZN12_GLOBAL__N_19hinge_bwdILi3EEEvPKf":
+            {"registers": 90, "spill_stores": 4, "spill_loads": 8},
+        "_ZN12_GLOBAL__N_115hinge_bwd_finalEPKf":
+            {"registers": 20, "spill_stores": 0, "spill_loads": 0}}
+    # the log kept beside a built library is read back when this process built nothing
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "build_logs", {})
+    assert _build.build_log("pooled_hinge") == ""
+    lib = _build.library_path("pooled_hinge")
+    _build._log_path(lib).write_text(log)
+    assert _build.build_log("pooled_hinge") == log
