@@ -10,14 +10,15 @@ Phases, each fatal on failure:
   2. build: nvcc compiles ``pdc_tpu_torch/csrc/*.cu`` into
      ``build/pdc_tpu_torch_kernels/`` (first use only);
   3. the best-match kernel against its plain PyTorch version and against
-     float64 distances, on random shapes and on real 640x480 descriptor
-     images of the network;
+     float64 distances, on random shapes (HW % 4 != 0 among them) and on
+     real 640x480 descriptor images of the network, B=8 included;
   4. the pooled-hinge forward and backward kernels (K1, K2) against their
      plain version at the training shapes (B=4, Nm=10000, P=1024, D=3),
      with and without the pixel weight: random rows, rows of the network's
      640x480 descriptor images, many collisions, no valid row, a ragged
-     B=3, Nm=777, P=1000, D=16 case, and rows at scale 0.05, where most
-     pairs count;
+     B=3, Nm=777, P=1000, D=16 case, rows at scale 0.05, where most pairs
+     count, and NaN or infinite descriptors in valid and invalid rows and
+     pool entries, which must give NaN where the plain version does;
   5. the main path, serving: a ``DescriptorServer`` with ResNet-34-8s, D=3,
      640x480, seeded random weights, answering concurrent ``descriptors``
      and ``best_match`` requests from several client threads; its answers
@@ -30,8 +31,11 @@ Phases, each fatal on failure:
      the loss must stay finite, the weights must move, and K1 and K2 must
      launch twice each per step. Then one step with the kernels and one with
      the plain pooled hinge, on the same batch and weights, must agree;
-  7. timings (CUDA events, after warm-up): every kernel, its plain version,
-     its bound and a library yardstick where one exists; forward images/s;
+  7. timings: every kernel's device time (time_device: the queue primed
+     with a device-side wait, so the card never waits on the host), the
+     wrapper's time per call from an idle queue (time_cuda), the split by
+     kernel name (torch.profiler), its bound, its plain version and a
+     library yardstick where one exists (device times); forward images/s;
      serving latency; the train step and its split.
 
 The last lines are a JSON object with every kernel's numbers, the
@@ -112,7 +116,11 @@ def nvidia_smi_line():
 
 
 def time_cuda(torch, fn, iters=20, warmup=3):
-    """Milliseconds per call, from CUDA events around ``iters`` calls."""
+    """Milliseconds per call, from CUDA events around ``iters`` calls made
+    from an idle queue. Where one call's host work (checks, allocations,
+    the launch itself) outlasts its device work, the card waits between
+    launches and this reads the host: for a kernel it is the wrapper's cost
+    per call to its caller, not the kernel's time (see time_device)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -124,6 +132,81 @@ def time_cuda(torch, fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+# time_device's first device-side wait (about 5 ms at 2 GHz), and how often
+# it is lengthened (4x each time) before a reading counts as host-paced
+SLEEP_CYCLES, SLEEP_TRIES = 10_000_000, 4
+
+
+def time_device(torch, fn, iters=20, warmup=3, cycles=SLEEP_CYCLES, tries=SLEEP_TRIES):
+    """Milliseconds of device time per call of ``fn``, gaps between its
+    launches included. The stream first gets a long device-side wait
+    (``torch.cuda._sleep``); the start event, the ``iters`` calls and the end
+    event are enqueued behind it, so the card finds every launch queued when
+    it reaches the start event. If the start event has already been reached
+    when the enqueueing ends, the card may have waited on the host: the
+    reading is dropped and the wait lengthened, and after ``tries`` such
+    readings this raises. It never returns a host-paced number, and without
+    a card it raises before calling ``fn``."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("time_device reads device time on a CUDA card, and there is none")
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        drained = start.query()
+        end.record()
+        torch.cuda.synchronize()
+        if not drained:
+            return start.elapsed_time(end) / iters
+        cycles *= 4
+    raise RuntimeError(f"time_device: the queue drained before the enqueueing of {iters} calls "
+                       f"ended, {tries} times (last wait {cycles // 4} cycles): host-paced")
+
+
+def short_kernel_name(key):
+    """``hinge_fwd<3>`` from the profiler's ``void (anonymous
+    namespace)::hinge_fwd<3>(float const*, ...)``."""
+    name = key.replace("(anonymous namespace)::", "").split("(", 1)[0]
+    return name.removeprefix("void ")
+
+
+def profile_split(torch, fn, iters=10):
+    """Device time of each kernel that ``fn`` launches, from
+    ``torch.profiler`` over ``iters`` calls: ``{short name: (launches per
+    call, ms per launch)}``, or None when the profiler recorded no device
+    time on this machine."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):  # a window can come back empty; one more try
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0)
+            if us > 0 and e.count:
+                out[short_kernel_name(e.key)] = (e.count / iters, 1e-3 * us / e.count)
+        if out:
+            return out
+    return None
+
+
+def split_text(split):
+    if split is None:
+        return "profiler: no device time recorded (events only)"
+    return "profiler: " + ", ".join(f"{k} {n:g} x {ms:.5f} ms" for k, (n, ms) in split.items())
 
 
 def bound(B, Q, D_, HW):
@@ -230,7 +313,9 @@ def hinge_bound(args, use_pix, backward):
 
 def check_pooled_hinge(torch, ph, name, args, use_pix):
     """K1 and K2 against the plain version on one case; fatal on
-    disagreement. Returns (max |loss diff|, max |grad diff|)."""
+    disagreement. NaN and infinities must stand where the plain version has
+    them (fault F5), the finite values within the bars above. Returns
+    (max |loss diff|, max |grad diff|) over the finite values."""
     da = args[0].clone().requires_grad_()
     db = args[1].clone().requires_grad_()
     g = torch.linspace(0.5, 1.5, da.shape[0], device=da.device)
@@ -240,32 +325,87 @@ def check_pooled_hinge(torch, ph, name, args, use_pix):
     with torch.no_grad():
         ploss, phard = ph.pooled_hinge_reference(*args, 0.5, use_pix, 50.0)
         pgda, pgdb = ph.pooled_hinge_backward_reference(g, *args, 0.5, use_pix, 50.0)
-    loss_err = float((loss.detach() - ploss).abs().max())
+    loss = loss.detach()
     hard_diff = int((hard - phard).abs().max())
-    grad_err, ok_grad = 0.0, True
-    for got, want in ((da.grad, pgda), (db.grad, pgdb)):
-        err = float((got - want).abs().max())
-        grad_err = max(grad_err, err)
-        ok_grad &= err <= HINGE_GRAD_TOL * float(want.abs().max())
-    ok_loss = bool(((loss.detach() - ploss).abs() <= HINGE_LOSS_RTOL * ploss.abs()).all())
+    same_nonfinite, errs, ok_grad = True, [], True
+    for got, want in ((loss, ploss), (da.grad, pgda), (db.grad, pgdb)):
+        same_nonfinite &= (torch.equal(torch.isnan(got), torch.isnan(want))
+                           and torch.equal(torch.isfinite(got), torch.isfinite(want))
+                           and torch.equal(got[torch.isinf(want)], want[torch.isinf(want)]))
+        f = torch.isfinite(want) & torch.isfinite(got)
+        errs.append(float((got[f] - want[f]).abs().max()) if f.any() else 0.0)
+    f = torch.isfinite(ploss) & torch.isfinite(loss)
+    ok_loss = bool(((loss[f] - ploss[f]).abs() <= HINGE_LOSS_RTOL * ploss[f].abs()).all())
+    grad_max = 0.0
+    for err, want in zip(errs[1:], (pgda, pgdb)):
+        top = float(want[torch.isfinite(want)].abs().max()) if torch.isfinite(want).any() else 0.0
+        grad_max = max(grad_max, top)
+        ok_grad &= err <= HINGE_GRAD_TOL * top
+    n_nan = [int(torch.isnan(x).sum()) for x in (ploss, pgda, pgdb)]
     log(f"pooled hinge {name} use_pix={use_pix}: hard {phard.tolist()} (max diff {hard_diff}), "
-        f"max|loss diff| {loss_err:.3g} of {float(ploss.abs().max()):.6g}, "
-        f"max|grad diff| {grad_err:.3g} of {float(max(pgda.abs().max(), pgdb.abs().max())):.3g}")
-    if not ok_loss or hard_diff > HINGE_HARD_TOL or not ok_grad:
+        f"max|loss diff| {errs[0]:.3g} of {float(ploss[torch.isfinite(ploss)].abs().max()):.6g}, "
+        f"max|grad diff| {max(errs[1:]):.3g} of {grad_max:.3g}; NaN in plain loss/gda/gdb "
+        f"{n_nan}, kernels' NaN and infinities where the plain version's are: {same_nonfinite}")
+    if not ok_loss or hard_diff > HINGE_HARD_TOL or not ok_grad or not same_nonfinite:
         fail(f"pooled hinge kernels disagree with the plain version on {name}")
-    return loss_err, grad_err
+    return errs[0], max(errs[1:])
 
 
-def k2_templates(_build):
-    """ptxas registers and spills of K2's kernels (hinge_bwd<MAXD>,
-    hinge_bwd_final), from nvcc's saved output."""
+# fault F5: non-finite descriptors, placed as (tensor: 0 da or 1 db, pair,
+# validity of the row or entry, channel, value); a NaN anywhere makes the
+# loss NaN, as does the same infinity in one channel of a row and an entry
+NAN, INF = float("nan"), float("inf")
+F5_CASES = [
+    ("NaN in a valid row", [(0, 0, 1.0, 1, NAN)]),
+    ("NaN in an invalid row", [(0, 1, 0.0, 0, NAN)]),
+    ("NaN in a valid entry", [(1, 2, 1.0, 2, NAN)]),
+    ("NaN in an invalid entry", [(1, 3, 0.0, 0, NAN)]),
+    ("+inf in a row", [(0, 0, 1.0, 2, INF)]),
+    ("-inf in an entry", [(1, 1, 1.0, 0, -INF)]),
+    ("the same inf in a row and an entry", [(0, 2, 1.0, 1, INF), (1, 2, 0.0, 1, INF)]),
+]
+
+
+def nonfinite_inputs(torch, args, placements):
+    """A copy of K1/K2 arguments with the F5_CASES placements applied."""
+    args = [a.clone() for a in args]
+    for t, b, want, c, value in placements:
+        valid = args[4 if t == 0 else 7][b]
+        args[t][b, int(torch.nonzero(valid == want)[0, 0]), c] = value
+    return args
+
+
+def kernel_name(mangled):
+    """``hinge_fwd<3>`` from a mangled kernel name such as
+    ``_ZN<n>_GLOBAL__N__<file>9hinge_fwdILi3EEEvPKf...``: the last component
+    of the nested name, with its integer template arguments."""
     import re
-    out = {}
-    for mangled, v in _build.ptxas_report(_build.build_log("pooled_hinge")).items():
-        m = re.search(r"hinge_bwd(?:ILi(\d+)EE|(_final))", mangled)
-        if m:
-            out[f"hinge_bwd<{m.group(1)}>" if m.group(1) else "hinge_bwd_final"] = v
-    return dict(sorted(out.items()))
+    m = re.match(r"_ZN?", mangled)
+    if not m:
+        return mangled
+    i, name = m.end(), mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = re.match(r"\d+", mangled[i:]).end() + i
+        n = int(mangled[i:j])
+        name, i = mangled[j:j + n], j + n
+    if mangled[i:i + 1] == "I":
+        args = mangled[i:mangled.index("EE", i) + 1]
+        name += "<" + ",".join(re.findall(r"L[ib](\d+)E", args)) + ">"
+    return name
+
+
+def kernel_templates(_build, source):
+    """ptxas registers and spills of the kernels of ``csrc/<source>.cu``,
+    by name and template arguments (``hinge_fwd<3>``, ``best_match<3,32>``),
+    from nvcc's saved output."""
+    report = _build.ptxas_report(_build.build_log(source))
+    return dict(sorted((kernel_name(k), v) for k, v in report.items()))
+
+
+def templates_text(report):
+    return "; ".join(f"{k} {v['registers']} registers, spill stores {v['spill_stores']} B, "
+                     f"spill loads {v['spill_loads']} B" for k, v in report.items()) \
+        or "no nvcc output kept"
 
 
 def device_frames(torch, np, dev, scene):
@@ -346,10 +486,12 @@ def main():
                 log(f"  nvcc: {line.strip()}")
     bm._library()
     ph._library()
-    k2_ptxas = k2_templates(_build)
-    log("K2 templates (ptxas): " + ("; ".join(
-        f"{k} {v['registers']} registers, spill stores {v['spill_stores']} B, spill loads "
-        f"{v['spill_loads']} B" for k, v in k2_ptxas.items()) or "no nvcc output kept"))
+    hinge_ptxas = kernel_templates(_build, "pooled_hinge")
+    log("K1 templates (ptxas): " + templates_text(
+        {k: v for k, v in hinge_ptxas.items() if k.startswith("hinge_fwd")}))
+    log("K2 templates (ptxas): " + templates_text(
+        {k: v for k, v in hinge_ptxas.items() if k.startswith("hinge_bwd")}))
+    log("K3 templates (ptxas): " + templates_text(kernel_templates(_build, "best_match")))
     phase("build", t0)
 
     # 3. kernel against plain version -------------------------------------------
@@ -386,6 +528,10 @@ def main():
         ("640x480 D=3 Q=1024", images[:1].contiguous(), image_queries(1, 512, 512, 0)[None]),
         ("640x480 D=3 B=8 Q=16", images.contiguous(),
          torch.stack([image_queries((b + 1) % N_FRAMES, 8, 8, b) for b in range(N_FRAMES)])),
+        # HW % 4 != 0: the kernel's scalar loads
+        ("random HW=5001 Q=16 D=3", randn(1, 3, 5001), randn(1, 16, 3)),
+        ("640x480 less one pixel D=3 B=8 Q=17", images[:, :, :H * W - 1].contiguous(),
+         torch.stack([image_queries((b + 1) % N_FRAMES, 8, 9, b) for b in range(N_FRAMES)])),
     ]
     max_abs_err = 0.0
     for name, res, q in cases:
@@ -428,12 +574,16 @@ def main():
         ("most pairs count: random rows at scale 0.05, B=4 Nm=10000 P=1024 D=3",
          hinge_inputs(torch, np, rng, dev, Bh, Nm, P, scale=0.05)),
     ]
+    base = hinge_inputs(torch, np, rng, dev, Bh, Nm, P)
+    hinge_cases += [(f"{name} (fault F5), B=4 Nm=10000 P=1024 D=3",
+                     nonfinite_inputs(torch, base, placements))
+                    for name, placements in F5_CASES]
     k1_err = k2_err = 0.0
     for name, args in hinge_cases:
         for use_pix in (False, True):
             e1, e2 = check_pooled_hinge(torch, ph, name, args, use_pix)
             k1_err, k2_err = max(k1_err, e1), max(k2_err, e2)
-    del hinge_cases
+    del hinge_cases, base
     torch.cuda.empty_cache()
     phase("pooled hinge vs plain", t0)
 
@@ -622,14 +772,22 @@ def main():
     # 7. timings ---------------------------------------------------------------
     t0 = time.perf_counter()
     log(smi)
+    # Kernel times are device times (time_device: the queue primed before
+    # the start event); "wrapper" is the host-paced time of one Python call
+    # from an idle queue (time_cuda), what a caller waits for one call.
+    empty_ms = time_device(torch, lambda: torch.cuda._sleep(0), iters=50)
+    log(f"an empty kernel's launch (torch.cuda._sleep(0)), back to back: {empty_ms:.5f} ms "
+        f"device time per launch")
     res1 = images[:1].contiguous()
     entry = None
     for B, Q in ((1, 16), (8, 16), (1, 1024)):
         res = images[:B].contiguous()
         q = torch.stack([image_queries((b + 1) % N_FRAMES, Q // 2, Q - Q // 2, b)
                          for b in range(B)])
-        k_ms = time_cuda(torch, lambda: bm.best_match(res, q))
-        p_ms = time_cuda(torch, lambda: bm.best_match_reference(res, q), iters=5)
+        k_ms = time_device(torch, lambda: bm.best_match(res, q))
+        w_ms = time_cuda(torch, lambda: bm.best_match(res, q))
+        p_ms = time_device(torch, lambda: bm.best_match_reference(res, q), iters=5)
+        split = profile_split(torch, lambda: bm.best_match(res, q))
         lib_ms = None
         if B == 1:
             flat, q0 = res1[0].t(), q[0]
@@ -638,18 +796,24 @@ def main():
                 dmat = torch.cdist(flat, q0)  # [HW, Q]
                 i = dmat.argmin(dim=0)
                 return i, dmat.gather(0, i[None])
-            lib_ms = time_cuda(torch, library, iters=5)
+            lib_ms = time_device(torch, library, iters=5)
         b_ms, b_by = bound(B, Q, D, H * W)
-        log(f"best_match B={B} Q={Q} 640x480 D=3: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-            f"cdist+argmin {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
-            f"bound {b_ms:.5f} ms ({b_by}), kernel at {100 * b_ms / k_ms:.1f}% of bound")
+        slices, groups, per_group, steps = bm.plan(B, D, H * W, Q, dev)
+        log(f"best_match B={B} Q={Q} grid {slices} slices of {steps} x 1024 pixels x {groups} "
+            f"groups of {per_group} queries x {B} images = {slices * groups * B} blocks of 256 "
+            f"threads")
+        log(f"best_match B={B} Q={Q} 640x480 D=3: kernel device {k_ms:.5f} ms, wrapper "
+            f"{w_ms:.5f} ms per call, plain {p_ms:.4f} ms, cdist+argmin "
+            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'} (device), bound {b_ms:.5f} ms "
+            f"({b_by}), kernel at {100 * b_ms / k_ms:.1f}% of bound; {split_text(split)}")
         if (B, Q) == (1, 16):
             entry = {"name": "best_match", "route": "cuda",
                      "source": "pdc_tpu_torch/csrc/best_match.cu",
                      "replaces": "pdc_tpu/ops/pallas_kernels.py:30",
                      "launches": launches, "max_abs_err": max_abs_err,
-                     "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": lib_ms}
+                     "ms": k_ms, "device_ms": k_ms, "wrapper_ms": w_ms, "plain_ms": p_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                     "empty_launch_ms": empty_ms}
     with torch.inference_mode():
         for B in (1, 8):
             xb = x[:B].contiguous()
@@ -727,27 +891,44 @@ def main():
     # K1 and K2 at the main path's shapes: the masked pool's rows of a real step
     hargs = [a.contiguous() for a in captured[0]]
     g_one = torch.ones(hargs[0].shape[0], device=dev)
-    k1_ms = time_cuda(torch, lambda: ph._forward_kernel(*hargs, 0.5, False, 50.0))
-    k2_ms = time_cuda(torch, lambda: ph._backward_kernel(g_one, *hargs, 0.5, False, 50.0))
+    def k1():
+        return ph._forward_kernel(*hargs, 0.5, False, 50.0)
+
+    def k2():
+        return ph._backward_kernel(g_one, *hargs, 0.5, False, 50.0)
+
+    k1_ms, k1_wrapper = time_device(torch, k1), time_cuda(torch, k1)
+    k2_ms, k2_wrapper = time_device(torch, k2), time_cuda(torch, k2)
+    k1_split, k2_split = profile_split(torch, k1), profile_split(torch, k2)
     Bk, Nk, Dk = hargs[0].shape
     Pk = hargs[1].shape[1]
+    k1_blocks = ph._library().pdc_pooled_hinge_fwd_partials(Bk, Nk, Dk)
     k2_blocks = ph._library().pdc_pooled_hinge_bwd_partials(Bk, Nk, Pk, Dk) // (Dk * Pk)
-    log(f"K2 grid {k2_blocks} blocks ({k2_blocks // Bk} per pair) of 256 threads on "
+    log(f"K1 grid {k1_blocks} blocks ({k1_blocks // Bk} per pair), K2 grid {k2_blocks} blocks "
+        f"({k2_blocks // Bk} per pair), 256 threads each, on "
         f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
     with torch.no_grad():
-        p1_ms = time_cuda(torch, lambda: ph.pooled_hinge_reference(*hargs, 0.5, False, 50.0),
-                          iters=5)
-        p2_ms = time_cuda(torch, lambda: ph.pooled_hinge_backward_reference(
+        p1_ms = time_device(torch, lambda: ph.pooled_hinge_reference(*hargs, 0.5, False, 50.0),
+                            iters=5)
+        p2_ms = time_device(torch, lambda: ph.pooled_hinge_backward_reference(
             g_one, *hargs, 0.5, False, 50.0), iters=5)
-        cdist_ms = time_cuda(torch, lambda: torch.cdist(hargs[0], hargs[1]), iters=5)
+        cdist_ms = time_device(torch, lambda: torch.cdist(hargs[0], hargs[1]), iters=5)
     b1_ms, b1_by, sq1 = hinge_bound(hargs, False, backward=False)
     b2_ms, b2_by, sq2 = hinge_bound(hargs, False, backward=True)
     hard = int(ph.pooled_hinge_reference(*hargs, 0.5, False, 50.0)[1].sum())
     log(f"pooled hinge at the main path's shapes {tuple(hargs[0].shape)} x "
-        f"{tuple(hargs[1].shape)} ({hard} hard negatives): K1 {k1_ms:.4f} ms, plain "
-        f"{p1_ms:.4f} ms, bound {b1_ms:.5f} ms ({b1_by}), at {100 * b1_ms / k1_ms:.1f}% of "
-        f"bound; K2 {k2_ms:.4f} ms, plain {p2_ms:.4f} ms, bound {b2_ms:.5f} ms ({b2_by}), at "
-        f"{100 * b2_ms / k2_ms:.1f}% of bound")
+        f"{tuple(hargs[1].shape)} ({hard} hard negatives), device times: K1 {k1_ms:.5f} ms "
+        f"(wrapper {k1_wrapper:.5f} ms per call), plain {p1_ms:.4f} ms, bound {b1_ms:.5f} ms "
+        f"({b1_by}), at {100 * b1_ms / k1_ms:.1f}% of bound; K2 {k2_ms:.5f} ms (wrapper "
+        f"{k2_wrapper:.5f} ms per call), plain {p2_ms:.4f} ms, bound {b2_ms:.5f} ms ({b2_by}), "
+        f"at {100 * b2_ms / k2_ms:.1f}% of bound")
+    log(f"K1 {split_text(k1_split)}")
+    log(f"K2 {split_text(k2_split)}")
+    # the walk without its counted path: with M = 0 no pair passes d2 < T
+    k1_walk = time_device(torch, lambda: ph._forward_kernel(*hargs, 0.0, False, 50.0))
+    k2_walk = time_device(torch, lambda: ph._backward_kernel(g_one, *hargs, 0.0, False, 50.0))
+    log(f"the same inputs with M = 0 (no pair passes the distance test, so no counted path): "
+        f"K1 {k1_walk:.5f} ms, K2 {k2_walk:.5f} ms of device time")
     log(f"pooled hinge sqrt count: K1 {sq1} ({1e3 * sq1 / PEAK_SFU_S:.5f} ms at the SFU rate), "
         f"K2 {sq2} ({1e3 * sq2 / PEAK_SFU_S:.5f} ms); no single PyTorch call computes the "
         f"pooled hinge (library: none); torch.cdist of the same rows, the distance part "
@@ -757,12 +938,14 @@ def main():
     k1_entry = {"name": "pooled_hinge_fwd", "route": "cuda",
                 "source": "pdc_tpu_torch/csrc/pooled_hinge.cu",
                 "replaces": "pdc_tpu/ops/pallas_loss.py:42", "launches": k1_launches,
-                "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": p1_ms, "bound_ms": b1_ms,
+                "max_abs_err": k1_err, "ms": k1_ms, "device_ms": k1_ms,
+                "wrapper_ms": k1_wrapper, "plain_ms": p1_ms, "bound_ms": b1_ms,
                 "bound_by": b1_by, "library_ms": None}
     k2_entry = {"name": "pooled_hinge_bwd", "route": "cuda",
                 "source": "pdc_tpu_torch/csrc/pooled_hinge.cu",
                 "replaces": "pdc_tpu/ops/pallas_loss.py:77", "launches": k2_launches,
-                "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": p2_ms, "bound_ms": b2_ms,
+                "max_abs_err": k2_err, "ms": k2_ms, "device_ms": k2_ms,
+                "wrapper_ms": k2_wrapper, "plain_ms": p2_ms, "bound_ms": b2_ms,
                 "bound_by": b2_by, "library_ms": None}
     phase("timings", t0)
 

@@ -26,6 +26,19 @@
 // ||a||^2 - 2<a,b> + ||b||^2 for its matrix unit; that form loses about
 // eps * ||a||^2 in d2, exactly where the hinge is live (d2 < M^2 = 0.25).
 //
+// NaN and infinity, as the plain version gives them. Its loss_b is NaN
+// wherever da[b] or db[b] holds a NaN, valid or not (0 * NaN is NaN), or
+// one channel holds the same infinity in a row and in a pool entry
+// (inf - inf). Its gda[i,d] is NaN where da[i,d] or any db[b,:,d] is not
+// finite, and gdb[j,d] where db[j,d] or any da[b,:,d] is not (0 * NaN and
+// 0 * inf in c * t). Such a pair never counts: NaN fails every comparison.
+// Every block of K1 and K2 holds its own rows and stages the whole pool of
+// its pair, so each takes these flags from the raw values as it loads them
+// (before an invalid entry's channel 0 becomes +inf, below) and writes NaN
+// where the plain version has it: no extra pass, no atomics. The flags wait
+// in shared memory while the block walks its pairs: held in registers they
+// cost K2's walk registers and time.
+//
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s fp32 without tensor cores):
 // per launch at the training shapes (B=4, Nm=10000, P=1024, D=3) the inputs
 // are ~0.7 MB (~0.2 us) against B*Nm*P = 41M pairs. Each pair of a valid row
@@ -38,55 +51,57 @@
 // pairs' square roots on the special-function units (16 per SM per clock)
 // take ~0.0005 ms.
 //
-// K1 (simple first; later work: the K2 walk below, one launch for both pools):
-//   grid (row tiles of kRows match rows, B). The pool is staged through shared
-//   memory in chunks of kPoolChunk entries, so any P fits. kLanes threads per
-//   match row walk the chunk's pool entries; each keeps a float loss and an
-//   int count; the block reduces them in a fixed order (warp shuffles, then
-//   warps in order) into one partial per block, and a second kernel sums the
-//   partials of each pair in block order.
-//
-// K2 (redesigned; the first design walked every pair twice):
-//   1. One walk over each pair. A warp holds kBwdRows match rows in
-//      registers (every lane the same rows) and its lanes walk the pool
-//      chunk's entries, one entry per lane at a time, so each (row, entry)
-//      pair is evaluated once. c * t goes into a ga slot per (row, lane)
-//      and a gb slot per entry of the lane, both in shared memory and
-//      private to the lane; at the end the 32 lanes' ga of a row are summed
-//      by a fixed xor-shuffle tree, and at the end of each chunk the block
-//      sums the kWarps gb slots of each entry in warp order into one
-//      partial per (block, entry).
-//   2. The square root only where a pair can count. d2 is tested first:
-//      1e-24 < d2 < T, where T is the least float with sqrtf(T) >= M
-//      (host bisection, hinge_threshold). That is exact: d2 >= T means
-//      dist >= M and hinge = 0. Invalid rows and pool entries carry +inf in
-//      channel 0 and fail the test too. The counted path takes dist =
-//      sqrtf(d2) once and reuses it for c (the first design took it twice).
-//      The test only sets a bit in the lane's 32-bit mask (32 / kBwdRows
-//      entries x kBwdRows rows); the counted path then runs over each
+// Both kernels walk the pairs the same way (the first K1 gave each match row
+// 4 threads, took all 41M square roots, padded D=3 to 4 and branched per
+// pair; the first K2 walked every pair twice):
+//   1. One walk over each pair. A warp holds kWalkRows match rows in
+//      registers (every lane the same rows) and its lanes walk the staged
+//      pool chunk's entries, one entry per lane at a time, so each pool
+//      entry's loads serve all of a warp's rows and each (row, entry) pair is
+//      evaluated once.
+//   2. The square root only where a pair can count. d2 is tested first
+//      against T, the least float with sqrtf(T) >= M (host bisection,
+//      hinge_threshold). That is exact: d2 >= T means dist >= M and
+//      hinge = 0. Invalid rows and pool entries carry +inf in channel 0 and
+//      fail the test, as do NaN distances. K1's test is d2 < T: it counts a
+//      pair with d2 <= 1e-24 (dist = 1e-12, hinge = M - 1e-12). K2's is
+//      1e-24 < d2 < T: such a pair has no gradient. The counted path takes
+//      dist = sqrtf(max(d2, 1e-24)) once.
+//   3. The test only sets a bit in the lane's 32-bit mask (32 / kWalkRows
+//      entries x kWalkRows rows); the counted path then runs over each
 //      lane's own bits, so a warp pays for it as often as its busiest lane
-//      has bits. Taking the branch per pair instead made the warp run the
-//      counted path whenever any of its 32 lanes counted: with ~4.5% of
-//      pairs counting, ~77% of the time.
-//   3. Templates on the exact D for D <= 4 (no padded channel on the main
+//      has bits. Taking the branch per pair made the warp run the counted
+//      path whenever any of its 32 lanes counted: with ~4.5% of pairs
+//      counting, ~77% of the time.
+//   4. Templates on the exact D for D <= 4 (no padded channel on the main
 //      path's D=3), then 8 and 16; rows per warp and chunk shrink with D so
-//      that the registers and the shared slots fit (7 rows and 256 entries
-//      up to D=4, 4 and 128 up to 8, 2 and 128 up to 16). hinge_bwd<3>
-//      takes 53.6 KB of shared memory and, under __launch_bounds__ asking
-//      for 3 blocks per SM, 72 registers without spills (ptxas), so 3
-//      blocks of 256 threads are resident per SM. Without that cap ptxas
-//      gave it 86 registers: 2 blocks per SM, and K2 took 20% longer.
-//   4. A grid sized to the card. Every block walks the whole pool for its
-//      kWarps * kBwdRows rows, so a launch takes ceil(blocks / slots) rounds,
-//      slots being the resident blocks (3 per SM on 132 SMs: 396). Up to
-//      D=4 a warp takes 7 rows, not 8: at the main path's B=4, Nm=10000
-//      that is 4 * ceil(10000 / 56) = 716 blocks, 2 rounds with 90% of the
-//      slots busy, where 8 rows would give 628 blocks, 2 rounds with 79%
-//      busy and a longer walk per block (8 rows against 7).
-//   5. An ordered, parallel final reduction: hinge_bwd_final gives each
-//      lane one pool entry and each of the 8 warps every 8th block's
-//      partial, then adds the warps' sums in warp order, over a grid of
-//      ceil(P/32) x B blocks (128 at the main path's shapes).
+//      that the registers and the shared slots fit (7 rows up to D=4, 4 up
+//      to 8, 2 up to 16). __launch_bounds__ asks for 3 blocks of 256 threads
+//      per SM up to D=8 (2 above), which caps ptxas at 80 registers: without
+//      that cap it gave hinge_bwd<3> 86, 2 blocks per SM, and K2 took 20%
+//      longer.
+//   5. A grid sized to the card. Every block walks the whole pool for its
+//      kWarps * kWalkRows rows, so a launch takes ceil(blocks / slots)
+//      rounds, slots being the resident blocks (3 per SM on 132 SMs: 396).
+//      Up to D=4 a warp takes 7 rows, not 8: at the main path's B=4,
+//      Nm=10000 that is 4 * ceil(10000 / 56) = 716 blocks, 2 rounds with 90%
+//      of the slots busy, where 8 rows would give 628 blocks, 2 rounds with
+//      79% busy and a longer walk per block (8 rows against 7).
+// K1: the counted path adds the term to the lane's loss and one to its
+//   count. A fixed xor-shuffle tree sums each warp's lanes, and the block
+//   sums its warps in order into one partial per block (NaN where the
+//   block's flags say so). hinge_fwd_final gives each pair one block, whose
+//   threads take the partials in order and a fixed tree sums them: on an
+//   H100 0.0014 ms, where one thread per pair walking its partials in a
+//   chain took 0.0068 ms.
+// K2: c * t goes into a ga slot per (row, lane) and a gb slot per entry of
+//   the lane, both in shared memory and private to the lane; at the end the
+//   32 lanes' ga of a row are summed by a fixed xor-shuffle tree, and at the
+//   end of each chunk the block sums the kWarps gb slots of each entry in
+//   warp order into one partial per (block, entry). hinge_bwd_final gives
+//   each lane one pool entry and each of the 8 warps every 8th block's
+//   partial, then adds the warps' sums in warp order, over a grid of
+//   ceil(P/32) x B blocks (128 at the main path's shapes).
 // No atomics anywhere: two runs give bit-equal results.
 
 #include <cuda_runtime.h>
@@ -99,59 +114,149 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 64;                 // K1: match rows per block
-constexpr int kLanes = kThreads / kRows;  // K1: threads per row in the row walk
-constexpr int kPoolChunk = 512;           // K1: pool entries staged at a time
 constexpr int kMaxD = 16;
+constexpr unsigned kExpBits = 0x7f800000u;
 
 struct Hinge {
   float M, M_pixel;
   int use_pix;
 };
 
-// Shared-memory staging of one pool chunk (structure of arrays).
-template <int MAXD>
-struct PoolChunk {
-  float db[MAXD][kPoolChunk];
-  float pu[kPoolChunk], pv[kPoolChunk], pvalid[kPoolChunk];
+__device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }
+__device__ __forceinline__ float quiet_nan() { return __int_as_float(0x7fc00000); }
+__device__ __forceinline__ bool nonfinite(float x) {
+  return (__float_as_uint(x) & kExpBits) == kExpBits;
+}
+
+// Non-finite raw values seen, by channel: inf bit d for +inf in channel d,
+// bit 16 + d for -inf (D <= 16); nan bit d for a NaN in channel d.
+struct NonFinite {
+  unsigned inf = 0u, nan = 0u;
+  __device__ __forceinline__ void note(float x, int d) {
+    const unsigned u = __float_as_uint(x);
+    if ((u & kExpBits) != kExpBits) return;
+    if (u & 0x7fffffu)
+      nan |= 1u << d;
+    else
+      inf |= 1u << ((u >> 31) * 16 + d);
+  }
+  // bit d: any non-finite value in channel d
+  __device__ __forceinline__ unsigned channels() const {
+    return nan | (inf & 0xffffu) | (inf >> 16);
+  }
 };
 
+// The walk's shapes: kWalkRows(MAXD) match rows per warp (header, point 5),
+// pool chunks of kFwdChunk / kBwdChunk entries, and groups of
+// 32 / kWalkRows entries per lane, whose (entry, row) pairs fit one 32-bit
+// mask.
+__host__ __device__ constexpr int kWalkRows(int maxd) { return maxd <= 4 ? 7 : (maxd <= 8 ? 4 : 2); }
+__host__ __device__ constexpr int kFwdChunk(int maxd) { return maxd <= 4 ? 1024 : 512; }
+__host__ __device__ constexpr int kBwdChunk(int maxd) { return maxd <= 4 ? 256 : 128; }
+// Resident blocks per SM that the registers must allow (at most 80 per
+// thread for 3 blocks of 256); the shared memory allows as many (D <= 16: 2).
+__host__ __device__ constexpr int kWalkBlocksPerSm(int maxd) { return maxd <= 8 ? 3 : 2; }
+
+// Dynamic shared memory of one K2 block, in floats: the pool chunk (MAXD
+// channels, pu, pv, pvalid), one gb partial per (warp, channel, entry), one
+// ga partial per (warp, row, channel, lane), and the block's rows (MAXD
+// channels, u, v, validity).
 template <int MAXD>
-__device__ __forceinline__ void stage_pool(PoolChunk<MAXD>& s, const float* __restrict__ db,
+constexpr int bwd_smem_floats() {
+  return kBwdChunk(MAXD) * (MAXD + 3 + kWarps * MAXD) + kWarps * kWalkRows(MAXD) * MAXD * 32 +
+         kWarps * kWalkRows(MAXD) * (MAXD + 3);
+}
+
+// Stage one pool chunk of C entries into s [MAXD + 3][C]: the channels, then
+// pu, pv, pvalid. A pool entry with pvalid == 0 gets +inf in channel 0, so
+// that every pair with it has d2 = inf (or NaN) and fails the distance test:
+// its weight is 0 in the plain version as well. nf notes the raw channels.
+template <int MAXD, int C>
+__device__ __forceinline__ void stage_pool(float* s, const float* __restrict__ db,
                                            const float* __restrict__ pu,
                                            const float* __restrict__ pv,
                                            const float* __restrict__ pvalid, int b, int P, int D,
-                                           int p0, int n) {
+                                           int p0, int n, NonFinite& nf) {
   for (int k = threadIdx.x; k < n; k += kThreads) {
     const size_t o = (size_t)b * P + p0 + k;
+    const float valid = pvalid[o];
 #pragma unroll
-    for (int d = 0; d < MAXD; ++d) s.db[d][k] = d < D ? db[o * D + d] : 0.f;
-    s.pu[k] = pu[o];
-    s.pv[k] = pv[o];
-    s.pvalid[k] = pvalid[o];
+    for (int d = 0; d < MAXD; ++d) {
+      const bool real = MAXD <= 4 || d < D;
+      const float x = real ? db[o * D + d] : 0.f;
+      if (real) nf.note(x, d);
+      s[d * C + k] = (d == 0 && valid == 0.f) ? pos_inf() : x;
+    }
+    s[MAXD * C + k] = pu[o];
+    s[(MAXD + 1) * C + k] = pv[o];
+    s[(MAXD + 2) * C + k] = valid;
   }
 }
 
-// One (match row, pool entry) pair. Returns true when the pair is a counted
-// term (valid, no collision, hinge > 0); then sets the weight w (without the
-// pixel weight), the pixel weight pixw (1 without use_pix), hinge, d2 and the
-// differences t. Padded channels are 0 - 0 and add 0 exactly.
-template <int MAXD>
-__device__ __forceinline__ bool pair(const float (&a)[MAXD], float u, float v, float mval,
-                                     const float* sdb, int stride, float su, float sv,
-                                     float spvalid, const Hinge& h, float (&t)[MAXD], float& d2,
-                                     float& hinge, float& w, float& pixw) {
-  d2 = 0.f;
+// The warp's R rows starting at row0 of pair b, into registers a (every
+// lane) and, from lane 0, into the warp's shared row slots myrow [R][MAXD + 3]
+// (channels, u, v, validity). A row that is invalid (mvalid == 0) or past Nm
+// gets +inf in channel 0, so it fails the distance test like an invalid
+// entry. nf notes the raw channels of every row before Nm, valid or not; bit
+// r * MAXD + d of rnf marks a non-finite da of row r in channel d.
+template <int MAXD, int R>
+__device__ __forceinline__ void load_rows(const float* __restrict__ da,
+                                          const float* __restrict__ mu,
+                                          const float* __restrict__ mv,
+                                          const float* __restrict__ mvalid, int b, int row0,
+                                          int Nm, int D, float (&a)[R][MAXD], float* myrow,
+                                          NonFinite& nf, unsigned& rnf) {
+  constexpr int RS = MAXD + 3;
+  const int lane = threadIdx.x & 31;
+  rnf = 0u;
 #pragma unroll
-  for (int d = 0; d < MAXD; ++d) {
-    t[d] = a[d] - sdb[d * stride];
-    d2 = __fadd_rn(d2, __fmul_rn(t[d], t[d]));
+  for (int r = 0; r < R; ++r) {
+    const int row = row0 + r;
+    const bool in = row < Nm;
+    const size_t o = (size_t)b * Nm + row;
+    const float mval = in ? mvalid[o] : 0.f;
+#pragma unroll
+    for (int d = 0; d < MAXD; ++d) {
+      const bool real = in && (MAXD <= 4 || d < D);
+      const float x = real ? da[o * D + d] : 0.f;
+      if (real) {
+        nf.note(x, d);
+        if (nonfinite(x)) rnf |= 1u << (r * MAXD + d);
+      }
+      a[r][d] = mval != 0.f ? x : (d == 0 ? pos_inf() : 0.f);
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int d = 0; d < MAXD; ++d) myrow[r * RS + d] = a[r][d];
+      myrow[r * RS + MAXD] = in ? mu[o] : 0.f;
+      myrow[r * RS + MAXD + 1] = in ? mv[o] : 0.f;
+      myrow[r * RS + MAXD + 2] = mval;
+    }
   }
-  const float dist = sqrtf(fmaxf(d2, 1e-24f));
-  hinge = fmaxf(h.M - dist, 0.f);
-  const float du = fabsf(u - su), dv = fabsf(v - sv);
-  w = __fmul_rn(mval, spvalid);
-  if (w == 0.f || du < 1.f || dv < 1.f || !(hinge > 0.f)) return false;
+}
+
+// K1's counted path of one pair that passed the distance test, from shared
+// memory: row slot ar, entry k of the staged chunk spool [MAXD + 3][C].
+// Returns false where the pair does not count (weight 0, collision, or
+// hinge <= 0); else sets the hinge, the weight w and the pixel weight pixw
+// (1 without use_pix), each rounded as the plain version rounds it.
+template <int MAXD, int C>
+__device__ __forceinline__ bool counted_pair(const float* ar, const float* spool, int k,
+                                             const Hinge& h, float& hinge, float& w,
+                                             float& pixw) {
+  float t = ar[0] - spool[k];
+  float d2 = __fmul_rn(t, t);
+#pragma unroll
+  for (int d = 1; d < MAXD; ++d) {
+    t = ar[d] - spool[d * C + k];
+    d2 = __fadd_rn(d2, __fmul_rn(t, t));
+  }
+  const float du = fabsf(ar[MAXD] - spool[MAXD * C + k]);
+  const float dv = fabsf(ar[MAXD + 1] - spool[(MAXD + 1) * C + k]);
+  w = __fmul_rn(ar[MAXD + 2], spool[(MAXD + 2) * C + k]);
+  if (w == 0.f || !(du >= 1.f && dv >= 1.f)) return false;
+  hinge = h.M - sqrtf(fmaxf(d2, 1e-24f));
+  if (!(hinge > 0.f)) return false;
   pixw = 1.f;
   if (h.use_pix) {
     const float pix = sqrtf(__fadd_rn(__fmul_rn(du, du), __fmul_rn(dv, dv)));
@@ -160,68 +265,114 @@ __device__ __forceinline__ bool pair(const float (&a)[MAXD], float u, float v, f
   return true;
 }
 
-template <int MAXD>
-__device__ __forceinline__ void load_row(const float* __restrict__ da,
-                                         const float* __restrict__ mu,
-                                         const float* __restrict__ mv,
-                                         const float* __restrict__ mvalid, int b, int row, int Nm,
-                                         int D, float (&a)[MAXD], float& u, float& v,
-                                         float& mval) {
-  const bool in = row < Nm;
-  const size_t o = (size_t)b * Nm + row;
+// K1's test pass over one group of G = 32 / R entries of a lane (entries
+// k0 + 32 m + lane): bit m * R + r is set where row r and the entry have
+// d2 < T.
+template <int MAXD, int R, int C>
+__device__ __forceinline__ unsigned test_pass(const float (&a)[R][MAXD], const float* spool,
+                                              int k0, int n, float T) {
+  constexpr int G = 32 / R;
+  const int lane = threadIdx.x & 31;
+  unsigned bits = 0u;
 #pragma unroll
-  for (int d = 0; d < MAXD; ++d) a[d] = (in && d < D) ? da[o * D + d] : 0.f;
-  u = in ? mu[o] : 0.f;
-  v = in ? mv[o] : 0.f;
-  mval = in ? mvalid[o] : 0.f;
+  for (int m = 0; m < G; ++m) {
+    const int k = k0 + 32 * m + lane;
+    if (k >= n) break;
+    float bk[MAXD];
+#pragma unroll
+    for (int d = 0; d < MAXD; ++d) bk[d] = spool[d * C + k];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float t = a[r][0] - bk[0];
+      float d2 = __fmul_rn(t, t);
+#pragma unroll
+      for (int d = 1; d < MAXD; ++d) {
+        t = a[r][d] - bk[d];
+        d2 = __fadd_rn(d2, __fmul_rn(t, t));
+      }
+      if (d2 < T) bits |= 1u << (m * R + r);
+    }
+  }
+  return bits;
 }
 
+// ---- K1 -------------------------------------------------------------------
+
+// Grid (nblk, B), kThreads threads. Warp w of block x owns the R match rows
+// starting at (x * kWarps + w) * R of pair b and walks every pool chunk
+// (header, points 1-3). Writes one partial loss and count per block:
+// part_loss / part_hard [B, nblk].
 template <int MAXD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kWalkBlocksPerSm(MAXD))
 hinge_fwd(const float* __restrict__ da, const float* __restrict__ db,
           const float* __restrict__ mu, const float* __restrict__ mv,
           const float* __restrict__ mvalid, const float* __restrict__ pu,
           const float* __restrict__ pv, const float* __restrict__ pvalid,
           float* __restrict__ part_loss, int* __restrict__ part_hard, int Nm, int P, int D,
-          Hinge h) {
-  __shared__ PoolChunk<MAXD> s;
+          float T, Hinge h) {
+  constexpr int R = kWalkRows(MAXD);
+  constexpr int C = kFwdChunk(MAXD);
+  constexpr int G = 32 / R;
+  constexpr int RS = MAXD + 3;
+  __shared__ float spool[(MAXD + 3) * C];
+  __shared__ float srow[kWarps * R * RS];
   __shared__ float wloss[kWarps];
   __shared__ int whard[kWarps];
+  // non-finite flags, per warp, of its rows [0] and of the pool entries its
+  // lanes staged [1]; kept here, not in registers, during the walk
+  __shared__ unsigned winf[2][kWarps], wnan[2][kWarps];
 
   const int b = blockIdx.y;
-  const int row = blockIdx.x * kRows + threadIdx.x / kLanes;
-  const int lane = threadIdx.x % kLanes;
-  float a[MAXD], u, v, mval;
-  load_row<MAXD>(da, mu, mv, mvalid, b, row, Nm, D, a, u, v, mval);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* const myrow = srow + warp * R * RS;
+  NonFinite rows_nf;
+  unsigned rnf;
+  float a[R][MAXD];
+  load_rows<MAXD, R>(da, mu, mv, mvalid, b, (blockIdx.x * kWarps + warp) * R, Nm, D, a, myrow,
+                     rows_nf, rnf);
+  if (lane == 0) {  // the same in every lane of the warp
+    winf[0][warp] = rows_nf.inf;
+    wnan[0][warp] = rows_nf.nan;
+    winf[1][warp] = wnan[1][warp] = 0u;
+  }
 
   float loss = 0.f;
   int hard = 0;
-  for (int p0 = 0; p0 < P; p0 += kPoolChunk) {
-    const int n = min(kPoolChunk, P - p0);
+  for (int p0 = 0; p0 < P; p0 += C) {
+    const int n = min(C, P - p0);
     __syncthreads();  // the previous chunk is consumed
-    stage_pool<MAXD>(s, db, pu, pv, pvalid, b, P, D, p0, n);
+    NonFinite pool_nf;
+    stage_pool<MAXD, C>(spool, db, pu, pv, pvalid, b, P, D, p0, n, pool_nf);
+    const unsigned pinf = __reduce_or_sync(0xffffffffu, pool_nf.inf);
+    const unsigned pnan = __reduce_or_sync(0xffffffffu, pool_nf.nan);
+    if (lane == 0) {
+      winf[1][warp] |= pinf;
+      wnan[1][warp] |= pnan;
+    }
     __syncthreads();
-    if (mval != 0.f) {
-      for (int k = lane; k < n; k += kLanes) {
-        float t[MAXD], d2, hinge, w, pixw;
-        if (pair<MAXD>(a, u, v, mval, &s.db[0][k], kPoolChunk, s.pu[k], s.pv[k], s.pvalid[k],
-                       h, t, d2, hinge, w, pixw)) {
-          float term = __fmul_rn(__fmul_rn(w, hinge), hinge);
-          if (h.use_pix) term = __fmul_rn(term, pixw);
-          loss = __fadd_rn(loss, term);
-          ++hard;
-        }
+    for (int k0 = 0; k0 < n; k0 += 32 * G) {
+      unsigned bits = test_pass<MAXD, R, C>(a, spool, k0, n, T);
+      while (bits) {
+        const int i = __ffs((int)bits) - 1;
+        bits &= bits - 1u;
+        const int m = i / R, r = i - m * R;
+        float hinge, w, pixw;
+        if (!counted_pair<MAXD, C>(myrow + r * RS, spool, k0 + 32 * m + lane, h, hinge, w, pixw))
+          continue;
+        float term = __fmul_rn(__fmul_rn(w, hinge), hinge);
+        if (h.use_pix) term = __fmul_rn(term, pixw);
+        loss = __fadd_rn(loss, term);
+        ++hard;
       }
     }
   }
 
-  const int wl = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
-    loss += __shfl_down_sync(0xffffffffu, loss, off);
-    hard += __shfl_down_sync(0xffffffffu, hard, off);
+    loss = __fadd_rn(loss, __shfl_xor_sync(0xffffffffu, loss, off));
+    hard += __shfl_xor_sync(0xffffffffu, hard, off);
   }
-  if (wl == 0) {
+  if (lane == 0) {
     wloss[warp] = loss;
     whard[warp] = hard;
   }
@@ -229,75 +380,60 @@ hinge_fwd(const float* __restrict__ da, const float* __restrict__ db,
   if (threadIdx.x == 0) {
     float l = 0.f;
     int c = 0;
+    unsigned rinf = 0u, pinf = 0u, nan = 0u;
     for (int w = 0; w < kWarps; ++w) {
-      l += wloss[w];
+      l = __fadd_rn(l, wloss[w]);
       c += whard[w];
+      rinf |= winf[0][w];
+      pinf |= winf[1][w];
+      nan |= wnan[0][w] | wnan[1][w];
     }
+    // a NaN in the block's rows or the pool, or inf - inf in one channel
+    if (nan || (rinf & pinf)) l = quiet_nan();
     part_loss[(size_t)b * gridDim.x + blockIdx.x] = l;
     part_hard[(size_t)b * gridDim.x + blockIdx.x] = c;
   }
 }
 
-// one thread per pair b: partials in block order
-__global__ void hinge_fwd_final(const float* __restrict__ part_loss,
-                                const int* __restrict__ part_hard, float* __restrict__ loss,
-                                long long* __restrict__ hard, int B, int nblk) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+// Grid B, kThreads threads: thread t of block b takes the partials t,
+// t + kThreads, ... of pair b in order, a fixed xor-shuffle tree sums each
+// warp, and thread 0 the warps in order. No atomics.
+__global__ void __launch_bounds__(kThreads)
+hinge_fwd_final(const float* __restrict__ part_loss, const int* __restrict__ part_hard,
+                float* __restrict__ loss, long long* __restrict__ hard, int nblk) {
+  __shared__ float wl[kWarps];
+  __shared__ long long wh[kWarps];
+  const int b = blockIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float l = 0.f;
   long long c = 0;
-  for (int k = 0; k < nblk; ++k) {
-    l += part_loss[(size_t)b * nblk + k];
+  for (int k = threadIdx.x; k < nblk; k += kThreads) {
+    l = __fadd_rn(l, part_loss[(size_t)b * nblk + k]);
     c += part_hard[(size_t)b * nblk + k];
   }
-  loss[b] = l;
-  hard[b] = c;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    l = __fadd_rn(l, __shfl_xor_sync(0xffffffffu, l, off));
+    c += __shfl_xor_sync(0xffffffffu, c, off);
+  }
+  if (lane == 0) {
+    wl[warp] = l;
+    wh[warp] = c;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float s = 0.f;
+    long long n = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      s = __fadd_rn(s, wl[w]);
+      n += wh[w];
+    }
+    loss[b] = s;
+    hard[b] = n;
+  }
 }
 
 // ---- K2 -------------------------------------------------------------------
-
-// K2's shapes: kBwdRows(MAXD) match rows per warp (header, point 4), pool
-// chunks of kBwdChunk(MAXD) entries, and groups of 32 / kBwdRows entries per
-// lane, whose (entry, row) pairs fit one 32-bit mask.
-__host__ __device__ constexpr int kBwdRows(int maxd) { return maxd <= 4 ? 7 : (maxd <= 8 ? 4 : 2); }
-__host__ __device__ constexpr int kBwdChunk(int maxd) { return maxd <= 4 ? 256 : 128; }
-// Resident K2 blocks per SM that the registers must allow (at most 80 per
-// thread for 3 blocks of 256); the shared memory allows as many (D <= 16: 2).
-__host__ __device__ constexpr int kBwdBlocksPerSm(int maxd) { return maxd <= 8 ? 3 : 2; }
-
-// Dynamic shared memory of one K2 block, in floats: the pool chunk (MAXD
-// channels, pu, pv, pvalid), one gb partial per (warp, channel, entry), one
-// ga partial per (warp, row, channel, lane), and the block's rows (MAXD
-// channels, u, v, validity).
-template <int MAXD>
-constexpr int bwd_smem_floats() {
-  return kBwdChunk(MAXD) * (MAXD + 3 + kWarps * MAXD) + kWarps * kBwdRows(MAXD) * MAXD * 32 +
-         kWarps * kBwdRows(MAXD) * (MAXD + 3);
-}
-
-// Stage one pool chunk for K2. A pool entry with pvalid == 0 gets +inf in
-// channel 0, so that every pair with it has d2 = inf (or NaN) and fails the
-// distance test: its weight is 0 in the plain version as well.
-template <int MAXD>
-__device__ __forceinline__ void stage_pool_bwd(float* s, const float* __restrict__ db,
-                                               const float* __restrict__ pu,
-                                               const float* __restrict__ pv,
-                                               const float* __restrict__ pvalid, int b, int P,
-                                               int D, int p0, int n) {
-  constexpr int C = kBwdChunk(MAXD);
-  for (int k = threadIdx.x; k < n; k += kThreads) {
-    const size_t o = (size_t)b * P + p0 + k;
-    const float valid = pvalid[o];
-#pragma unroll
-    for (int d = 0; d < MAXD; ++d) {
-      const float x = (MAXD <= 4 || d < D) ? db[o * D + d] : 0.f;
-      s[d * C + k] = (d == 0 && valid == 0.f) ? __int_as_float(0x7f800000) : x;
-    }
-    s[MAXD * C + k] = pu[o];
-    s[(MAXD + 1) * C + k] = pv[o];
-    s[(MAXD + 2) * C + k] = valid;
-  }
-}
 
 // Grid (nblk, B), kThreads threads. Warp w of block x owns the R match
 // rows starting at (x * kWarps + w) * R of pair b; every lane holds those
@@ -316,17 +452,19 @@ __device__ __forceinline__ void stage_pool_bwd(float* s, const float* __restrict
 //     busiest lane has bits, not once per pair that any lane counts.
 // At the end of a chunk the block sums the kWarps gb partials of each entry
 // in warp order and writes one partial per (block, entry) to part_gdb
-// [B, nblk, D, P]. At the end, each row's ga is summed over the 32 lanes by
-// a fixed xor-shuffle tree.
+// [B, nblk, D, P]: NaN in channel d where the block's rows hold a non-finite
+// value in channel d. At the end, each row's ga is summed over the 32 lanes
+// by a fixed xor-shuffle tree: NaN where the row's value or any pool entry's
+// in that channel is not finite.
 template <int MAXD>
-__global__ void __launch_bounds__(kThreads, kBwdBlocksPerSm(MAXD))
+__global__ void __launch_bounds__(kThreads, kWalkBlocksPerSm(MAXD))
 hinge_bwd(const float* __restrict__ da, const float* __restrict__ db,
           const float* __restrict__ mu, const float* __restrict__ mv,
           const float* __restrict__ mvalid, const float* __restrict__ pu,
           const float* __restrict__ pv, const float* __restrict__ pvalid,
           const float* __restrict__ g_loss, float* __restrict__ gda,
           float* __restrict__ part_gdb, int Nm, int P, int D, float T, Hinge h) {
-  constexpr int R = kBwdRows(MAXD);
+  constexpr int R = kWalkRows(MAXD);
   constexpr int C = kBwdChunk(MAXD);
   constexpr int G = 32 / R;        // entries per lane in one mask
   constexpr int RS = MAXD + 3;     // floats per staged row
@@ -335,7 +473,10 @@ hinge_bwd(const float* __restrict__ da, const float* __restrict__ db,
   float* const sgb = spool + (MAXD + 3) * C;       // [kWarps][MAXD][C]
   float* const sga = sgb + kWarps * MAXD * C;      // [kWarps][R][MAXD][32]
   float* const srow = sga + kWarps * R * MAXD * 32;  // [kWarps][R][MAXD + 3]
-  const float inf = __int_as_float(0x7f800000);
+  // per warp: the channels with a non-finite value in its rows [0] and in
+  // the pool entries its lanes staged [1], and its rows' (row, channel)
+  // bits [2]; kept here, not in registers, during the walk
+  __shared__ unsigned wnf[3][kWarps];
 
   const int b = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -344,34 +485,25 @@ hinge_bwd(const float* __restrict__ da, const float* __restrict__ db,
   float* const myga = sga + warp * R * MAXD * 32 + lane;
   float* const mygb = sgb + warp * MAXD * C;
 
-  // The warp's rows. A row that is invalid (mvalid == 0) or past Nm gets
-  // +inf in channel 0, so it fails the distance test like an invalid entry.
+  NonFinite rows_nf;
+  unsigned rnf;
   float a[R][MAXD];
+  load_rows<MAXD, R>(da, mu, mv, mvalid, b, row0, Nm, D, a, myrow, rows_nf, rnf);
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int row = row0 + r;
-    const bool in = row < Nm;
-    const size_t o = (size_t)b * Nm + row;
-    const float mval = in ? mvalid[o] : 0.f;
-#pragma unroll
-    for (int d = 0; d < MAXD; ++d) {
-      a[r][d] = (in && mval != 0.f && (MAXD <= 4 || d < D)) ? da[o * D + d]
-                                                             : (d == 0 && mval == 0.f ? inf : 0.f);
-      myga[(r * MAXD + d) * 32] = 0.f;
-    }
-    if (lane == 0) {
-#pragma unroll
-      for (int d = 0; d < MAXD; ++d) myrow[r * RS + d] = a[r][d];
-      myrow[r * RS + MAXD] = in ? mu[o] : 0.f;
-      myrow[r * RS + MAXD + 1] = in ? mv[o] : 0.f;
-      myrow[r * RS + MAXD + 2] = mval;
-    }
+  for (int i = 0; i < R * MAXD; ++i) myga[i * 32] = 0.f;
+  if (lane == 0) {  // the same in every lane of the warp
+    wnf[0][warp] = rows_nf.channels();
+    wnf[1][warp] = 0u;
+    wnf[2][warp] = rnf;
   }
 
   for (int p0 = 0; p0 < P; p0 += C) {
     const int n = min(C, P - p0);
     __syncthreads();  // the previous chunk and its gb partials are consumed
-    stage_pool_bwd<MAXD>(spool, db, pu, pv, pvalid, b, P, D, p0, n);
+    NonFinite pool_nf;
+    stage_pool<MAXD, C>(spool, db, pu, pv, pvalid, b, P, D, p0, n, pool_nf);
+    const unsigned pch = __reduce_or_sync(0xffffffffu, pool_nf.channels());
+    if (lane == 0) wnf[1][warp] |= pch;
     __syncthreads();
     for (int k0 = 0; k0 < n; k0 += 32 * G) {
       // test pass: bit m * R + r for entry k0 + 32 m + lane against row r
@@ -398,7 +530,8 @@ hinge_bwd(const float* __restrict__ da, const float* __restrict__ db,
           if (d2 > 1e-24f && d2 < T) bits |= 1u << (m * R + r);
         }
       }
-      // counted pass: the same arithmetic as pair(), from shared memory
+      // counted pass: the arithmetic of K1's counted_pair (d2 > 1e-24 here, so
+      // sqrtf(d2) is the plain version's dist), then c and c * t
       while (bits) {
         const int i = __ffs((int)bits) - 1;
         bits &= bits - 1u;
@@ -435,6 +568,9 @@ hinge_bwd(const float* __restrict__ da, const float* __restrict__ db,
       }
     }
     __syncthreads();
+    unsigned rows_ch = 0u;  // channels with a non-finite value in the block's rows
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) rows_ch |= wnf[0][w];
     // one partial per (block, entry): the warps' partials in warp order
     float* const out = part_gdb + ((size_t)b * gridDim.x + blockIdx.x) * D * P + p0;
     for (int i = threadIdx.x; i < D * n; i += kThreads) {
@@ -442,10 +578,14 @@ hinge_bwd(const float* __restrict__ da, const float* __restrict__ db,
       float s = 0.f;
 #pragma unroll
       for (int w = 0; w < kWarps; ++w) s = __fadd_rn(s, sgb[(w * MAXD + d) * C + k]);
-      out[(size_t)d * P + k] = s;
+      out[(size_t)d * P + k] = (rows_ch >> d) & 1u ? quiet_nan() : s;
     }
   }
 
+  unsigned pool_ch = 0u;  // every warp's slot was written before the last chunk's walk
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) pool_ch |= wnf[1][w];
+  rnf = wnf[2][warp];
   const float g = g_loss[b];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
@@ -455,18 +595,22 @@ hinge_bwd(const float* __restrict__ da, const float* __restrict__ db,
       float s = myga[(r * MAXD + d) * 32];
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, off));
-      if (lane == 0 && row < Nm && (MAXD <= 4 || d < D))
-        gda[((size_t)b * Nm + row) * D + d] = __fmul_rn(g, s);
+      if (lane == 0 && row < Nm && (MAXD <= 4 || d < D)) {
+        const bool nan = ((pool_ch >> d) | (rnf >> (r * MAXD + d))) & 1u;
+        gda[((size_t)b * Nm + row) * D + d] = nan ? quiet_nan() : __fmul_rn(g, s);
+      }
     }
   }
 }
 
 // Grid (ceil(P / 32), B), kThreads threads: lane l owns pool entry
 // 32 * x + l; warp w sums the partials of blocks w, w + kWarps, ... in
-// order, and the warps' sums are added in warp order. No atomics.
+// order, and the warps' sums are added in warp order. No atomics. NaN where
+// the entry's own db value is not finite.
 __global__ void __launch_bounds__(kThreads)
-hinge_bwd_final(const float* __restrict__ part_gdb, const float* __restrict__ g_loss,
-                float* __restrict__ gdb, int P, int D, int nblk) {
+hinge_bwd_final(const float* __restrict__ part_gdb, const float* __restrict__ db,
+                const float* __restrict__ g_loss, float* __restrict__ gdb, int P, int D,
+                int nblk) {
   __shared__ float red[kWarps][kMaxD][32];
   const int b = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -486,18 +630,9 @@ hinge_bwd_final(const float* __restrict__ part_gdb, const float* __restrict__ g_
     float s = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) s = __fadd_rn(s, red[w][d][l]);
-    gdb[((size_t)b * P + jj) * D + d] = __fmul_rn(g, -s);
+    const size_t o = ((size_t)b * P + jj) * D + d;
+    gdb[o] = nonfinite(db[o]) ? quiet_nan() : __fmul_rn(g, -s);
   }
-}
-
-template <typename F4, typename F8, typename F16>
-void by_d(int D, F4 f4, F8 f8, F16 f16) {
-  if (D <= 4)
-    f4();
-  else if (D <= 8)
-    f8();
-  else
-    f16();
 }
 
 int prologue(int device, int B, int Nm, int P, int D) {
@@ -508,10 +643,10 @@ int prologue(int device, int B, int Nm, int P, int D) {
   return 0;
 }
 
-// Calls f(std::integral_constant<int, MAXD>) for K2's template of D: the
+// Calls f(std::integral_constant<int, MAXD>) for the template of D: the
 // exact D up to 4, else 8 or 16 (padded channels add 0 - 0).
 template <typename F>
-void by_d_bwd(int D, F f) {
+void by_d(int D, F f) {
   switch (D) {
     case 1: f(std::integral_constant<int, 1>{}); break;
     case 2: f(std::integral_constant<int, 2>{}); break;
@@ -548,23 +683,20 @@ float hinge_threshold(float M) {
   return t;
 }
 
-// Blocks per pair b of K2's grid.
+// Blocks per pair b of K1's and K2's grids.
 template <int MAXD>
-int bwd_blocks(int Nm) {
-  return (Nm + kWarps * kBwdRows(MAXD) - 1) / (kWarps * kBwdRows(MAXD));
+int walk_blocks(int Nm) {
+  return (Nm + kWarps * kWalkRows(MAXD) - 1) / (kWarps * kWalkRows(MAXD));
 }
 
 }  // namespace
 
 extern "C" {
 
-// K1's match rows per block: the caller sizes K1's partials from it
-// (nblk = ceil(Nm / rows)).
-int pdc_pooled_hinge_rows_per_block() { return kRows; }
-
 // K1. Device pointers of contiguous tensors: da [B, Nm, D], db [B, P, D],
-// mu/mv/mvalid [B, Nm], pu/pv/pvalid [B, P], part_loss/part_hard [B, nblk],
-// loss [B] float, hard [B] int64. Returns cudaGetLastError() of the launches.
+// mu/mv/mvalid [B, Nm], pu/pv/pvalid [B, P], part_loss/part_hard of
+// pdc_pooled_hinge_fwd_partials(B, Nm, D) entries, loss [B] float, hard [B]
+// int64. Returns cudaGetLastError() of the launches.
 int pdc_pooled_hinge_fwd(const float* da, const float* db, const float* mu, const float* mv,
                          const float* mvalid, const float* pu, const float* pv,
                          const float* pvalid, float* part_loss, int* part_hard, float* loss,
@@ -572,22 +704,30 @@ int pdc_pooled_hinge_fwd(const float* da, const float* db, const float* mu, cons
                          float M_pixel, int device, void* stream) {
   int err = prologue(device, B, Nm, P, D);
   if (err) return err;
-  const int nblk = (Nm + kRows - 1) / kRows;
-  const dim3 grid(nblk, B);
   const Hinge h{M, M_pixel, use_pix};
+  const float T = hinge_threshold(M);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  by_d(
-      D,
-      [&] { hinge_fwd<4><<<grid, kThreads, 0, s>>>(da, db, mu, mv, mvalid, pu, pv, pvalid,
-                                                   part_loss, part_hard, Nm, P, D, h); },
-      [&] { hinge_fwd<8><<<grid, kThreads, 0, s>>>(da, db, mu, mv, mvalid, pu, pv, pvalid,
-                                                   part_loss, part_hard, Nm, P, D, h); },
-      [&] { hinge_fwd<16><<<grid, kThreads, 0, s>>>(da, db, mu, mv, mvalid, pu, pv, pvalid,
-                                                    part_loss, part_hard, Nm, P, D, h); });
+  int nblk = 0;
+  by_d(D, [&](auto maxd) {
+    constexpr int MAXD = decltype(maxd)::value;
+    nblk = walk_blocks<MAXD>(Nm);
+    hinge_fwd<MAXD><<<dim3(nblk, B), kThreads, 0, s>>>(da, db, mu, mv, mvalid, pu, pv, pvalid,
+                                                        part_loss, part_hard, Nm, P, D, T, h);
+  });
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  hinge_fwd_final<<<(B + 127) / 128, 128, 0, s>>>(part_loss, part_hard, loss, hard, B, nblk);
+  hinge_fwd_final<<<B, kThreads, 0, s>>>(part_loss, part_hard, loss, hard, nblk);
   return (int)cudaGetLastError();
+}
+
+// K1's scratch: the entries part_loss and part_hard each need for these
+// shapes, B * nblk (nblk: blocks per pair of K1's grid), or -1 for shapes
+// K1 does not take.
+long long pdc_pooled_hinge_fwd_partials(int B, int Nm, int D) {
+  if (B < 1 || Nm < 1 || D < 1 || D > kMaxD) return -1;
+  int nblk = 0;
+  by_d(D, [&](auto maxd) { nblk = walk_blocks<decltype(maxd)::value>(Nm); });
+  return (long long)B * nblk;
 }
 
 // K2. Same inputs plus g_loss [B] (the loss cotangent); part_gdb of
@@ -604,9 +744,9 @@ int pdc_pooled_hinge_bwd(const float* da, const float* db, const float* mu, cons
   const float T = hinge_threshold(M);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int nblk = 0;
-  by_d_bwd(D, [&](auto maxd) {
+  by_d(D, [&](auto maxd) {
     constexpr int MAXD = decltype(maxd)::value;
-    nblk = bwd_blocks<MAXD>(Nm);
+    nblk = walk_blocks<MAXD>(Nm);
     const int smem = bwd_smem_floats<MAXD>() * (int)sizeof(float);
     // above the 48 KB default: allowed per launch, on the current device
     err = (int)cudaFuncSetAttribute(hinge_bwd<MAXD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -618,7 +758,8 @@ int pdc_pooled_hinge_bwd(const float* da, const float* db, const float* mu, cons
   if (err) return err;
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  hinge_bwd_final<<<dim3((P + 31) / 32, B), kThreads, 0, s>>>(part_gdb, g_loss, gdb, P, D, nblk);
+  hinge_bwd_final<<<dim3((P + 31) / 32, B), kThreads, 0, s>>>(part_gdb, db, g_loss, gdb, P, D,
+                                                              nblk);
   return (int)cudaGetLastError();
 }
 
@@ -627,11 +768,11 @@ int pdc_pooled_hinge_bwd(const float* da, const float* db, const float* mu, cons
 long long pdc_pooled_hinge_bwd_partials(int B, int Nm, int P, int D) {
   if (B < 1 || Nm < 1 || P < 1 || D < 1 || D > kMaxD) return -1;
   int nblk = 0;
-  by_d_bwd(D, [&](auto maxd) { nblk = bwd_blocks<decltype(maxd)::value>(Nm); });
+  by_d(D, [&](auto maxd) { nblk = walk_blocks<decltype(maxd)::value>(Nm); });
   return (long long)B * nblk * D * P;
 }
 
-// The threshold K2 uses for margin M (see hinge_threshold).
+// The threshold K1 and K2 use for margin M (see hinge_threshold).
 float pdc_pooled_hinge_threshold(float M) { return hinge_threshold(M); }
 
 const char* pdc_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

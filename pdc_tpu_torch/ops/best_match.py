@@ -11,13 +11,21 @@ its bound on the card and its design.
 returns ``idx [B, Q]`` int32 and ``dist [B, Q]`` float32: for each query the
 pixel of least ``||r_p - q||^2``, ties to the lowest index, and its
 distance. On a CPU tensor it runs :func:`best_match_reference`; on a CUDA
-tensor it launches the kernel or raises — there is no fallback.
+tensor it launches the kernel (one launch per call) or raises — there is no
+fallback.
+
+The kernel's last block of each (image, query group) reduces the others'
+partials, elected by a ticket counter. The counters are one zeroed int32
+buffer per (device, stream), kept here and grown when a call needs more;
+every launch leaves its counters at zero, and no two streams share a
+buffer, so launches on different streams cannot draw each other's tickets.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -25,7 +33,7 @@ from pdc_tpu_torch.ops import _build
 
 MAX_D = 16
 _MAX_GRID_YZ = 65535
-_QUERIES_PER_BLOCK = 16  # kQG in best_match.cu
+_QUERIES_PER_BLOCK = 16  # the smallest query group of best_match.cu
 
 # kernel launches made by best_match() on CUDA tensors (read by chip_smoke.py)
 launches = 0
@@ -79,13 +87,43 @@ def _library():
     """The kernel's library, built on first use, with its C signatures."""
     lib = _build.load("best_match")
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.pdc_best_match.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i, vp]
+    lib.pdc_best_match.argtypes = [vp] * 7 + [i, i, i, i, i, vp]
     lib.pdc_best_match.restype = i
-    lib.pdc_best_match_chunk_pixels.argtypes = []
-    lib.pdc_best_match_chunk_pixels.restype = i
+    lib.pdc_best_match_plan.argtypes = [i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
+    lib.pdc_best_match_plan.restype = i
     lib.pdc_error_string.argtypes = [i]
     lib.pdc_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _raise_on(lib, err):
+    if err != 0:
+        raise RuntimeError(f"best_match kernel launch failed: "
+                           f"{lib.pdc_error_string(err).decode()} (cudaError {err})")
+
+
+def plan(B: int, D: int, HW: int, Q: int, device: torch.device):
+    """The kernel's launch shape on ``device``: ``(slices, query groups,
+    queries per group, steps of 1024 pixels per slice)``."""
+    lib = _library()
+    out = (ctypes.c_int * 4)()
+    _raise_on(lib, lib.pdc_best_match_plan(B, D, HW, Q, device.index, out))
+    return tuple(out)
+
+
+_counters = {}  # (device index, stream handle) -> zeroed int32 tensor
+_counters_lock = threading.Lock()
+
+
+def _counter_buffer(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` zero ticket counters for launches on ``stream`` (see
+    the module docstring)."""
+    with _counters_lock:
+        buf = _counters.get((device.index, stream))
+        if buf is None or buf.numel() < n:
+            buf = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+            _counters[(device.index, stream)] = buf
+        return buf
 
 
 def best_match(res: torch.Tensor, queries: torch.Tensor):
@@ -103,16 +141,15 @@ def best_match(res: torch.Tensor, queries: torch.Tensor):
     if Q == 0:
         return idx, dist
     lib = _library()
-    chunk = lib.pdc_best_match_chunk_pixels()
-    nchunks = -(-HW // chunk)
-    part_val = torch.empty((B, nchunks, Q), dtype=torch.float32, device=res.device)
-    part_idx = torch.empty((B, nchunks, Q), dtype=torch.int32, device=res.device)
+    slices, groups, per_group, _ = plan(B, D, HW, Q, res.device)
+    n_part = B * groups * per_group * slices
+    part_val = torch.empty((n_part,), dtype=torch.float32, device=res.device)
+    part_idx = torch.empty((n_part,), dtype=torch.int32, device=res.device)
     stream = torch.cuda.current_stream(res.device).cuda_stream
-    err = lib.pdc_best_match(res.data_ptr(), queries.data_ptr(), part_val.data_ptr(),
-                             part_idx.data_ptr(), idx.data_ptr(), dist.data_ptr(),
-                             B, D, HW, Q, res.device.index, stream)
-    if err != 0:
-        raise RuntimeError(f"best_match kernel launch failed: "
-                           f"{lib.pdc_error_string(err).decode()} (cudaError {err})")
+    counters = _counter_buffer(res.device, stream, B * groups)
+    _raise_on(lib, lib.pdc_best_match(
+        res.data_ptr(), queries.data_ptr(), part_val.data_ptr(), part_idx.data_ptr(),
+        counters.data_ptr(), idx.data_ptr(), dist.data_ptr(), B, D, HW, Q, res.device.index,
+        stream))
     launches += 1
     return idx, dist

@@ -21,6 +21,11 @@ true match in u or v is excluded) and, with ``use_pix``,
 ``pixw = min(pixel distance, M_pixel) / M_pixel``. Distances are summed as
 ``sum_d (a_d - b_d)^2``, not expanded (see the kernel's header).
 
+A NaN or infinite descriptor gives what the plain version gives: a NaN
+loss where a NaN, or the same infinity in one channel of a row and a pool
+entry, meets the sum, no hard count for such a pair, and NaN gradients
+where ``0 * NaN`` or ``0 * inf`` reaches them (the kernels' header).
+
 On CPU tensors both passes run the plain version; on CUDA tensors they
 launch the kernels or raise. There is no fallback.
 """
@@ -127,8 +132,8 @@ def _library():
     lib.pdc_pooled_hinge_fwd.restype = i
     lib.pdc_pooled_hinge_bwd.argtypes = [vp] * 12 + [i, i, i, i, f, i, f, i, vp]
     lib.pdc_pooled_hinge_bwd.restype = i
-    lib.pdc_pooled_hinge_rows_per_block.argtypes = []
-    lib.pdc_pooled_hinge_rows_per_block.restype = i
+    lib.pdc_pooled_hinge_fwd_partials.argtypes = [i, i, i]
+    lib.pdc_pooled_hinge_fwd_partials.restype = ctypes.c_longlong
     lib.pdc_pooled_hinge_bwd_partials.argtypes = [i, i, i, i]
     lib.pdc_pooled_hinge_bwd_partials.restype = ctypes.c_longlong
     lib.pdc_pooled_hinge_threshold.argtypes = [f]
@@ -150,9 +155,9 @@ def _forward_kernel(da, db, mu, mv, mvalid, pu, pv, pvalid, M, use_pix, M_pixel)
     P = db.shape[1]
     dev = da.device
     lib = _library()
-    nblk = -(-Nm // lib.pdc_pooled_hinge_rows_per_block())
-    part_loss = torch.empty((B, nblk), dtype=torch.float32, device=dev)
-    part_hard = torch.empty((B, nblk), dtype=torch.int32, device=dev)
+    n_part = lib.pdc_pooled_hinge_fwd_partials(B, Nm, D)
+    part_loss = torch.empty((n_part,), dtype=torch.float32, device=dev)
+    part_hard = torch.empty((n_part,), dtype=torch.int32, device=dev)
     loss = torch.empty((B,), dtype=torch.float32, device=dev)
     hard = torch.empty((B,), dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -1,0 +1,81 @@
+"""chip_smoke.py's device timer (``time_device``) on the CPU: it raises
+without a card before calling the timed function, and it never returns a
+host-paced reading, with a stand-in for ``torch.cuda`` whose events say
+whether the queue drained."""
+
+from types import SimpleNamespace
+
+import pytest
+import torch
+
+import chip_smoke
+from pdc_tpu_torch.ops import _build
+
+
+def test_time_device_raises_without_cuda_and_never_falls_back():
+    assert not torch.cuda.is_available()
+    calls = []
+    with pytest.raises(RuntimeError, match="device time"):
+        chip_smoke.time_device(torch, lambda: calls.append(1))
+    assert calls == []
+
+
+def fake_torch(drained):
+    """``torch.cuda`` as time_device uses it: each reading's start event
+    answers ``query()`` with the next value of ``drained``, and every event
+    pair reads 8 ms apart."""
+    sleeps, answers = [], iter(drained)
+
+    class Event:
+        def __init__(self, enable_timing):
+            assert enable_timing
+
+        def record(self):
+            pass
+
+        def query(self):
+            return next(answers)
+
+        def elapsed_time(self, end):
+            return 8.0
+
+    cuda = SimpleNamespace(is_available=lambda: True, synchronize=lambda: None,
+                           _sleep=sleeps.append, Event=Event)
+    return SimpleNamespace(cuda=cuda), sleeps
+
+
+def test_time_device_lengthens_the_wait_then_refuses_a_host_paced_reading():
+    fake, sleeps = fake_torch([True] * 3)
+    calls = []
+    with pytest.raises(RuntimeError, match="host-paced"):
+        chip_smoke.time_device(fake, lambda: calls.append(1), iters=4, warmup=2, cycles=100,
+                               tries=3)
+    assert sleeps == [100, 400, 1600] and len(calls) == 2 + 3 * 4
+
+
+def test_time_device_reads_the_events_once_the_queue_held():
+    fake, sleeps = fake_torch([True, False])
+    assert chip_smoke.time_device(fake, lambda: None, iters=4, cycles=10) == 2.0
+    assert sleeps == [10, 40]
+
+
+def test_kernel_templates_names_each_kernel_by_its_template():
+    """The ptxas report keyed by mangled names, as nvcc gives them for
+    kernels in an anonymous namespace, read back as ``name<args>``."""
+    ns = "_GLOBAL__N__1a2b3c4d_15_pooled_hinge_cu"
+    ns = f"_ZN{len(ns)}{ns}"
+    log = "\n".join([
+        f"ptxas info    : Compiling entry function '{ns}9hinge_fwdILi3EEEvPKfS2_S2_fi'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 64 registers, used 1 barriers",
+        f"ptxas info    : Compiling entry function '{ns}15hinge_fwd_finalEPKfPKiPfPxi'",
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 30 registers, used 1 barriers",
+        f"ptxas info    : Compiling entry function '{ns}10best_matchILi3ELi32EEEvPKfS2_Pf'",
+        "ptxas info    : Used 120 registers, used 1 barriers",
+    ])
+    build = SimpleNamespace(ptxas_report=_build.ptxas_report, build_log=lambda source: log)
+    assert chip_smoke.kernel_templates(build, "pooled_hinge") == {
+        "best_match<3,32>": {"registers": 120, "spill_stores": 0, "spill_loads": 0},
+        "hinge_fwd<3>": {"registers": 64, "spill_stores": 0, "spill_loads": 0},
+        "hinge_fwd_final": {"registers": 30, "spill_stores": 8, "spill_loads": 4}}

@@ -40,10 +40,15 @@ def _check(res, q, idx, dist):
     assert float((dist.double() - true_min.sqrt()).abs().max()) <= 1e-4
 
 
-# (B, D, HW, Q): ragged HW (not a multiple of the 1024-pixel chunk), one pixel,
-# every D template (<=4, <=8, <=16), Q across several 16-query groups
+# (B, D, HW, Q): ragged HW (not a multiple of the 1024-pixel step, nor of 4:
+# the scalar loads), one pixel and fewer than one block's step, every D
+# template (exact up to 4, then 8 and 16), Q across several 16- and 32-query
+# groups, B=8 with Q=1 and Q=16
 @pytest.mark.parametrize("B,D,HW,Q", [(1, 3, 5000, 4), (1, 16, 3072, 8), (3, 1, 1, 5),
-                                      (2, 8, 1025, 40), (1, 5, 70000, 17), (4, 3, 4800, 1)])
+                                      (2, 8, 1025, 40), (1, 5, 70000, 17), (4, 3, 4800, 1),
+                                      (8, 3, 5001, 16), (8, 3, 4096, 1), (2, 3, 30001, 17),
+                                      (1, 3, 100003, 1024), (1, 16, 1000, 17), (3, 1, 999, 1024),
+                                      (1, 2, 3, 33), (1, 4, 2050, 64), (2, 12, 700, 20)])
 def test_kernel_matches_plain(cuda, B, D, HW, Q):
     g = np.random.default_rng(B * 1000 + D * 100 + Q)
     res = torch.as_tensor(g.standard_normal((B, D, HW), dtype=np.float32), device=cuda)
@@ -67,6 +72,53 @@ def test_kernel_ties_and_padding(cuda):
     idx, dist = bm.best_match(res, q)
     assert idx.tolist() == [[5, 2048 + 76, 0]]
     assert dist.tolist() == [[0.0, 0.0, 0.0]]
+
+
+@pytest.mark.parametrize("B,HW,Q", [(2, 307200, 3), (1, 307203, 40)])
+def test_kernel_ties_across_blocks_go_to_the_lowest_index(cuda, B, HW, Q):
+    # exact matches planted at several pixels per query: within one thread's
+    # 4 pixels, across neighbouring threads and steps, across the slices of
+    # the grid and, with Q=40, in both query groups
+    slices, groups, per_group, steps = bm.plan(B, 3, HW, Q, cuda)
+    assert slices > 2
+    S = steps * 1024  # pixels per slice
+    spots = {0: [S - 1, S, 2 * S + 5, HW - 1], 1: [4 * 77 + 2, 4 * 77 + 3, S + 1],
+             2: [4 * 99 + 3, 4 * 99 + 4, 4 * 99 + 1024]}
+    if Q > 32:
+        spots.update({33: [2 * S, 3 * S - 1], Q - 1: [HW - 2, HW - 1]})
+    g = np.random.default_rng(HW + Q)
+    res = g.uniform(1.0, 2.0, (B, 3, HW)).astype(np.float32)
+    q = g.uniform(1.0, 2.0, (B, Q, 3)).astype(np.float32)
+    for k, pixels in spots.items():
+        res[:, :, pixels] = -1.0 - k
+        q[:, k] = -1.0 - k
+    res, q = torch.as_tensor(res, device=cuda), torch.as_tensor(q, device=cuda)
+    idx, dist = bm.best_match(res, q)
+    for k, pixels in spots.items():
+        assert idx[:, k].tolist() == [min(pixels)] * B and dist[:, k].tolist() == [0.0] * B
+    _check(res, q, idx, dist)
+
+
+def test_kernel_all_nan_image_gives_pixel_zero(cuda):
+    res = torch.full((2, 3, 5000), float("nan"), device=cuda)
+    q = torch.randn(2, 20, 3, device=cuda)
+    idx, dist = bm.best_match(res, q)
+    assert not idx.any() and torch.isinf(dist).all()
+
+
+def test_kernel_is_deterministic_and_one_launch(cuda):
+    from torch.profiler import ProfilerActivity, profile
+    g = np.random.default_rng(3)
+    for B, Q in ((8, 16), (1, 1024)):
+        res = torch.as_tensor(g.standard_normal((B, 3, 307200), dtype=np.float32), device=cuda)
+        q = torch.as_tensor(g.standard_normal((B, Q, 3), dtype=np.float32), device=cuda)
+        a = bm.best_match(res, q)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            b = bm.best_match(res, q)
+            torch.cuda.synchronize()
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        assert sum("best_match" in e.name for e in prof.events()) == 1
 
 
 def test_kernel_raises_instead_of_falling_back(cuda, monkeypatch):
@@ -229,6 +281,89 @@ def test_pooled_hinge_identical_rows_zero_grad(cuda):
     (loss, hard, gda, gdb), _ = _kernel_and_plain(case, False)
     assert hard.item() == 8 * 16 and loss.item() == pytest.approx(8 * 16 * 0.25)
     assert not gda.any() and not gdb.any()
+
+
+def test_pooled_hinge_near_identical_rows(cuda):
+    # d2 from 1e-30 to 1e-20, across K2's 1e-24 floor: K1 counts every pair
+    # (dist = max(sqrt(d2), 1e-12)), K2 gives a gradient only where d2 > 1e-24
+    case = _hinge_case(cuda, 1, 64, 16, 3, seed=13, valid_frac=1.0)
+    eps = torch.logspace(-15, -10, 64, device=cuda)
+    case[0].zero_(), case[1].zero_()
+    case[0][0, :, 0] = eps
+    case[2].fill_(30.0), case[3].fill_(30.0)
+    case[5].copy_(torch.arange(16.0, device=cuda)[None]), case[6].zero_()  # far from (30, 30)
+    d2 = eps * eps
+    assert (d2 <= 1e-24).any() and (d2 > 1e-24).any()
+    for use_pix in (False, True):
+        (loss, hard, gda, gdb), (ploss, phard, pgda, pgdb) = _kernel_and_plain(case, use_pix)
+        assert hard.item() == phard.item() == 64 * 16
+        torch.testing.assert_close(loss, ploss, rtol=1e-5, atol=0)
+        assert torch.equal(pgda[0, :, 0] != 0, d2 > 1e-24)
+        for got, want in ((gda, pgda), (gdb, pgdb)):
+            assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def _f5_case(dev, where, D):
+    """_hinge_case with one non-finite descriptor value (or two) placed as
+    ``where`` says, in pair 0 or 1."""
+    case = _hinge_case(dev, 2, 700, 300, D, seed=21 + D, scale=0.3 * (3 / D) ** 0.5)
+    da, db, mvalid, pvalid = case[0], case[1], case[4], case[7]
+    nan, inf = float("nan"), float("inf")
+
+    def first(valid, want, b):
+        return int(torch.nonzero(valid[b] == want)[0, 0])
+    c1, c2 = min(1, D - 1), min(2, D - 1)
+    if where == "NaN in a valid row":
+        da[0, first(mvalid, 1.0, 0), c1] = nan
+    elif where == "NaN in an invalid row":
+        da[1, first(mvalid, 0.0, 1), 0] = nan
+    elif where == "NaN in a valid entry":
+        db[1, first(pvalid, 1.0, 1), c2] = nan
+    elif where == "NaN in an invalid entry":
+        db[0, first(pvalid, 0.0, 0), 0] = nan
+    elif where == "+inf in a row":
+        da[0, first(mvalid, 1.0, 0), c1] = inf
+    elif where == "-inf in an entry":
+        db[1, first(pvalid, 1.0, 1), 0] = -inf
+    elif where == "the same inf in a row and an entry":
+        da[0, first(mvalid, 1.0, 0), c2] = -inf
+        db[0, first(pvalid, 0.0, 0), c2] = -inf
+    elif where == "opposite infs in a row and an entry":
+        da[1, first(mvalid, 0.0, 1), 0] = inf
+        db[1, first(pvalid, 1.0, 1), 0] = -inf
+    return case
+
+
+def _assert_like_plain(got, want, tol):
+    """NaN and infinities exactly where the plain version has them, the
+    finite entries within ``tol`` of the plain version's largest."""
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.isfinite(got), torch.isfinite(want))
+    assert torch.equal(got[torch.isinf(want)], want[torch.isinf(want)])
+    f = torch.isfinite(want)
+    if f.any():
+        assert float((got[f] - want[f]).abs().max()) <= tol * float(want[f].abs().max())
+
+
+# fault F5: K1 and K2 give the plain version's NaN where a descriptor is not
+# finite; the finite results are held to the bars above
+@pytest.mark.parametrize("use_pix", [False, True])
+@pytest.mark.parametrize("D", [3, 16])
+@pytest.mark.parametrize("where", [
+    "NaN in a valid row", "NaN in an invalid row", "NaN in a valid entry",
+    "NaN in an invalid entry", "+inf in a row", "-inf in an entry",
+    "the same inf in a row and an entry", "opposite infs in a row and an entry"])
+def test_pooled_hinge_nonfinite_like_plain(cuda, where, D, use_pix):
+    case = _f5_case(cuda, where, D)
+    (loss, hard, gda, gdb), (ploss, phard, pgda, pgdb) = _kernel_and_plain(case, use_pix)
+    assert torch.equal(hard, phard)
+    assert torch.equal(torch.isnan(loss), torch.isnan(ploss))
+    assert torch.isnan(ploss).any() == (where.startswith("NaN") or where.startswith("the same"))
+    f = torch.isfinite(ploss)
+    torch.testing.assert_close(loss[f], ploss[f], rtol=1e-5, atol=0)
+    assert torch.isnan(pgda).any() and torch.isnan(pgdb).any()
+    for got, want in ((gda, pgda), (gdb, pgdb)):
+        _assert_like_plain(got, want, 1e-5)
 
 
 def test_pooled_hinge_is_deterministic(cuda):

@@ -172,3 +172,44 @@ def test_wrapper_checks_its_inputs():
     loss, _ = ph.pooled_hinge(*args, 0.5, False, 50.0)
     loss.sum().backward()
     assert (ph.forward_launches, ph.backward_launches) == before  # CPU: the plain version
+
+
+# -- NaN (fault F5): the JAX kernel and the plain version the card is held to --
+
+def _nan_case(where):
+    """make_case at Nm=40, P=24, D=3 with one NaN in a valid or an invalid
+    match row, or in a valid or an invalid pool entry."""
+    da, db, uv_b, mvalid, pool_b, pvalid = make_case(np.random.default_rng(0), 40, 24, 3)
+    da, db = da.copy(), db.copy()
+    pick = {"valid row": (da, mvalid, True, 1), "invalid row": (da, mvalid, False, 0),
+            "valid entry": (db, pvalid, True, 2), "invalid entry": (db, pvalid, False, 0)}
+    rows, valid, want, channel = pick[where]
+    i = int(np.flatnonzero(valid == want)[0])
+    rows[i, channel] = np.nan
+    return da, db, uv_b, mvalid, pool_b, pvalid
+
+
+@pytest.mark.parametrize("use_pix", [False, True])
+@pytest.mark.parametrize("where", ["valid row", "invalid row", "valid entry", "invalid entry"])
+def test_nan_pattern_of_jax_kernel_and_plain_agree(where, use_pix):
+    """A NaN anywhere in da or db, valid or not, makes the loss NaN in both;
+    NaN pairs count as hard negatives in neither; the gradients are NaN at
+    the same places (the rule the card kernels are held to: gda[i, d] where
+    da[i, d] or any db[:, d] is NaN, gdb[j, d] where db[j, d] or any
+    da[:, d] is)."""
+    da, db, uv_b, mvalid, pool_b, pvalid = case = _nan_case(where)
+    l_jax, h_jax = jax_loss("pallas", *case, use_pix=use_pix, M_pixel=20.0)
+    g_jax = jax.grad(lambda a, b: jax_loss("pallas", a, b, uv_b, mvalid, pool_b, pvalid,
+                                           use_pix, 20.0)[0], argnums=(0, 1))(da, db)
+    args = [a.detach() for a in port_args([case])]
+    loss, hard = ph.pooled_hinge_reference(*args, 0.5, use_pix, 20.0)
+    gda, gdb = ph.pooled_hinge_backward_reference(torch.ones(1), *args, 0.5, use_pix, 20.0)
+    assert np.isnan(float(l_jax)) and torch.isnan(loss).all()
+    assert int(hard[0]) == int(h_jax)
+    nan_da, nan_db = np.isnan(da).any(0), np.isnan(db).any(0)  # NaN channels
+    for got, want, own, other in ((gda[0], g_jax[0], da, nan_db), (gdb[0], g_jax[1], db, nan_da)):
+        want = np.asarray(want)
+        np.testing.assert_array_equal(torch.isnan(got).numpy(), np.isnan(want))
+        np.testing.assert_array_equal(np.isnan(want), np.isnan(own) | other[None, :])
+        finite = np.isfinite(want)
+        np.testing.assert_allclose(got.numpy()[finite], want[finite], atol=1e-5, rtol=1e-4)
