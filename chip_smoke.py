@@ -31,12 +31,28 @@ Phases, each fatal on failure:
      the loss must stay finite, the weights must move, and K1 and K2 must
      launch twice each per step. Then one step with the kernels and one with
      the plain pooled hinge, on the same batch and weights, must agree;
-  7. timings: every kernel's device time (time_device: the queue primed
+  7. the main path, the training driver: ``DenseCorrespondenceTraining.run``
+     on the synthetic dataset of trained_models/tpu_journey/dataset.yaml
+     (DATASET_RECORD: 2 scenes, 12 frames, 640x480) with ResNet-34-8s, B=4,
+     6 iterations, checkpoints at 0, 3 and 6 and the test loss at 6. It fails
+     unless (a) the run took the on-device sampler route; (b) K1 launched 2
+     per train step plus 2 per test-loss batch and K2 2 per train step;
+     (c) every metric is finite and the weights moved; (d) the folder holds
+     the configs, the checkpoints with their .opt files and the log
+     histories; (e) 000006.ckpt.opt reads back bit-equal to the live Adam
+     state; (f) run_from_pretrained for 2 more iterations starts at 6 and
+     ends with every Adam step at 8; (g) from_model_folder gives the live
+     network's forward_on_img within 1e-6, and one best-match query on it
+     agrees with the plain version; (h) load_training_dataset rebuilds the
+     same scenes, frame counts and poses. Then 3 timed iterations on each
+     route (device sampler, cached host sampler, host streaming);
+  8. timings: every kernel's device time (time_device: the queue primed
      with a device-side wait, so the card never waits on the host), the
      wrapper's time per call from an idle queue (time_cuda), the split by
      kernel name (torch.profiler), its bound, its plain version and a
      library yardstick where one exists (device times); forward images/s;
-     serving latency; the train step and its split.
+     serving latency; the train step and its split; the driver's step on
+     each route against it, and its checkpoint writes.
 
 The last lines are a JSON object with every kernel's numbers, the
 nvidia-smi line, and ``{"ok": true, "device": {...}}``. Without CUDA, or when the
@@ -91,6 +107,13 @@ TRAINING_CONFIG = {
         "scale_by_hard_negatives_DIFFERENT_OBJECT": True, "alpha_triplet": 0.1,
     },
 }
+# The synthetic record of trained_models/tpu_journey/dataset.yaml (2 scenes of
+# 2 objects, 12 frames each, 640x480), stated inline because the card's copy of
+# the tree may lack trained_models/ (tests/test_torch_port_dataset.py holds it
+# against the file).
+DATASET_RECORD = {"synthetic": {"height": 480, "num_frames": 12, "num_objects": 2,
+                                "num_scenes": 2, "num_test_scenes": 0, "object_radius": 0.3,
+                                "width": 640}}
 # H100 SXM data-sheet peaks: HBM bytes/s and fp32 FLOP/s outside the tensor cores
 PEAK_BYTES_S, PEAK_FP32_S = 3.35e12, 67e12
 
@@ -444,6 +467,213 @@ def draw_pairs(np, rng, B, n_frames):
     return ia, ib
 
 
+# -- the training driver ---------------------------------------------------------
+
+# DenseCorrespondenceTraining.run over TRAINING_CONFIG: 6 iterations, so that
+# steps_per_dispatch 10 leaves k_eff = 6 and the on-device sampler route is
+# taken; checkpoints at 0, 3 and 6; the test loss at iteration 6 over 8 // B = 2
+# batches; then 2 more iterations resumed from the folder
+DRIVER_OVERRIDES = {"num_iterations": 6, "save_rate": 3, "logging_rate": 3,
+                    "compute_test_loss": True, "compute_test_loss_rate": 6,
+                    "test_loss_num_iterations": 8, "use_tensorboard": False,
+                    "steps_per_dispatch": 10, "seed": 1}
+DRIVER_RESUME_ITERATIONS = 2
+ROUTE_STEPS = 3  # the timed run of each route
+# a reloaded network against the live one: the same weights, the same
+# cuDNN algorithm on the same input
+RELOAD_TOL = 1e-6
+
+
+def driver_config(tmp, name, **overrides):
+    import copy
+    cfg = copy.deepcopy(TRAINING_CONFIG)
+    cfg["training"].update(DRIVER_OVERRIDES, logging_dir=tmp, logging_dir_name=name)
+    cfg["training"].update(overrides)
+    return cfg
+
+
+def timed_route_run(torch, ph, train_mod, dev, tmp, name, ds, **overrides):
+    """ROUTE_STEPS iterations of ``run`` with a synchronising callback, so
+    the host clock between two callbacks is one whole step (the sampler
+    thread's wait included). Returns (route, [ms of steps 2.. ], K1/K2
+    launches, the run's per-call host ms)."""
+    cfg = driver_config(tmp, name, num_iterations=ROUTE_STEPS, save_rate=1000,
+                        logging_rate=1000, compute_test_loss=False, **overrides)
+    trainer = train_mod.DenseCorrespondenceTraining(cfg, ds, device=dev)
+    marks = []
+
+    def mark(it, metrics):
+        torch.cuda.synchronize(dev)
+        marks.append(time.perf_counter())
+
+    ph.forward_launches = ph.backward_launches = 0
+    trainer.run(progress_callback=mark)
+    launches = (ph.forward_launches, ph.backward_launches)
+    step_ms = [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
+    return trainer.route, step_ms, launches, [1e3 * s for s in trainer.step_seconds]
+
+
+def check_training_driver(torch, np, dev, here, bm, ph):
+    """The phase "training driver": checks (a)-(h) of the module docstring.
+    Returns the numbers the timings phase prints and the kernels line
+    reads."""
+    import shutil
+    import tempfile
+
+    from pdc_tpu_torch.data.dataset import SpartanDataset
+    from pdc_tpu_torch.models.checkpoint import read_checkpoint
+    from pdc_tpu_torch.models.convert import adam_state_to_flax, flax_to_state_dict
+    from pdc_tpu_torch.models.dcn import DenseCorrespondenceNetwork
+    from pdc_tpu_torch.training import train as train_mod
+
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_driver_", dir=os.path.join(here, "build"))
+    out = {}
+    try:
+        t = time.perf_counter()
+        ds_train = SpartanDataset.from_dataset_config(DATASET_RECORD, mode="train")
+        ds_test = SpartanDataset.from_dataset_config(DATASET_RECORD, mode="test")
+        log(f"training driver datasets: train {sorted(ds_train.scenes)} and test "
+            f"{sorted(ds_test.scenes)}, {ds_train.num_images_total} frames "
+            f"{DATASET_RECORD['synthetic']['width']}x{DATASET_RECORD['synthetic']['height']} "
+            f"each, rendered in {time.perf_counter() - t:.2f} s")
+
+        cfg = driver_config(tmp, "driver")
+        trainer = train_mod.DenseCorrespondenceTraining(cfg, ds_train, dataset_test=ds_test,
+                                                        device=dev)
+        n_iter, batch = cfg["training"]["num_iterations"], cfg["training"]["batch_size"]
+        n_eval = cfg["training"]["test_loss_num_iterations"] // batch
+        ph.forward_launches = ph.backward_launches = 0
+        t = time.perf_counter()
+        folder = trainer.run()
+        torch.cuda.synchronize(dev)
+        run_s = time.perf_counter() - t
+        k1, k2 = ph.forward_launches, ph.backward_launches
+        # (a) the route
+        log(f"training driver: route {trainer.route!r}, {n_iter} iterations in {run_s:.2f} s "
+            f"(3 checkpoints and the test loss included)")
+        if trainer.route != train_mod.ROUTE_DEVICE_SAMPLER:
+            fail(f"the driver took the {trainer.route!r} route, not the device sampler")
+        # (b) launches: 2 per train step, 2 per eval batch (K1 only)
+        log(f"training driver launches: K1 {k1} (expected 2 x {n_iter} steps + 2 x {n_eval} "
+            f"eval batches = {2 * n_iter + 2 * n_eval}), K2 {k2} (expected {2 * n_iter})")
+        if k1 != 2 * n_iter + 2 * n_eval or k2 != 2 * n_iter:
+            fail(f"K1/K2 launched {k1}/{k2} times in the driver's run")
+        # (c) finite metrics, moved weights
+        tl, te = trainer._logging_dict["train"], trainer._logging_dict["test"]
+        log("training driver losses: " + ", ".join(f"{x:.5g}" for x in tl["loss"])
+            + f"; test at {te['iteration']}: loss {te['loss']}, match {te['match_loss']}, "
+            f"non-match {te['non_match_loss']}")
+        values = [v for k, vs in tl.items() if k != "iteration" for v in vs]
+        values += [v for k, vs in te.items() if k != "iteration" for v in vs]
+        if (len(tl["loss"]) != n_iter or te["iteration"] != [n_iter]
+                or not all(np.isfinite(v) for v in values)):
+            fail("a driver metric is missing or not finite")
+        first = flax_to_state_dict(read_checkpoint(os.path.join(folder, "000000.ckpt")))
+        live = trainer.state.module.state_dict()
+        still = [k for k, v in first.items() if v.dim() > 1 and torch.equal(v, live[k].cpu())]
+        if still:
+            fail(f"the driver left weights unchanged: {still[:5]}")
+        # (d) the model folder
+        want = {"training.yaml", "dataset.yaml", "identifier.yaml", "loss.yaml"}
+        for it in (0, 3, 6):
+            want |= {f"{it:06d}.ckpt", f"{it:06d}.ckpt.opt", f"{it:06d}_log_history.yaml"}
+        files = set(os.listdir(folder))
+        log(f"training driver folder: {sorted(files)}")
+        if not want <= files:
+            fail(f"the model folder lacks {sorted(want - files)}")
+        sizes = {f: os.path.getsize(os.path.join(folder, f))
+                 for f in ("000006.ckpt", "000006.ckpt.opt")}
+        # (e) the step-6 optimizer file against the live Adam state
+        state = trainer.state
+        on_disk = read_checkpoint(os.path.join(folder, "000006.ckpt.opt"))
+        live_opt = adam_state_to_flax(state.module, state.optimizer,
+                                      state.step - state.schedule_start)
+        flat_disk, flat_live = flatten(on_disk), flatten(live_opt)
+        same = (flat_disk.keys() == flat_live.keys()
+                and all(a.dtype == flat_live[k].dtype and np.array_equal(a, flat_live[k])
+                        for k, a in flat_disk.items()))
+        log(f"training driver 000006.ckpt.opt: {len(flat_disk)} arrays, Adam count "
+            f"{int(on_disk['1']['count'])}, bit-equal to the live optimizer state: {same}")
+        if not same or int(on_disk["1"]["count"]) != n_iter:
+            fail("000006.ckpt.opt does not read back as the live optimizer state")
+        # (f) resume for 2 more iterations
+        cfg_r = driver_config(tmp, "driver_resumed", num_iterations=DRIVER_RESUME_ITERATIONS)
+        resumed = train_mod.DenseCorrespondenceTraining(cfg_r, ds_train, dataset_test=ds_test,
+                                                        device=dev)
+        ph.forward_launches = ph.backward_launches = 0
+        resumed.run_from_pretrained(folder)
+        k1_r, k2_r = ph.forward_launches, ph.backward_launches
+        end = n_iter + DRIVER_RESUME_ITERATIONS
+        steps = {int(s["step"]) for s in resumed.state.optimizer.state.values()}
+        log(f"training driver resumed at {resumed._start_iteration}: iterations "
+            f"{resumed._logging_dict['train']['iteration']}, Adam steps {sorted(steps)}, "
+            f"launches K1 {k1_r}, K2 {k2_r}")
+        if (resumed._start_iteration != n_iter or steps != {end} or resumed.state.step != end
+                or (k1_r, k2_r) != (2 * DRIVER_RESUME_ITERATIONS,) * 2):
+            fail("run_from_pretrained did not resume at 6 and end with every Adam step at 8")
+        # (g) the folder's network against the live one, and one K3 query on it
+        reloaded = DenseCorrespondenceNetwork.from_model_folder(folder, device=dev)
+        live_dcn = trainer.get_dcn()
+        frame = ds_train.scenes["scene_000"].rgb[0]
+        res = reloaded.forward_on_img(frame)
+        reload_err = float((res - live_dcn.forward_on_img(frame)).abs().max())
+        Hd, Wd, Dd = res.shape
+        image = res.permute(2, 0, 1).reshape(1, Dd, Hd * Wd).contiguous()
+        other = reloaded.forward_on_img(ds_train.scenes["scene_000"].rgb[1])
+        px = torch.as_tensor(np.random.default_rng(SEED).integers(0, Hd * Wd, 16), device=dev)
+        q = other.reshape(Hd * Wd, Dd)[px][None].contiguous()
+        idx, dist = bm.best_match(image, q)
+        pidx, pdist = bm.best_match_reference(image, q)
+        bad, err = check_matches(torch, bm, image, q, idx, dist)
+        vs_plain = float((dist - pdist).abs().max())
+        log(f"training driver reload: from_model_folder vs get_dcn max|diff| {reload_err:.3g} "
+            f"(bar {RELOAD_TOL}); K3 on the reloaded descriptors, 16 queries: bad_idx {bad}, "
+            f"dist_err {err:.3g}, vs plain {vs_plain:.3g}")
+        if not reload_err <= RELOAD_TOL or bad or not err <= DIST_TOL or not vs_plain <= PLAIN_TOL:
+            fail("the reloaded network disagrees with the live one, or K3 with its plain version")
+        out["k3_err"] = vs_plain
+        # (h) the dataset record
+        rebuilt = reloaded.load_training_dataset()
+        same_ds = (sorted(rebuilt.scenes) == sorted(ds_train.scenes) and all(
+            rebuilt.scenes[n].num_frames == s.num_frames
+            and np.array_equal(rebuilt.scenes[n].poses, s.poses)
+            for n, s in ds_train.scenes.items()))
+        log(f"training driver load_training_dataset: scenes {sorted(rebuilt.scenes)}, frames "
+            f"{[s.num_frames for _, s in sorted(rebuilt.scenes.items())]}, same poses: {same_ds}")
+        if not same_ds:
+            fail("load_training_dataset did not rebuild the training dataset")
+
+        # each route, timed: 3 iterations each
+        routes = {}
+        for name, overrides in (("device", {}), ("cached", {"steps_per_dispatch": 1}),
+                                ("streaming", {"cache_dataset_on_device": False})):
+            route, step_ms, launches, call_ms = timed_route_run(
+                torch, ph, train_mod, dev, tmp, name, ds_train, **overrides)
+            routes[route] = {"step_ms": step_ms, "call_ms": call_ms, "launches": launches}
+            if launches != (2 * ROUTE_STEPS, 2 * ROUTE_STEPS):
+                fail(f"the {route} route launched K1/K2 {launches} times in {ROUTE_STEPS} steps")
+        if set(routes) != {train_mod.ROUTE_DEVICE_SAMPLER, train_mod.ROUTE_CACHED_HOST_SAMPLER,
+                           train_mod.ROUTE_HOST_STREAMING}:
+            fail(f"the timed runs took the routes {sorted(routes)}")
+        out.update(k1=k1, k2=k2, run_s=run_s, step_ms=[1e3 * s for s in trainer.step_seconds],
+                   save_ms=[1e3 * s for s in trainer.save_seconds], sizes=sizes, routes=routes)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def flatten(tree, prefix=""):
+    """{'a/b': leaf} of a nested dict."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flatten(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
 def main():
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     here = os.path.dirname(os.path.abspath(__file__))
@@ -769,7 +999,13 @@ def main():
     torch.cuda.empty_cache()
     phase("training", t0)
 
-    # 7. timings ---------------------------------------------------------------
+    # 7. the main path, the training driver -------------------------------------
+    t0 = time.perf_counter()
+    driver = check_training_driver(torch, np, dev, here, bm, ph)
+    torch.cuda.empty_cache()
+    phase("training driver", t0)
+
+    # 8. timings ---------------------------------------------------------------
     t0 = time.perf_counter()
     log(smi)
     # Kernel times are device times (time_device: the queue primed before
@@ -810,7 +1046,8 @@ def main():
             entry = {"name": "best_match", "route": "cuda",
                      "source": "pdc_tpu_torch/csrc/best_match.cu",
                      "replaces": "pdc_tpu/ops/pallas_kernels.py:30",
-                     "launches": launches, "max_abs_err": max_abs_err,
+                     "launches": launches, "launches_by_path": {"serving": launches},
+                     "max_abs_err": max(max_abs_err, driver["k3_err"]),
                      "ms": k_ms, "device_ms": k_ms, "wrapper_ms": w_ms, "plain_ms": p_ms,
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
                      "empty_launch_ms": empty_ms}
@@ -887,6 +1124,20 @@ def main():
     split = {k: sum(v) / len(v) for k, v in parts.items()}
     log("train step split (separate steps, CUDA events): " + ", ".join(
         f"{k} {v:.3f} ms ({100 * v / sum(split.values()):.1f}%)" for k, v in split.items()))
+    # the driver's steps on each route, host clock, against make_train_step's
+    log(f"training driver, device sampler, {len(driver['step_ms'])} iterations: host ms per "
+        f"step call (no synchronisation; the queue fills) "
+        f"[{', '.join(f'{x:.1f}' for x in driver['step_ms'])}], whole run {driver['run_s']:.2f} s; "
+        f"checkpoint writes (.ckpt {driver['sizes']['000006.ckpt'] / 1e6:.1f} MB + .ckpt.opt "
+        f"{driver['sizes']['000006.ckpt.opt'] / 1e6:.1f} MB + the yaml files) "
+        f"[{', '.join(f'{x:.0f}' for x in driver['save_ms'])}] ms")
+    for route, r in driver["routes"].items():
+        mean_route = sum(r["step_ms"]) / len(r["step_ms"])
+        log(f"training driver route {route!r}, {ROUTE_STEPS} iterations: host wall clock per "
+            f"step (synchronised, steps 2-{ROUTE_STEPS}) "
+            f"[{', '.join(f'{x:.2f}' for x in r['step_ms'])}] ms, mean {mean_route:.2f} ms = "
+            f"{mean_route / mean_step:.3f} x make_train_step's {mean_step:.3f} ms of CUDA-event "
+            f"step time; K1/K2 launches {r['launches']}")
 
     # K1 and K2 at the main path's shapes: the masked pool's rows of a real step
     hargs = [a.contiguous() for a in captured[0]]
@@ -938,12 +1189,14 @@ def main():
     k1_entry = {"name": "pooled_hinge_fwd", "route": "cuda",
                 "source": "pdc_tpu_torch/csrc/pooled_hinge.cu",
                 "replaces": "pdc_tpu/ops/pallas_loss.py:42", "launches": k1_launches,
+                "launches_by_path": {"training": k1_launches, "training driver": driver["k1"]},
                 "max_abs_err": k1_err, "ms": k1_ms, "device_ms": k1_ms,
                 "wrapper_ms": k1_wrapper, "plain_ms": p1_ms, "bound_ms": b1_ms,
                 "bound_by": b1_by, "library_ms": None}
     k2_entry = {"name": "pooled_hinge_bwd", "route": "cuda",
                 "source": "pdc_tpu_torch/csrc/pooled_hinge.cu",
                 "replaces": "pdc_tpu/ops/pallas_loss.py:77", "launches": k2_launches,
+                "launches_by_path": {"training": k2_launches, "training driver": driver["k2"]},
                 "max_abs_err": k2_err, "ms": k2_ms, "device_ms": k2_ms,
                 "wrapper_ms": k2_wrapper, "plain_ms": p2_ms, "bound_ms": b2_ms,
                 "bound_by": b2_by, "library_ms": None}

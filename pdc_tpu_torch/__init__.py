@@ -13,10 +13,13 @@ hand-written CUDA kernels live in ``csrc/`` and are built with ``nvcc`` on
 first use (:mod:`pdc_tpu_torch.ops._build`).
 
 Ported so far: the serving path (ResNet-18/34-8s descriptor inference, best
-match with the streaming argmin kernel, the microbatching TCP server) and
-the train step of the default config (sample assembly, train-mode
-BatchNorm, the pooled matrix loss with its hinge forward and backward
-kernels, Adam; :func:`pdc_tpu_torch.training.train.make_train_step`).
+match with the streaming argmin kernel, the microbatching TCP server), the
+train step of the default config (sample assembly, train-mode BatchNorm,
+the pooled matrix loss with its hinge forward and backward kernels, Adam;
+:func:`pdc_tpu_torch.training.train.make_train_step`) and the training
+driver on in-memory datasets (:class:`pdc_tpu_torch.data.dataset.SpartanDataset`,
+the device cache and sampler, the model folder;
+:class:`pdc_tpu_torch.training.train.DenseCorrespondenceTraining`).
 """
 
 __version__ = "0.1.0"

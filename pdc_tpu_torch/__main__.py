@@ -5,8 +5,12 @@ Only ``serve`` is ported so far:
     python -m pdc_tpu_torch serve --model_folder trained_models/net
 
 ``python -m pdc_tpu_torch serve --help`` lists its options. The other
-``python -m pdc_tpu`` commands (train, evaluate, export-serving,
-descriptor-images, ...) are still to be ported (see ROADMAP.md).
+``python -m pdc_tpu`` commands (evaluate, export-serving,
+descriptor-images, ...) are still to be ported (see ROADMAP.md). ``train``
+waits for the on-disk data slice, since its ``--dataset_config`` names
+scenes on disk; until then train from Python with
+``pdc_tpu_torch.training.train.DenseCorrespondenceTraining`` on a
+synthetic dataset.
 """
 
 from __future__ import annotations

@@ -1,1 +1,2 @@
-"""Synthetic scenes and training-sample assembly (port of :mod:`pdc_tpu.data`)."""
+"""Synthetic scenes, the dataset and its device cache, and training-sample
+assembly (port of :mod:`pdc_tpu.data`)."""

@@ -107,6 +107,8 @@ def _to_device(x, device, dtype=None):
     if isinstance(x, np.ndarray) and x.dtype == np.uint16:
         x = x.astype(np.int32)  # millimetre depth; torch has no uint16 arithmetic
     t = torch.as_tensor(x, device=device)
+    if dtype is None and t.dtype == torch.uint16:  # depth gathered from a device cache
+        dtype = torch.int32
     return t if dtype is None else t.to(dtype)
 
 

@@ -1,2 +1,3 @@
-"""Backbones, the DenseCorrespondenceNetwork wrapper and the weight bridge
-to the JAX package's checkpoints."""
+"""Backbones, the DenseCorrespondenceNetwork wrapper, the weight and
+optimizer-state bridge to the JAX package's checkpoints, and ImageNet
+initialisation from torchvision weights."""

@@ -236,6 +236,15 @@ class DenseCorrespondenceNetwork:
         v = np.clip(np.round(kp[:, 1]).astype(int), 0, self._image_height - 1)
         return res[torch.as_tensor(v), torch.as_tensor(u), :].cpu().numpy().astype(np.float32)
 
+    def load_training_dataset(self, mode: str = "train"):
+        """Rebuild the dataset this network was trained on from its model
+        folder's ``dataset.yaml`` record."""
+        from pdc_tpu_torch.data.dataset import SpartanDataset
+
+        folder = self.model_folder or self.path_to_network_params_folder
+        config = load_yaml(os.path.join(folder, "dataset.yaml"))
+        return SpartanDataset.from_dataset_config(config, mode=mode)
+
     # -- constructors ----------------------------------------------------------
 
     @staticmethod
@@ -246,18 +255,20 @@ class DenseCorrespondenceNetwork:
         ``dense_correspondence_network`` config block.
 
         Weights are drawn on the CPU from ``generator`` (default: seed 0), so
-        they are the same on every device. There is no pretrained download:
-        ``backbone.pretrained`` without stored params raises.
+        they are the same on every device. ``backbone.pretrained`` without
+        stored params loads the ImageNet backbone from a local file
+        (:func:`~pdc_tpu_torch.models.torch_import.resolve_pretrained_weights`;
+        ``FileNotFoundError`` when there is none, never a download).
         """
         device = resolve_device(device)
-        if (config.get("backbone") or {}).get("pretrained") and not load_stored_params:
-            raise NotImplementedError(
-                "ImageNet-pretrained initialisation is not ported yet (it waits "
-                "for the DenseCorrespondenceTraining slice)")
         module = build_backbone(config)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         init_weights_(module, generator)
+        if (config.get("backbone") or {}).get("pretrained") and not load_stored_params:
+            from pdc_tpu_torch.models.torch_import import maybe_load_pretrained_backbone
+
+            maybe_load_pretrained_backbone(module, config)
         dcn = DenseCorrespondenceNetwork(
             module,
             descriptor_dimension=config["descriptor_dimension"],

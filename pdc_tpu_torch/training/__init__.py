@@ -1,1 +1,2 @@
-"""Train step, optimizer and LR schedule (port of :mod:`pdc_tpu.training`)."""
+"""Train step, optimizer, LR schedule, the on-device pair sampler and the
+training driver (port of :mod:`pdc_tpu.training`)."""

@@ -1,13 +1,16 @@
 """The port's CUDA kernels on the card: the best-match kernel (K3) and the
 pooled-hinge forward and backward (K1, K2) against their plain versions,
-their launch counters, determinism, the server's batched best match and one
-train step through K1/K2.
+their launch counters, determinism, the server's batched best match, one
+train step through K1/K2, the device cache and pair sampler on the card, and
+three iterations of the training driver.
 
 Needs an NVIDIA GPU with nvcc; skips elsewhere. Imports no JAX, so it runs
 on a GPU host without the JAX package's dependencies:
 
     python -m pytest --noconftest -q tests/test_torch_port_cuda.py
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -411,3 +414,94 @@ def test_train_step_runs_the_pooled_hinge_kernels(cuda):
     losses = [float(step(state, batch, g)["loss"]) for _ in range(3)]
     assert (ph.forward_launches - f0, ph.backward_launches - b0) == (6, 6)
     assert np.isfinite(losses).all() and state.step == 3
+
+
+def _synthetic_cache(device, mix=None):
+    from pdc_tpu_torch.data.dataset import SpartanDataset
+    from pdc_tpu_torch.data.device_cache import DeviceCache
+
+    ds = SpartanDataset.make_synthetic(num_scenes=4, num_objects=2, width=64, height=48,
+                                       num_frames=6)
+    if mix is not None:
+        ds._data_type_probabilities = mix
+    return DeviceCache.from_dataset(ds, device=device)
+
+
+def test_device_sampler_on_the_card_keeps_its_invariants(cuda):
+    """The CPU test's invariants (tests/test_torch_port_device_cache.py) on a
+    CUDA generator: within-scene rows in one scene with poses apart or empty,
+    across-scene rows one object in two scenes, different-object rows two
+    objects, a synthetic multi-object row's second pair another object's."""
+    from pdc_tpu_torch.training import scanned
+
+    cache = _synthetic_cache(cuda)
+    tables = scanned.build_sampling_tables(cache)
+    assert all(t.device.type == "cuda" for t in tables.values())
+    poses = torch.as_tensor(cache.poses, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    probs = ((0, 0.4), (1, 0.2), (2, 0.2), (4, 0.2))
+    out = scanned.device_sample_pairs_mixed(g, tables, poses, 4096, probs, with_second=True)
+    assert all(x.device.type == "cuda" for x in out)
+    fa, fb, fa2, fb2, mt = [x.cpu().numpy() for x in out]
+    names = sorted(cache.scene_offsets)
+    starts = np.array([cache.scene_offsets[n] for n in names])
+    scene_of = np.searchsorted(starts, np.arange(len(cache.poses)), side="right") - 1
+    obj = np.array([cache.dataset.scenes[names[s]].object_id for s in scene_of])
+    P = torch.from_numpy(cache.poses)
+    ok = scanned._pose_ok(P[fa], P[fb][:, None])[:, 0].numpy()
+    for t in (0, 4):
+        rows = mt == t
+        assert rows.any() and (scene_of[fa[rows]] == scene_of[fb[rows]]).all() and ok[rows].all()
+    assert ((mt != -1) | (fa == fb)).all()
+    for t, frac in ((0, 0.4), (1, 0.2), (2, 0.2), (4, 0.2)):
+        assert abs((mt == t).mean() + (t == 0) * (mt == -1).mean() - frac) < 0.05, t
+    assert (obj[fa[mt == 1]] == obj[fb[mt == 1]]).all()
+    assert (scene_of[fa[mt == 1]] != scene_of[fb[mt == 1]]).all()
+    assert (obj[fa[mt == 2]] != obj[fb[mt == 2]]).all()
+    smo = mt == 4
+    assert (scene_of[fa2[smo]] == scene_of[fb2[smo]]).all()
+    assert (obj[fa2[smo]] != obj[fa[smo]]).all()
+
+
+def test_device_cache_on_the_card_gathers_what_the_cpu_cache_gathers(cuda):
+    mix = {0: 0.5, 1: 0.25, 2: 0.25}
+    on_card, on_cpu = _synthetic_cache(cuda, mix), _synthetic_cache("cpu", mix)
+    assert on_card.depth.dtype == torch.uint16 and on_card.depth.device.type == "cuda"
+    for name in ("rgb", "depth", "mask", "pixel_perm", "mask_count"):
+        assert torch.equal(getattr(on_card, name).cpu(), getattr(on_cpu, name)), name
+    for _ in range(3):
+        a, b = on_card.sample_index_batch(4), on_cpu.sample_index_batch(4)
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k])
+        ga, gb = on_card.gather(a), on_cpu.gather(b)
+        assert sorted(ga) == sorted(gb)
+        for k in ga:
+            assert ga[k].device.type == "cuda" and torch.equal(ga[k].cpu(), gb[k]), k
+
+
+def test_training_driver_runs_three_iterations_on_the_card(cuda, tmp_path):
+    from pdc_tpu_torch.data.dataset import SpartanDataset
+    from pdc_tpu_torch.models.dcn import DenseCorrespondenceNetwork
+    from pdc_tpu_torch.training.train import ROUTE_DEVICE_SAMPLER, DenseCorrespondenceTraining
+
+    cfg = DenseCorrespondenceTraining.load_default_config()  # the port's reader without yaml
+    cfg["training"].update(num_iterations=3, batch_size=2, num_matching_attempts=500,
+                           masked_pool_size=128, background_pool_size=128,
+                           num_blind_samples=200, use_tensorboard=False, save_rate=1000,
+                           logging_dir=str(tmp_path), logging_dir_name="card")
+    net = cfg["dense_correspondence_network"]
+    net.update(image_width=64, image_height=48)
+    net["backbone"]["resnet_name"] = "Resnet18_8s"
+    ds = SpartanDataset.make_synthetic(num_scenes=2, width=64, height=48, num_frames=6)
+    trainer = DenseCorrespondenceTraining(cfg, ds)  # default device: cuda
+    f0, b0 = ph.forward_launches, ph.backward_launches
+    folder = trainer.run()
+    assert trainer.route == ROUTE_DEVICE_SAMPLER
+    assert (ph.forward_launches - f0, ph.backward_launches - b0) == (6, 6)
+    assert np.isfinite(trainer._logging_dict["train"]["loss"]).all()
+    assert trainer.state.step == 3
+    assert {"000000.ckpt", "000003.ckpt", "000003.ckpt.opt"} <= set(os.listdir(folder))
+    dcn = DenseCorrespondenceNetwork.from_model_folder(folder)
+    frame = ds.scenes["scene_000"].rgb[0]
+    assert torch.allclose(dcn.forward_on_img(frame), trainer.get_dcn().forward_on_img(frame),
+                          atol=1e-6, rtol=0)

@@ -192,13 +192,20 @@ def test_seeded_init_is_device_independent_and_reproducible():
     {"quant_int8": True},
     {"backbone": {"model_class": "Resnet", "resnet_name": "Resnet34_8s", "pretrained": True}},
 ])
-def test_unported_options_raise(change):
+def test_unported_options_raise(change, tmp_path, monkeypatch):
     cfg = {**_cfg(), **change}
+    if "pretrained" in str(change):
+        # ported: the ImageNet backbone comes from a local file, and without
+        # one from_config raises instead of downloading
+        monkeypatch.setenv("HOME", str(tmp_path))
+        monkeypatch.delenv("PDC_PRETRAINED_WEIGHTS", raising=False)
+        with pytest.raises(FileNotFoundError):
+            DenseCorrespondenceNetwork.from_config(cfg, device="cpu")
+        return
     with pytest.raises(NotImplementedError):
         DenseCorrespondenceNetwork.from_config(cfg, device="cpu")
-    if "pretrained" not in str(change):
-        with pytest.raises(NotImplementedError):
-            build_backbone(cfg)
+    with pytest.raises(NotImplementedError):
+        build_backbone(cfg)
 
 
 @pytest.mark.slow

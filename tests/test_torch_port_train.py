@@ -155,14 +155,18 @@ def test_one_step_matches_jax(jax_step):
                                        err_msg=name)
 
 
-def test_lr_schedule_and_optimizer():
+def test_lr_schedule_and_optimizer(tmp_path, monkeypatch):
     for i in (0, 1, 249, 250, 251, 999, 3499):
         assert schedule.host_lr(TC, i) == jax_schedule.host_lr(TC, i)
     state = create_train_state(ResNetFCN(D, stage_sizes=R18), TC, device="cpu")
     group = state.optimizer.param_groups[0]
     assert group["betas"] == (0.9, 0.999) and group["eps"] == 1e-8
     assert group["weight_decay"] == 1e-4 and group["lr"] == LR
-    with pytest.raises(NotImplementedError, match="pretrained"):
+    # ImageNet initialisation reads a local file and never downloads: none
+    # there raises (tests/test_torch_port_training_driver.py loads one)
+    monkeypatch.setenv("HOME", str(tmp_path))
+    monkeypatch.delenv("PDC_PRETRAINED_WEIGHTS", raising=False)
+    with pytest.raises(FileNotFoundError, match="pretrained"):
         pretrained = {**TC, "dense_correspondence_network": {"backbone": {"pretrained": True}}}
         create_train_state(ResNetFCN(D, stage_sizes=R18), pretrained, device="cpu")
     with pytest.raises(NotImplementedError, match="per-pair"):
