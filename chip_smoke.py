@@ -46,13 +46,28 @@ Phases, each fatal on failure:
      agrees with the plain version; (h) load_training_dataset rebuilds the
      same scenes, frame counts and poses. Then 3 timed iterations on each
      route (device sampler, cached host sampler, host streaming);
-  8. timings: every kernel's device time (time_device: the queue primed
+  8. the main path from disk, "on-disk training": the DATASET_RECORD scenes
+     written in the pdc layout (write_scene, through the PNG codec that
+     decoder "auto" chose, which is printed) with a composite config, read
+     back bit-equal to the rendering (poses within 1e-9); each codec's ms
+     per 640x480 frame to write and to decode; then ``python -m pdc_tpu_torch
+     train`` in this process with the values of phase 7. It fails unless
+     (a) K1 launched 2 per train step plus 2 per test-loss batch and K2 2 per
+     train step; (b) every metric is finite and the weights moved; (c)
+     dataset.yaml records the absolute data_dir and config_dir, and
+     load_training_dataset("train") rebuilds the same scene names, frame ids
+     and poses from disk; (d) from_model_folder gives the live network's
+     forward_on_img within 1e-6, and one best-match query on it agrees with
+     the plain version; (e) ``python -m pdc_tpu_torch statistics`` on the
+     tree is within 1e-6 of float64 numpy over the same frames;
+  9. timings: every kernel's device time (time_device: the queue primed
      with a device-side wait, so the card never waits on the host), the
      wrapper's time per call from an idle queue (time_cuda), the split by
      kernel name (torch.profiler), its bound, its plain version and a
      library yardstick where one exists (device times); forward images/s;
      serving latency; the train step and its split; the driver's step on
-     each route against it, and its checkpoint writes.
+     each route against it, and its checkpoint writes; the on-disk run's
+     step against the driver's, and the PNG codecs' times.
 
 The last lines are a JSON object with every kernel's numbers, the
 nvidia-smi line, and ``{"ok": true, "device": {...}}``. Without CUDA, or when the
@@ -523,7 +538,6 @@ def check_training_driver(torch, np, dev, here, bm, ph):
     from pdc_tpu_torch.data.dataset import SpartanDataset
     from pdc_tpu_torch.models.checkpoint import read_checkpoint
     from pdc_tpu_torch.models.convert import adam_state_to_flax, flax_to_state_dict
-    from pdc_tpu_torch.models.dcn import DenseCorrespondenceNetwork
     from pdc_tpu_torch.training import train as train_mod
 
     os.makedirs(os.path.join(here, "build"), exist_ok=True)
@@ -613,26 +627,8 @@ def check_training_driver(torch, np, dev, here, bm, ph):
                 or (k1_r, k2_r) != (2 * DRIVER_RESUME_ITERATIONS,) * 2):
             fail("run_from_pretrained did not resume at 6 and end with every Adam step at 8")
         # (g) the folder's network against the live one, and one K3 query on it
-        reloaded = DenseCorrespondenceNetwork.from_model_folder(folder, device=dev)
-        live_dcn = trainer.get_dcn()
-        frame = ds_train.scenes["scene_000"].rgb[0]
-        res = reloaded.forward_on_img(frame)
-        reload_err = float((res - live_dcn.forward_on_img(frame)).abs().max())
-        Hd, Wd, Dd = res.shape
-        image = res.permute(2, 0, 1).reshape(1, Dd, Hd * Wd).contiguous()
-        other = reloaded.forward_on_img(ds_train.scenes["scene_000"].rgb[1])
-        px = torch.as_tensor(np.random.default_rng(SEED).integers(0, Hd * Wd, 16), device=dev)
-        q = other.reshape(Hd * Wd, Dd)[px][None].contiguous()
-        idx, dist = bm.best_match(image, q)
-        pidx, pdist = bm.best_match_reference(image, q)
-        bad, err = check_matches(torch, bm, image, q, idx, dist)
-        vs_plain = float((dist - pdist).abs().max())
-        log(f"training driver reload: from_model_folder vs get_dcn max|diff| {reload_err:.3g} "
-            f"(bar {RELOAD_TOL}); K3 on the reloaded descriptors, 16 queries: bad_idx {bad}, "
-            f"dist_err {err:.3g}, vs plain {vs_plain:.3g}")
-        if not reload_err <= RELOAD_TOL or bad or not err <= DIST_TOL or not vs_plain <= PLAIN_TOL:
-            fail("the reloaded network disagrees with the live one, or K3 with its plain version")
-        out["k3_err"] = vs_plain
+        reloaded, out["k3_err"] = check_reload(torch, np, bm, dev, folder, trainer,
+                                               ds_train.scenes["scene_000"], "training driver")
         # (h) the dataset record
         rebuilt = reloaded.load_training_dataset()
         same_ds = (sorted(rebuilt.scenes) == sorted(ds_train.scenes) and all(
@@ -661,6 +657,327 @@ def check_training_driver(torch, np, dev, here, bm, ph):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return out
+
+
+# -- on-disk training ------------------------------------------------------------------
+
+# the DATASET_RECORD scenes written in the pdc layout, one object's scene list
+# each (its scene in both splits, as the record's num_test_scenes 0 means)
+ONDISK_STAT_IMAGES = 24  # statistics over as many frames as the tree holds
+STAT_TOL = 1e-6  # the printed statistics (6 digits) against float64 numpy
+
+
+class _TrainerOf:
+    """Within the block, records the DenseCorrespondenceTraining whose run()
+    the command line calls, so its route, metrics and state can be read."""
+
+    def __init__(self, train_mod):
+        self._cls = train_mod.DenseCorrespondenceTraining
+        self.trainer = None
+
+    def __enter__(self):
+        self._run = self._cls.run
+        rec = self
+
+        def run(trainer, *args, **kwargs):
+            rec.trainer = trainer
+            return rec._run(trainer, *args, **kwargs)
+        self._cls.run = run
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.run = self._run
+
+
+def write_tree(root, record):
+    """The record's scenes under ``<root>/logs_proto`` (write_scene) and a
+    composite config with one scene list per object under ``<root>/config``.
+    Returns (composite file, {scene name: SyntheticScene})."""
+    from pdc_tpu_torch.data.synthetic import SyntheticScene
+    from pdc_tpu_torch.utils.yaml_io import save_yaml
+
+    rec = dict(record["synthetic"])
+    n, n_obj = rec.pop("num_scenes"), max(rec.pop("num_objects"), 1)
+    rec.pop("num_test_scenes")
+    offset = rec.pop("seed_offset", 0)
+    scenes, lists = {}, {}
+    for i in range(n):
+        name, obj = f"scene_{i:03d}", i % n_obj
+        scenes[name] = SyntheticScene(seed=offset + i, texture_seed=obj, **rec)
+        scenes[name].write_scene(os.path.join(root, "logs_proto", name))
+        lists.setdefault(f"object_{obj}", []).append(name)
+    for obj, names in lists.items():
+        save_yaml({"object_id": obj, "train": names, "test": names},
+                  os.path.join(root, "config", "single_object", f"{obj}.yaml"))
+    composite = os.path.join(root, "config", "composite", "composite.yaml")
+    save_yaml({"logs_root_path": "logs_proto",
+               "single_object_scenes_config_files": [f"{o}.yaml" for o in sorted(lists)]},
+              composite)
+    return composite, scenes
+
+
+def write_paeth_png(np, path, rgb):
+    """An RGB8 PNG with every row Paeth-filtered, as PIL's and libpng's
+    adaptive writers choose for most rows of a camera frame (the port's
+    encoder writes Up rows only)."""
+    import struct
+    import zlib
+
+    h, w, _ = rgb.shape
+    x = rgb.reshape(h, w * 3).astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, 3:] = x[:, :-3]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, 3:] = x[:-1, :-3]
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    rows = np.concatenate([np.full((h, 1), 4, np.uint8), ((x - pred) & 0xFF).astype(np.uint8)], 1)
+
+    def chunk(t, body):
+        return struct.pack(">I", len(body)) + t + body + struct.pack(
+            ">I", zlib.crc32(body, zlib.crc32(t)))
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def codec_times(np, nl, tmp, scene, decoders):
+    """ms per 640x480 frame (its RGB, depth and mask files) to write and to
+    decode with each decoder: one frame alone (median of 3 calls), and a
+    whole scene in one call (the pool's threads in parallel) divided by its
+    frames."""
+    import statistics as stats
+
+    frames = [scene.render(i) for i in range(scene.num_frames)]
+    Hs, Ws = scene.height, scene.width
+    out = {}
+    for dec in decoders:
+        d = os.path.join(tmp, f"codec_{dec}")
+        os.makedirs(d, exist_ok=True)
+        enc = [[(os.path.join(d, f"{i}_rgb.png"), nl.KIND_ENC_RGB8, f[0]),
+                (os.path.join(d, f"{i}_depth.png"), nl.KIND_ENC_GRAY16, f[1]),
+                (os.path.join(d, f"{i}_mask.png"), nl.KIND_ENC_GRAY8, f[2] * 255)]
+               for i, f in enumerate(frames)]
+        bufs = [(np.empty((Hs, Ws, 3), np.uint8), np.empty((Hs, Ws), np.uint16),
+                 np.empty((Hs, Ws), np.uint8)) for _ in frames]
+        kinds = (nl.KIND_RGB8, nl.KIND_GRAY16, nl.KIND_MASK8)
+        dec_items = [[(p, k, b) for (p, _, _), k, b in zip(e, kinds, bb)]
+                     for e, bb in zip(enc, bufs)]
+        one_w, one_d = [], []
+        for _ in range(3):
+            t = time.perf_counter()
+            nl.encode_batch(enc[0], Hs, Ws, decoder=dec)
+            one_w.append(time.perf_counter() - t)
+            t = time.perf_counter()
+            nl.decode_batch(dec_items[0], Hs, Ws, decoder=dec)
+            one_d.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        nl.encode_batch([x for e in enc for x in e], Hs, Ws, decoder=dec)
+        all_w = time.perf_counter() - t
+        t = time.perf_counter()
+        nl.decode_batch([x for e in dec_items for x in e], Hs, Ws, decoder=dec)
+        all_d = time.perf_counter() - t
+        for f, (rgb, depth, mask) in zip(frames, bufs):
+            if not (np.array_equal(rgb, f[0]) and np.array_equal(depth, f[1])
+                    and np.array_equal(mask, f[2])):
+                fail(f"the {dec} codec did not round-trip a 640x480 frame bit for bit")
+        # an RGB frame of Paeth rows, one file alone
+        paeth = os.path.join(d, "paeth_rgb.png")
+        write_paeth_png(np, paeth, frames[0][0])
+        got, one_p = np.empty((Hs, Ws, 3), np.uint8), []
+        for _ in range(3):
+            t = time.perf_counter()
+            nl.decode_batch([(paeth, nl.KIND_RGB8, got)], Hs, Ws, decoder=dec)
+            one_p.append(time.perf_counter() - t)
+        if not np.array_equal(got, frames[0][0]):
+            fail(f"the {dec} codec did not decode a Paeth-filtered frame bit for bit")
+        n = len(frames)
+        out[dec] = {"write_ms": 1e3 * stats.median(one_w), "decode_ms": 1e3 * stats.median(one_d),
+                    "write_ms_batched": 1e3 * all_w / n, "decode_ms_batched": 1e3 * all_d / n,
+                    "paeth_rgb_decode_ms": 1e3 * stats.median(one_p)}
+    return out
+
+
+def check_on_disk_training(torch, np, dev, here, bm, ph, driver):
+    """The phase "on-disk training": checks (a)-(e) of the module docstring.
+    Returns the numbers the timings phase and the kernels line read."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from pdc_tpu_torch import __main__ as cli
+    from pdc_tpu_torch.data import native_loader as nl
+    from pdc_tpu_torch.data.dataset import SceneData, SpartanDataset
+    from pdc_tpu_torch.data.scene import SceneStructure
+    from pdc_tpu_torch.models.checkpoint import read_checkpoint
+    from pdc_tpu_torch.models.convert import flax_to_state_dict
+    from pdc_tpu_torch.training import train as train_mod
+    from pdc_tpu_torch.utils.yaml_io import load_yaml, parse_yaml, save_yaml
+
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_on_disk_", dir=os.path.join(here, "build"))
+    out = {}
+    try:
+        # the decoder auto picks, before any decode
+        chosen = nl.resolve_decoder("auto")
+        log(f"on-disk: PNG decoder 'auto' chose {chosen!r} ({nl.decoder_reason})")
+        t = time.perf_counter()
+        composite, scenes = write_tree(tmp, DATASET_RECORD)
+        write_s = time.perf_counter() - t
+        n_frames = sum(s.num_frames for s in scenes.values())
+        log(f"on-disk: wrote {len(scenes)} scenes, {n_frames} frames "
+            f"{DATASET_RECORD['synthetic']['width']}x{DATASET_RECORD['synthetic']['height']} in "
+            f"the pdc layout ({chosen} encoder, PNGs, pose_data.yaml, camera_info.yaml, "
+            f"fusion_mesh.ply) and a composite config in {write_s:.2f} s")
+
+        # the frames on disk against the in-memory rendering
+        t = time.perf_counter()
+        for name, sc in scenes.items():
+            got = SceneData.from_structure(SceneStructure(
+                os.path.join(tmp, "logs_proto", name, "processed")), name)
+            rgb, depth, mask, poses = sc.render_all()
+            pose_err = float(np.abs(got.poses - poses).max())
+            same = (np.array_equal(got.rgb, rgb) and np.array_equal(got.depth, depth)
+                    and np.array_equal(got.mask, mask) and np.array_equal(got.K, sc.K)
+                    and got.frame_ids is None)
+            log(f"on-disk {name}: decoded frames bit-equal to the rendering: {same}; poses "
+                f"max|diff| {pose_err:.3g} (bar 1e-9)")
+            if not same or not pose_err <= 1e-9:
+                fail(f"scene {name} does not read back as it was rendered")
+        read_s = time.perf_counter() - t
+        decoders = ["zlib"] + (["libpng"] if chosen == "libpng" else [])
+        out["codec"] = codec_times(np, nl, tmp, scenes["scene_000"], decoders)
+        for dec, c in out["codec"].items():
+            log(f"on-disk {dec} codec, {scenes['scene_000'].width}x{scenes['scene_000'].height} "
+                f"frame (RGB + depth + mask files): write "
+                f"{c['write_ms']:.2f} ms, decode {c['decode_ms']:.2f} ms (one frame alone, "
+                f"median of 3); a 12-frame scene in one call: write {c['write_ms_batched']:.2f}, "
+                f"decode {c['decode_ms_batched']:.2f} ms per frame (host clock, {os.cpu_count()} "
+                f"cores); the RGB file alone with every row Paeth-filtered: decode "
+                f"{c['paeth_rgb_decode_ms']:.2f} ms")
+
+        # python -m pdc_tpu_torch train, in this process
+        cfg = driver_config(tmp, "on_disk")
+        cfg_file = os.path.join(tmp, "training.yaml")
+        save_yaml(cfg, cfg_file)
+        argv = ["train", "--config", cfg_file, "--dataset_config", composite, "--data_dir", tmp,
+                "--name", "on_disk", "--logging_dir", tmp, "--device", str(dev)]
+        n_iter, batch = cfg["training"]["num_iterations"], cfg["training"]["batch_size"]
+        n_eval = cfg["training"]["test_loss_num_iterations"] // batch
+        ph.forward_launches = ph.backward_launches = 0
+        t = time.perf_counter()
+        with _TrainerOf(train_mod) as rec:
+            rc = cli.main(argv)
+        torch.cuda.synchronize(dev)
+        run_s = time.perf_counter() - t
+        k1, k2 = ph.forward_launches, ph.backward_launches
+        trainer = rec.trainer
+        if rc != 0 or trainer is None:
+            fail(f"python -m pdc_tpu_torch train returned {rc}")
+        folder = trainer.logging_dir
+        log(f"on-disk: python -m pdc_tpu_torch {' '.join(argv)} -> {folder}: route "
+            f"{trainer.route!r}, {n_iter} iterations in {run_s:.2f} s (the scenes' decode, 3 "
+            f"checkpoints and the test loss included)")
+        # (a) launches
+        log(f"on-disk launches: K1 {k1} (expected 2 x {n_iter} steps + 2 x {n_eval} eval "
+            f"batches = {2 * n_iter + 2 * n_eval}), K2 {k2} (expected {2 * n_iter})")
+        if k1 != 2 * n_iter + 2 * n_eval or k2 != 2 * n_iter:
+            fail(f"K1/K2 launched {k1}/{k2} times in the on-disk run")
+        # (b) finite metrics, moved weights
+        tl, te = trainer._logging_dict["train"], trainer._logging_dict["test"]
+        values = [v for k, vs in tl.items() if k != "iteration" for v in vs]
+        values += [v for k, vs in te.items() if k != "iteration" for v in vs]
+        log("on-disk losses: " + ", ".join(f"{x:.5g}" for x in tl["loss"])
+            + f"; test at {te['iteration']}: loss {te['loss']}")
+        if (len(tl["loss"]) != n_iter or te["iteration"] != [n_iter]
+                or not all(np.isfinite(v) for v in values)):
+            fail("an on-disk metric is missing or not finite")
+        first = flax_to_state_dict(read_checkpoint(os.path.join(folder, "000000.ckpt")))
+        live = trainer.state.module.state_dict()
+        still = [k for k, v in first.items() if v.dim() > 1 and torch.equal(v, live[k].cpu())]
+        if still:
+            fail(f"the on-disk run left weights unchanged: {still[:5]}")
+        # (c) the dataset record, and the dataset rebuilt from it
+        record = load_yaml(os.path.join(folder, "dataset.yaml"))
+        want_dirs = (os.path.abspath(tmp), os.path.dirname(os.path.abspath(composite)))
+        log(f"on-disk dataset.yaml: data_dir {record.get('data_dir')}, config_dir "
+            f"{record.get('config_dir')}")
+        if (record.get("data_dir"), record.get("config_dir")) != want_dirs:
+            fail(f"dataset.yaml does not record the absolute data_dir and config_dir {want_dirs}")
+        # (d) the folder's network, and one K3 query on it
+        trained = trainer.dataset
+        reloaded, out["k3_err"] = check_reload(torch, np, bm, dev, folder, trainer,
+                                               trained.scenes["scene_000"], "on-disk")
+        rebuilt = reloaded.load_training_dataset("train")
+        same_ds = rebuilt.get_scene_list() == trained.get_scene_list() and all(
+            rebuilt.get_scene(n).frame_ids is None and s.frame_ids is None
+            and np.array_equal(rebuilt.get_scene(n).poses, s.poses)
+            and rebuilt.get_scene(n).num_frames == s.num_frames
+            for n, s in trained.scenes.items())
+        log(f"on-disk load_training_dataset('train'): scenes {rebuilt.get_scene_list()}, "
+            f"frames {[rebuilt.get_scene(n).num_frames for n in rebuilt.get_scene_list()]}, same "
+            f"names, frame ids and poses as the trained dataset: {same_ds}")
+        if not same_ds:
+            fail("load_training_dataset did not rebuild the on-disk dataset")
+        # (e) statistics on the tree against float64 numpy over the same frames
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["statistics", "--config", composite, "--data_dir", tmp,
+                      "--num_images", str(ONDISK_STAT_IMAGES), "--device", str(dev)])
+        block = parse_yaml(buf.getvalue())["image_normalization"]
+        again = SpartanDataset(config=load_yaml(composite), data_dir=tmp,
+                               config_dir=os.path.dirname(composite))
+        frames = []
+        for _ in range(ONDISK_STAT_IMAGES):
+            name = again.get_random_scene_name()
+            frames.append(again.get_rgbd_mask_pose(name, again.get_random_image_index(name))[0])
+        x = np.stack(frames).reshape(-1, 3).astype(np.float64) / 255.0
+        stat_err = max(float(np.abs(np.asarray(block["mean"]) - x.mean(0)).max()),
+                       float(np.abs(np.asarray(block["std_dev"]) - x.std(0)).max()))
+        log(f"on-disk statistics: mean {block['mean']}, std_dev {block['std_dev']}; "
+            f"max|diff| to float64 numpy over the same {ONDISK_STAT_IMAGES} frames "
+            f"{stat_err:.3g} (bar {STAT_TOL})")
+        if not stat_err <= STAT_TOL:
+            fail("the statistics command disagrees with float64 numpy")
+        out.update(k1=k1, k2=k2, run_s=run_s, write_s=write_s, read_s=read_s, decoder=chosen,
+                   step_ms=[1e3 * s for s in trainer.step_seconds], route=trainer.route)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def check_reload(torch, np, bm, dev, folder, trainer, scene, what):
+    """``from_model_folder`` on ``folder`` against the live network of
+    ``trainer`` (forward_on_img within RELOAD_TOL on the scene's frame 0),
+    then one K3 query of 16 descriptors of frame 1 on the reloaded
+    descriptors of frame 0, against the plain best match. Returns (the
+    reloaded network, K3's distance error against its plain version)."""
+    from pdc_tpu_torch.models.dcn import DenseCorrespondenceNetwork
+
+    reloaded = DenseCorrespondenceNetwork.from_model_folder(folder, device=dev)
+    live_dcn = trainer.get_dcn()
+    frame = scene.rgb[0]
+    res = reloaded.forward_on_img(frame)
+    reload_err = float((res - live_dcn.forward_on_img(frame)).abs().max())
+    Hd, Wd, Dd = res.shape
+    image = res.permute(2, 0, 1).reshape(1, Dd, Hd * Wd).contiguous()
+    other = reloaded.forward_on_img(scene.rgb[1])
+    px = torch.as_tensor(np.random.default_rng(SEED).integers(0, Hd * Wd, 16), device=dev)
+    q = other.reshape(Hd * Wd, Dd)[px][None].contiguous()
+    idx, dist = bm.best_match(image, q)
+    pidx, pdist = bm.best_match_reference(image, q)
+    bad, err = check_matches(torch, bm, image, q, idx, dist)
+    vs_plain = float((dist - pdist).abs().max())
+    log(f"{what} reload: from_model_folder vs get_dcn max|diff| {reload_err:.3g} "
+        f"(bar {RELOAD_TOL}); K3 on the reloaded descriptors, 16 queries: bad_idx {bad}, "
+        f"dist_err {err:.3g}, vs plain {vs_plain:.3g}")
+    if not reload_err <= RELOAD_TOL or bad or not err <= DIST_TOL or not vs_plain <= PLAIN_TOL:
+        fail(f"{what}: the reloaded network disagrees with the live one, or K3 with its plain "
+             "version")
+    return reloaded, vs_plain
 
 
 def flatten(tree, prefix=""):
@@ -1005,7 +1322,14 @@ def main():
     torch.cuda.empty_cache()
     phase("training driver", t0)
 
-    # 8. timings ---------------------------------------------------------------
+    # 8. the main path from disk: python -m pdc_tpu_torch train --------------------
+    t0 = time.perf_counter()
+    on_disk = check_on_disk_training(torch, np, dev, here, bm, ph, driver)
+    on_disk["phase_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    phase("on-disk training", t0)
+
+    # 9. timings ---------------------------------------------------------------
     t0 = time.perf_counter()
     log(smi)
     # Kernel times are device times (time_device: the queue primed before
@@ -1047,7 +1371,7 @@ def main():
                      "source": "pdc_tpu_torch/csrc/best_match.cu",
                      "replaces": "pdc_tpu/ops/pallas_kernels.py:30",
                      "launches": launches, "launches_by_path": {"serving": launches},
-                     "max_abs_err": max(max_abs_err, driver["k3_err"]),
+                     "max_abs_err": max(max_abs_err, driver["k3_err"], on_disk["k3_err"]),
                      "ms": k_ms, "device_ms": k_ms, "wrapper_ms": w_ms, "plain_ms": p_ms,
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
                      "empty_launch_ms": empty_ms}
@@ -1131,6 +1455,19 @@ def main():
         f"checkpoint writes (.ckpt {driver['sizes']['000006.ckpt'] / 1e6:.1f} MB + .ckpt.opt "
         f"{driver['sizes']['000006.ckpt.opt'] / 1e6:.1f} MB + the yaml files) "
         f"[{', '.join(f'{x:.0f}' for x in driver['save_ms'])}] ms")
+    disk_ms, drv_ms = on_disk["step_ms"], driver["step_ms"]
+    log(f"on-disk training ({on_disk['route']!r}, decoder {on_disk['decoder']}): host ms per "
+        f"step call [{', '.join(f'{x:.1f}' for x in disk_ms)}], steps 2-{len(disk_ms)} mean "
+        f"{sum(disk_ms[1:]) / len(disk_ms[1:]):.1f} ms against the training driver's "
+        f"{sum(drv_ms[1:]) / len(drv_ms[1:]):.1f} ms on the in-memory dataset; whole run "
+        f"{on_disk['run_s']:.2f} s against {driver['run_s']:.2f} s; tree written in "
+        f"{on_disk['write_s']:.2f} s and read back in {on_disk['read_s']:.2f} s; phase "
+        f"{on_disk['phase_s']:.2f} s")
+    for dec, c in on_disk["codec"].items():
+        log(f"PNG codec {dec}, ms per 640x480 frame (RGB + depth + mask): write "
+            f"{c['write_ms']:.2f}, decode {c['decode_ms']:.2f} (one frame alone); write "
+            f"{c['write_ms_batched']:.2f}, decode {c['decode_ms_batched']:.2f} (12 frames in "
+            f"one call); an RGB file of Paeth rows alone: decode {c['paeth_rgb_decode_ms']:.2f}")
     for route, r in driver["routes"].items():
         mean_route = sum(r["step_ms"]) / len(r["step_ms"])
         log(f"training driver route {route!r}, {ROUTE_STEPS} iterations: host wall clock per "
@@ -1189,14 +1526,16 @@ def main():
     k1_entry = {"name": "pooled_hinge_fwd", "route": "cuda",
                 "source": "pdc_tpu_torch/csrc/pooled_hinge.cu",
                 "replaces": "pdc_tpu/ops/pallas_loss.py:42", "launches": k1_launches,
-                "launches_by_path": {"training": k1_launches, "training driver": driver["k1"]},
+                "launches_by_path": {"training": k1_launches, "training driver": driver["k1"],
+                                     "on-disk training": on_disk["k1"]},
                 "max_abs_err": k1_err, "ms": k1_ms, "device_ms": k1_ms,
                 "wrapper_ms": k1_wrapper, "plain_ms": p1_ms, "bound_ms": b1_ms,
                 "bound_by": b1_by, "library_ms": None}
     k2_entry = {"name": "pooled_hinge_bwd", "route": "cuda",
                 "source": "pdc_tpu_torch/csrc/pooled_hinge.cu",
                 "replaces": "pdc_tpu/ops/pallas_loss.py:77", "launches": k2_launches,
-                "launches_by_path": {"training": k2_launches, "training driver": driver["k2"]},
+                "launches_by_path": {"training": k2_launches, "training driver": driver["k2"],
+                                     "on-disk training": on_disk["k2"]},
                 "max_abs_err": k2_err, "ms": k2_ms, "device_ms": k2_ms,
                 "wrapper_ms": k2_wrapper, "plain_ms": p2_ms, "bound_ms": b2_ms,
                 "bound_by": b2_by, "library_ms": None}

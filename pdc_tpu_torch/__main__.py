@@ -1,23 +1,112 @@
 """Command-line interface: ``python -m pdc_tpu_torch <command> [args]``.
 
-Only ``serve`` is ported so far:
+Ported commands:
 
+    python -m pdc_tpu_torch train --dataset_config <composite.yaml> --data_dir <root>
+    python -m pdc_tpu_torch statistics --config <composite.yaml> --data_dir <root>
     python -m pdc_tpu_torch serve --model_folder trained_models/net
 
-``python -m pdc_tpu_torch serve --help`` lists its options. The other
-``python -m pdc_tpu`` commands (evaluate, export-serving,
-descriptor-images, ...) are still to be ported (see ROADMAP.md). ``train``
-waits for the on-disk data slice, since its ``--dataset_config`` names
-scenes on disk; until then train from Python with
-``pdc_tpu_torch.training.train.DenseCorrespondenceTraining`` on a
-synthetic dataset.
+Each runs on the CUDA card unless ``--device cpu`` is given, and raises
+without CUDA otherwise. ``python -m pdc_tpu_torch <command> --help`` lists a
+command's options. The other ``python -m pdc_tpu`` commands (evaluate,
+export-serving, descriptor-images, ...) are still to be ported (see
+ROADMAP.md).
+
+A scene tree to train from, on the CPU (the port writes the pdc layout
+itself; no download):
+
+    python - <<'EOF'
+    from pdc_tpu_torch.data.synthetic import SyntheticScene
+    from pdc_tpu_torch.utils.yaml_io import save_yaml
+    for i in range(2):
+        SyntheticScene(seed=i, num_frames=6).write_scene(f"data/logs_proto/scene_{i}")
+    save_yaml({"object_id": "disc", "train": ["scene_0", "scene_1"], "test": ["scene_1"]},
+              "data/config/disc.yaml")
+    save_yaml({"logs_root_path": "logs_proto",
+               "single_object_scenes_config_files": ["disc.yaml"]}, "data/config/composite.yaml")
+    EOF
+    python -m pdc_tpu_torch train --dataset_config data/config/composite.yaml \
+        --data_dir data --config <training.yaml at 64x48> --num_iterations 10 --device cpu
+
+``train`` reads ``--config`` (default ``configs/training.yaml``) with the
+port's YAML reader, builds the dataset of the composite config (the scenes
+are decoded when the run first samples them) and, when the config asks for
+the test loss, the test split of the same config, and writes the model
+folder under ``training.logging_dir`` (default ``trained_models/``).
+
+On the card, ``python3 chip_smoke.py`` runs ``train`` this way at 640x480
+with ResNet-34-8s (its "on-disk training" phase). PNGs are decoded by the
+libpng pool where ``png.h`` is found and by the port's zlib codec
+elsewhere, which gives the same arrays; the card's machine has no
+``png.h`` and uses the zlib codec (:mod:`pdc_tpu_torch.data.native_loader`).
 """
 
 from __future__ import annotations
 
 import sys
 
-COMMANDS = {"serve": "pdc_tpu_torch.apps.serve"}
+# commands whose module's main(argv) parses its own arguments
+DELEGATED = {"serve": "pdc_tpu_torch.apps.serve",
+             "statistics": "pdc_tpu_torch.data.statistics"}
+PARALLEL_FLAGS = ("data_parallel", "fsdp", "tensor_parallel", "pipeline")
+
+
+def _cmd_train(argv):
+    """Train a network with the reference's model-folder contract."""
+    import argparse
+    import os
+
+    p = argparse.ArgumentParser(prog="python -m pdc_tpu_torch train")
+    p.add_argument("--config", default=None,
+                   help="training.yaml (default: configs/training.yaml)")
+    p.add_argument("--dataset_config", required=True, help="composite dataset yaml")
+    p.add_argument("--data_dir", default=".", help="pdc data root")
+    p.add_argument("--name", default=None, help="model folder name (training.logging_dir_name)")
+    p.add_argument("--logging_dir", default=None,
+                   help="parent dir for model folders (default trained_models)")
+    p.add_argument("--num_iterations", type=int, default=None,
+                   help="override training.num_iterations")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    for flag in PARALLEL_FLAGS:
+        p.add_argument(f"--{flag}", nargs="?", const=True, default=None,
+                       help="not ported: multi-device training waits for the parallel slice")
+    args = p.parse_args(argv)
+    for flag in PARALLEL_FLAGS:
+        if getattr(args, flag) is not None:
+            p.error(f"--{flag} is not ported to pdc_tpu_torch yet: multi-device training "
+                    "waits for the parallel slice")
+
+    import torch
+
+    from pdc_tpu_torch.data.dataset import SpartanDataset
+    from pdc_tpu_torch.training.train import DenseCorrespondenceTraining
+    from pdc_tpu_torch.utils.yaml_io import load_yaml
+
+    # train in fp32, as the JAX package does: no TF32 in matmuls or cuDNN
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    config = (load_yaml(args.config) if args.config
+              else DenseCorrespondenceTraining.load_default_config())
+    t = config["training"]
+    if args.name:
+        t["logging_dir_name"] = args.name
+    if args.logging_dir:
+        t["logging_dir"] = args.logging_dir
+    if args.num_iterations is not None:
+        t["num_iterations"] = args.num_iterations
+    dataset_config = load_yaml(args.dataset_config)
+    config_dir = os.path.dirname(os.path.abspath(args.dataset_config))
+
+    def split(mode):
+        return SpartanDataset(config=dataset_config, mode=mode, data_dir=args.data_dir,
+                              config_dir=config_dir)
+
+    trainer = DenseCorrespondenceTraining(
+        config=config, dataset=split("train"),
+        dataset_test=split("test") if t.get("compute_test_loss", False) else None,
+        device=args.device)
+    trainer.run()
+    print(f"trained model folder: {trainer.logging_dir}")
 
 
 def main(argv=None):
@@ -26,13 +115,16 @@ def main(argv=None):
         print(__doc__.strip())
         return 0 if argv else 2
     cmd, rest = argv[0], argv[1:]
-    if cmd not in COMMANDS:
+    if cmd == "train":
+        _cmd_train(rest)
+        return 0
+    if cmd not in DELEGATED:
         print(f"unknown or not yet ported command {cmd!r}; ported: "
-              f"{', '.join(sorted(COMMANDS))}", file=sys.stderr)
+              f"{', '.join(sorted(DELEGATED) + ['train'])}", file=sys.stderr)
         return 2
     import importlib
 
-    importlib.import_module(COMMANDS[cmd]).main(rest)
+    importlib.import_module(DELEGATED[cmd]).main(rest)
     return 0
 
 

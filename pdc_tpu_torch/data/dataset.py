@@ -1,31 +1,33 @@
 """SpartanDataset — the host-side scene registry and pair sampler.
 
 Port of :mod:`pdc_tpu.data.dataset`: ``ImageType`` (:39), ``SceneData``
-(:58-146), ``SamplePair`` (:147) and ``SpartanDataset`` (:165-774) for
-in-memory scenes. Sampling is plain Python and numpy on the host, with the
-same two RNGs (``random.Random`` and ``np.random.RandomState``, both seeded
-with ``seed``) drawn in the same order as the JAX package, so one seed gives
-the same pairs, types, frames and batches bit for bit. The device side
-(assembly, the device cache, the on-device sampler) takes the frames from
-here.
+(:58-146), ``SamplePair`` (:147) and ``SpartanDataset`` (:165-774). Sampling
+is plain Python and numpy on the host, with the same two RNGs
+(``random.Random`` and ``np.random.RandomState``, both seeded with ``seed``)
+drawn in the same order as the JAX package, so one seed gives the same
+pairs, types, frames and batches bit for bit. The device side (assembly, the
+device cache, the on-device sampler) takes the frames from here.
 
-Not ported yet, and raising ``NotImplementedError``: scenes on disk
-(``SceneData.from_structure``) and the composite scene-list configs that
-name them. They wait for the on-disk data slice, with the scene layout, the
-PNG decoder and ``config_gen``. Synthetic datasets (:meth:`SpartanDataset.make_synthetic`)
-and their ``dataset.yaml`` record work in full; synthetic-multi-object pairs
-are sampled as in the JAX package, and their assembly waits for the
-per-pair-loss slice.
+Scenes come from the pdc on-disk layout (:meth:`SceneData.from_structure`,
+decoded by :mod:`pdc_tpu_torch.data.native_loader`), named by a composite
+dataset config (``logs_root_path`` and per-object scene-list YAMLs with
+``train``/``test`` splits), or from the synthetic renderer
+(:meth:`SpartanDataset.make_synthetic`). A composite config's split is
+decoded when that split is first used. Synthetic-multi-object pairs are
+sampled as in the JAX package; their assembly waits for the per-pair-loss
+slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import random as pyrandom
 from typing import Dict, List, Optional
 
 import numpy as np
 
+from pdc_tpu_torch.data.scene import SceneStructure
 from pdc_tpu_torch.geom.transforms import pose_angle, pose_distance
 from pdc_tpu_torch.losses.composer import (
     MATCH_TYPE_DIFFERENT_OBJECT,
@@ -34,9 +36,7 @@ from pdc_tpu_torch.losses.composer import (
     MATCH_TYPE_SINGLE_OBJECT_WITHIN_SCENE,
     MATCH_TYPE_SYNTHETIC_MULTI_OBJECT,
 )
-
-_ON_DISK_MSG = ("scenes on disk and composite dataset configs are not ported yet: they "
-                "wait for the on-disk data slice (scene layout, PNG decode, config_gen)")
+from pdc_tpu_torch.utils.yaml_io import load_yaml
 
 
 class ImageType:
@@ -67,11 +67,12 @@ class SceneData:
     poses: np.ndarray  # [N, 4, 4] float64 camera-to-world
     K: np.ndarray      # [3, 3]
     object_id: Optional[str] = None
-    # on-disk %06d file indices of the frames; None => positions and file
-    # indices coincide (always so for in-memory scenes)
+    # on-disk %06d file indices of the frames (pose_data.yaml keys need not
+    # start at 0 or be contiguous, and frames with missing files are dropped);
+    # None => positions and file indices coincide
     frame_ids: Optional[np.ndarray] = None
     # source layout on disk (None for in-memory scenes)
-    structure: Optional[object] = None
+    structure: Optional[SceneStructure] = None
 
     @property
     def num_frames(self):
@@ -104,8 +105,25 @@ class SceneData:
         return int(self.frame_ids[pos])
 
     @staticmethod
-    def from_structure(structure, name: str, object_id=None):
-        raise NotImplementedError(_ON_DISK_MSG)
+    def from_structure(structure: SceneStructure, name: str, object_id=None):
+        """Decode a scene of the pdc on-disk layout: the frames of
+        ``pose_data.yaml`` whose RGB and depth files exist, in file-index
+        order (:func:`~pdc_tpu_torch.data.native_loader.load_scene_frames`,
+        ``decoder="auto"``)."""
+        from pdc_tpu_torch.data.native_loader import load_scene_frames
+
+        intr = structure.load_camera_intrinsics()
+        pose_map = structure.load_pose_data()
+        indices = [i for i in sorted(pose_map)
+                   if os.path.exists(structure.rgb_image_filename(i))
+                   and os.path.exists(structure.depth_image_filename(i))]
+        rgb, depth, mask = load_scene_frames(structure, indices, intr.height, intr.width)
+        poses = np.stack([pose_map[i] for i in indices])
+        ids = np.asarray(indices, np.int64)
+        if ids.size and ids[0] == 0 and ids[-1] == ids.size - 1:
+            ids = None  # contiguous from 0: positions == file indices
+        return SceneData(name=name, rgb=rgb, depth=depth, mask=mask, poses=poses, K=intr.K,
+                         object_id=object_id, frame_ids=ids, structure=structure)
 
     @staticmethod
     def from_synthetic(scene, name: str = "synthetic", object_id="synthetic_object"):
@@ -134,11 +152,17 @@ class SamplePair:
 
 
 class SpartanDataset:
-    """Scene registry and pair sampler over in-memory :class:`SceneData`.
+    """Scene registry and pair sampler over :class:`SceneData`.
 
-    Each split (``"train"``, ``"test"``) has its own registry of scenes,
-    single-object scenes by object id, and multi-object scenes; ``mode``
-    selects the split that sampling reads.
+    Built from in-memory scenes (``scenes``, :meth:`add_scene`), or from a
+    composite dataset config (``config`` with ``logs_root_path`` and
+    ``single_object_scenes_config_files`` / ``multi_object_scenes_config_files``;
+    scene lists resolved against ``config_dir``, scenes under
+    ``<data_dir>/<logs_root_path>/<scene>/processed``). Each split
+    (``"train"``, ``"test"``) has its own registry of scenes, single-object
+    scenes by object id, and multi-object scenes; ``mode`` selects the split
+    that sampling reads, and a composite config's split is loaded when it is
+    first used.
     """
 
     # pose-difference rejection thresholds
@@ -149,13 +173,12 @@ class SpartanDataset:
                  config: Optional[dict] = None, config_expanded: Optional[dict] = None,
                  data_dir: Optional[str] = None, config_dir: Optional[str] = None,
                  seed: int = 0):
-        if scenes is None and config is not None and "single_object_scenes_config_files" in config:
-            raise NotImplementedError(_ON_DISK_MSG)
         self.mode = mode
         self._rng = pyrandom.Random(seed)
         self._np_rng = np.random.RandomState(seed)
         self._registries: Dict[str, dict] = {}
         self.config = config_expanded or config or {}
+        self._composite_config = None
         self._data_dir = data_dir
         self._config_dir = config_dir
 
@@ -170,12 +193,23 @@ class SpartanDataset:
         self._domain_randomize = True
         self._data_type_probabilities = {MATCH_TYPE_SINGLE_OBJECT_WITHIN_SCENE: 1.0}
 
-        for s in scenes or ():
-            self.add_scene(s)
+        if scenes is not None:
+            for s in scenes:
+                self.add_scene(s)
+        elif config is not None and "single_object_scenes_config_files" in config:
+            self._composite_config = config
 
     def config_snapshot(self) -> dict:
-        """The config dict that a model folder's ``dataset.yaml`` records."""
-        return dict(self.config or {})
+        """The config dict that a model folder's ``dataset.yaml`` records. A
+        composite config also records the absolute ``data_dir`` and
+        ``config_dir``, so :meth:`from_dataset_config` rebuilds the dataset
+        from the record alone."""
+        cfg = dict(self.config or {})
+        if self._composite_config is not None:
+            cfg["data_dir"] = os.path.abspath(self._data_dir or ".")
+            if self._config_dir is not None:
+                cfg["config_dir"] = os.path.abspath(self._config_dir)
+        return cfg
 
     def reset_seed(self, seed: int = 1):
         """Re-seed both host RNGs (evaluation entry points do, so that their
@@ -186,8 +220,13 @@ class SpartanDataset:
     # -- construction ---------------------------------------------------------
 
     def _registry(self, mode: str) -> dict:
+        """A split's registry; a composite config's split is decoded here, at
+        its first use."""
         if mode not in self._registries:
             self._registries[mode] = {"scenes": {}, "single": {}, "multi": []}
+            if self._composite_config is not None:
+                self._load_from_composite_config(self._composite_config, self._data_dir,
+                                                 self._config_dir, mode)
         return self._registries[mode]
 
     def add_scene(self, scene: SceneData, multi_object: bool = False,
@@ -203,6 +242,30 @@ class SpartanDataset:
             else:
                 oid = scene.object_id or scene.name
                 reg["single"].setdefault(oid, []).append(scene.name)
+
+    def _load_from_composite_config(self, config, data_dir, config_dir, mode=None):
+        """Register the scenes of split ``mode`` of a composite config: each
+        scene-list YAML names an object (``object_id``, else its file name)
+        and its ``train``/``test`` scenes (``scenes`` for both)."""
+        from pdc_tpu_torch.data.config_gen import resolve_scene_list_path
+
+        logs_dir = os.path.join(data_dir or os.environ.get("DC_DATA_DIR", "."),
+                                config.get("logs_root_path", "logs_proto"))
+        split = mode or self.mode
+
+        def load_scene_list(scene_cfg_file, multi_object):
+            path = resolve_scene_list_path(scene_cfg_file, config_dir)
+            sc = load_yaml(path)
+            object_id = sc.get("object_id", os.path.splitext(os.path.basename(path))[0])
+            for scene_name in sc.get(split, sc.get("scenes", [])):
+                structure = SceneStructure(os.path.join(logs_dir, scene_name, "processed"))
+                self.add_scene(SceneData.from_structure(structure, scene_name, object_id),
+                               multi_object=multi_object, modes=(split,))
+
+        for f in config.get("single_object_scenes_config_files", []):
+            load_scene_list(f, multi_object=False)
+        for f in config.get("multi_object_scenes_config_files", []):
+            load_scene_list(f, multi_object=True)
 
     # -- train/test mode -------------------------------------------------------
 
@@ -634,8 +697,9 @@ class SpartanDataset:
     def from_dataset_config(config: dict, mode: str = "train",
                             data_dir=None, config_dir=None):
         """Rebuild a dataset from a model folder's ``dataset.yaml`` record:
-        the synthetic-generator record. A composite scene-list config raises
-        ``NotImplementedError`` until the on-disk data slice."""
+        the synthetic-generator record, or a composite scene-list config with
+        the ``data_dir``/``config_dir`` that :meth:`config_snapshot` records
+        (the arguments, when given, take precedence)."""
         if config and "synthetic" in config:
             ds = SpartanDataset.make_synthetic(**config["synthetic"])
             ds.mode = mode

@@ -1,21 +1,25 @@
 """Analytic synthetic RGBD scene generator (numpy).
 
 Port of :mod:`pdc_tpu.data.synthetic` (``make_orbit_pose`` :27-50,
-``SyntheticScene`` rendering :53-186): a textured ground plane carrying a
-disc-shaped object, plus an optional elevated occluder, seen by a ring of
-cameras. Every depth value satisfies the pinhole model exactly. The code is
-numpy, as the original; it differs only in importing the port's own
-geometry, so the same arguments render the same frames bit for bit.
-Writing scenes to disk and the fusion geometry are not ported yet.
+``SyntheticScene`` :53-315): a textured ground plane carrying a disc-shaped
+object, plus an optional elevated occluder, seen by a ring of cameras. Every
+depth value satisfies the pinhole model exactly. The code is numpy, as the
+original; it differs only in importing the port's own geometry, so the same
+arguments render the same frames bit for bit. :meth:`SyntheticScene.write_scene`
+writes a scene in the pdc processed-log layout through the port's PNG
+encoder (:mod:`pdc_tpu_torch.data.native_loader`) and YAML emitter, with the
+fusion geometry as ``fusion_mesh.ply``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 
 from pdc_tpu_torch.geom.camera import CameraIntrinsics
+from pdc_tpu_torch.geom.transforms import dict_from_se3
 from pdc_tpu_torch.utils.constants import DEPTH_IM_SCALE
 
 
@@ -177,3 +181,115 @@ class SyntheticScene:
         mask = np.stack([f[2] for f in frames])
         poses = np.stack([f[3] for f in frames])
         return rgb, depth, mask, poses
+
+    # -- the pdc on-disk layout ----------------------------------------------
+
+    def fusion_points(self, plane_step: float = 0.02, object_step: float = 0.005,
+                      plane_extent: float = 0.8, object_height: float = 0.02):
+        """World-frame scene geometry as points, the stand-in for a TSDF
+        fusion mesh: the ground plane at z=0 around the object, and the
+        object disc as a thin puck at ``object_height``.
+
+        :return: [N, 3] float32
+        """
+        xs = np.arange(-plane_extent, plane_extent, plane_step)
+        gx, gy = np.meshgrid(xs, xs)
+        plane = np.stack([gx.ravel(), gy.ravel(), np.zeros(gx.size)], axis=1)
+        plane = plane[plane[:, 0] ** 2 + plane[:, 1] ** 2 > self.object_radius**2]
+        xo = np.arange(-self.object_radius, self.object_radius, object_step)
+        ox, oy = np.meshgrid(xo, xo)
+        disc = np.stack([ox.ravel(), oy.ravel(), np.full(ox.size, object_height)], axis=1)
+        disc = disc[disc[:, 0] ** 2 + disc[:, 1] ** 2 <= self.object_radius**2]
+        return np.concatenate([plane, disc]).astype(np.float32)
+
+    def fusion_mesh(self, plane_step: float = 0.02, object_step: float = 0.005,
+                    plane_extent: float = 0.8, object_height: float = 0.02):
+        """Triangulated scene geometry (the plane around the object and the
+        object's disc), the stand-in for a TSDF fusion mesh.
+
+        :return: (vertices [N, 3] float32, faces [F, 3] int32)
+        """
+
+        def grid(xs, z, face_keep):
+            gx, gy = np.meshgrid(xs, xs)
+            verts = np.stack([gx.ravel(), gy.ravel(), np.full(gx.size, z)], axis=1)
+            w = len(xs)
+            r, c = np.meshgrid(np.arange(w - 1), np.arange(w - 1), indexing="ij")
+            i = (r * w + c).ravel()
+            quads = np.stack([i, i + 1, i + w + 1, i + w], axis=1)
+            faces = np.concatenate([quads[:, [0, 1, 2]], quads[:, [0, 2, 3]]], axis=0)
+            centroid = verts[faces].mean(axis=1)
+            return verts, faces[face_keep(centroid)]
+
+        r_obj2 = self.object_radius**2
+        plane_v, plane_f = grid(np.arange(-plane_extent, plane_extent, plane_step), 0.0,
+                                lambda c: c[:, 0] ** 2 + c[:, 1] ** 2 > r_obj2)
+        disc_v, disc_f = grid(np.arange(-self.object_radius - object_step,
+                                        self.object_radius + object_step, object_step),
+                              object_height, lambda c: c[:, 0] ** 2 + c[:, 1] ** 2 <= r_obj2)
+        verts = np.concatenate([plane_v, disc_v]).astype(np.float32)
+        faces = np.concatenate([plane_f, disc_f + len(plane_v)]).astype(np.int32)
+        return verts, faces
+
+    def write_fusion_mesh(self, processed_dir, with_faces: bool = True):
+        """Write ``fusion_mesh.ply`` (ASCII) into a processed scene folder:
+        the triangulated mesh, or with ``with_faces=False`` its points only."""
+        if with_faces:
+            pts, faces = self.fusion_mesh()
+        else:
+            pts, faces = self.fusion_points(), None
+        lines = ["ply", "format ascii 1.0", f"element vertex {len(pts)}",
+                 "property float x", "property float y", "property float z"]
+        if faces is not None:
+            lines += [f"element face {len(faces)}", "property list uchar int vertex_indices"]
+        lines.append("end_header")
+        lines += [f"{x:.5f} {y:.5f} {z:.5f}" for x, y, z in pts.tolist()]
+        if faces is not None:
+            lines += [f"3 {a} {b} {c}" for a, b, c in faces.tolist()]
+        path = os.path.join(processed_dir, "fusion_mesh.ply")
+        with open(path, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        return path
+
+    def write_scene(self, scene_dir):
+        """Write this scene in the pdc processed-log layout under
+        ``<scene_dir>/processed``: RGB, depth and mask PNGs (the mask as
+        0/255) through :func:`~pdc_tpu_torch.data.native_loader.encode_batch`,
+        ``pose_data.yaml``, ``camera_info.yaml`` and ``fusion_mesh.ply``.
+        Returns the processed folder."""
+        from pdc_tpu_torch.data.native_loader import (
+            KIND_ENC_GRAY8,
+            KIND_ENC_GRAY16,
+            KIND_ENC_RGB8,
+            encode_batch,
+        )
+        from pdc_tpu_torch.utils.yaml_io import save_yaml
+
+        processed = os.path.join(scene_dir, "processed")
+        img_dir = os.path.join(processed, "images")
+        depth_dir = os.path.join(processed, "rendered_images")
+        mask_dir = os.path.join(processed, "image_masks")
+        for d in (img_dir, depth_dir, mask_dir):
+            os.makedirs(d, exist_ok=True)
+
+        items, pose_data = [], {}
+        for i in range(self.num_frames):
+            rgb, depth, mask, pose = self.render(i)
+            items += [(os.path.join(img_dir, "%06d_rgb.png" % i), KIND_ENC_RGB8, rgb),
+                      (os.path.join(depth_dir, "%06d_depth.png" % i), KIND_ENC_GRAY16, depth),
+                      (os.path.join(mask_dir, "%06d_mask.png" % i), KIND_ENC_GRAY8, mask * 255)]
+            pose_data[i] = {
+                "camera_to_world": dict_from_se3(pose),
+                "timestamp": float(i),
+                "rgb_image_filename": "%06d_rgb.png" % i,
+                "depth_image_filename": "%06d_depth.png" % i,
+            }
+        encode_batch(items, self.height, self.width)
+        save_yaml(pose_data, os.path.join(img_dir, "pose_data.yaml"))
+        self.write_fusion_mesh(processed)
+        intr = self.intrinsics
+        save_yaml({"camera_matrix": {"data": [intr.fx, 0.0, intr.cx, 0.0, intr.fy, intr.cy,
+                                              0.0, 0.0, 1.0]},
+                   "image_width": self.width, "image_height": self.height},
+                  os.path.join(img_dir, "camera_info.yaml"))
+        return processed

@@ -1,6 +1,7 @@
 """Pinhole camera model in PyTorch, batched over leading axes.
 
-Port of :mod:`pdc_tpu.geom.camera` (``CameraIntrinsics`` :22-78,
+Port of :mod:`pdc_tpu.geom.camera` (``CameraIntrinsics`` :22-78, with
+``from_yaml_file`` reading through the port's own YAML reader,
 ``unproject_to_camera`` :92-108, ``project_to_image`` :111-126,
 ``uv_to_flat``/``flat_to_uv`` :129-142). Conventions are the same:
 
@@ -18,6 +19,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from pdc_tpu_torch.utils.yaml_io import load_yaml
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +44,13 @@ class CameraIntrinsics:
         K[1, 2] = self.cy
         K[2, 2] = 1.0
         return K
+
+    @staticmethod
+    def from_yaml_file(filename: str) -> "CameraIntrinsics":
+        """Read a ``camera_info.yaml``: the plain one, or the ROS
+        calibration variant whose distortion, rectification and projection
+        blocks surround the ``camera_matrix``."""
+        return CameraIntrinsics.from_dict(load_yaml(filename))
 
     @staticmethod
     def from_dict(config: dict) -> "CameraIntrinsics":

@@ -3,7 +3,8 @@
 Port of :mod:`pdc_tpu.geom.transforms` (:20-163). The host-side helpers
 work in float64 numpy, as there; ``invert_se3`` takes numpy or torch, and
 ``transform_points`` is torch, batched over leading axes. Quaternions are
-(w, x, y, z).
+(w, x, y, z), as in the ``pose_data.yaml`` files of the pdc scene layout
+(:func:`se3_from_dict`, :func:`dict_from_se3`).
 """
 
 from __future__ import annotations
@@ -33,6 +34,39 @@ def quaternion_matrix(q):
     return _quat_to_mat_np(w, x, y, z)
 
 
+def quaternion_from_matrix(R):
+    """Unit quaternion (w, x, y, z) of a 3x3 (or 4x4) rotation matrix, by
+    Shepperd's branch on the largest diagonal term."""
+    R = np.asarray(R, dtype=np.float64)[:3, :3]
+    t = np.trace(R)
+    if t > 0:
+        s = np.sqrt(t + 1.0) * 2.0
+        w = 0.25 * s
+        x = (R[2, 1] - R[1, 2]) / s
+        y = (R[0, 2] - R[2, 0]) / s
+        z = (R[1, 0] - R[0, 1]) / s
+    elif R[0, 0] > R[1, 1] and R[0, 0] > R[2, 2]:
+        s = np.sqrt(1.0 + R[0, 0] - R[1, 1] - R[2, 2]) * 2.0
+        w = (R[2, 1] - R[1, 2]) / s
+        x = 0.25 * s
+        y = (R[0, 1] + R[1, 0]) / s
+        z = (R[0, 2] + R[2, 0]) / s
+    elif R[1, 1] > R[2, 2]:
+        s = np.sqrt(1.0 + R[1, 1] - R[0, 0] - R[2, 2]) * 2.0
+        w = (R[0, 2] - R[2, 0]) / s
+        x = (R[0, 1] + R[1, 0]) / s
+        y = 0.25 * s
+        z = (R[1, 2] + R[2, 1]) / s
+    else:
+        s = np.sqrt(1.0 + R[2, 2] - R[0, 0] - R[1, 1]) * 2.0
+        w = (R[1, 0] - R[0, 1]) / s
+        x = (R[0, 2] + R[2, 0]) / s
+        y = (R[1, 2] + R[2, 1]) / s
+        z = 0.25 * s
+    q = np.array([w, x, y, z])
+    return q / np.linalg.norm(q)
+
+
 def se3_from_quat_trans(quat_wxyz, translation):
     """4x4 homogeneous transform (numpy) from a quaternion and a translation."""
     T = np.eye(4)
@@ -40,6 +74,29 @@ def se3_from_quat_trans(quat_wxyz, translation):
     T[:3, :3] = _quat_to_mat_np(w, x, y, z)
     T[:3, 3] = np.asarray(translation, dtype=np.float64)
     return T
+
+
+def se3_from_dict(d):
+    """4x4 camera-to-world transform of a ``pose_data.yaml`` entry:
+    ``{"quaternion": {"w", "x", "y", "z"}, "translation": {"x", "y", "z"}}``,
+    where the rotation key may also be spelled ``orientation`` or
+    ``rotation``."""
+    q = next((d[k] for k in ("quaternion", "orientation", "rotation") if k in d), None)
+    if q is None:
+        raise ValueError(f"pose dict has no quaternion/orientation/rotation key: {sorted(d)}")
+    t = d["translation"]
+    return se3_from_quat_trans([q["w"], q["x"], q["y"], q["z"]], [t["x"], t["y"], t["z"]])
+
+
+def dict_from_se3(T):
+    """The ``pose_data.yaml`` entry of a 4x4 transform (inverse of
+    :func:`se3_from_dict`)."""
+    T = np.asarray(T)
+    q = quaternion_from_matrix(T[:3, :3])
+    return {
+        "quaternion": {"w": float(q[0]), "x": float(q[1]), "y": float(q[2]), "z": float(q[3])},
+        "translation": {"x": float(T[0, 3]), "y": float(T[1, 3]), "z": float(T[2, 3])},
+    }
 
 
 def invert_se3(T):

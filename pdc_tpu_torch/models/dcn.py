@@ -302,6 +302,26 @@ class DenseCorrespondenceNetwork:
         dcn.model_folder = model_folder
         return dcn
 
+    @staticmethod
+    def from_reference_model_folder(model_folder: str, model_param_file: Optional[str] = None,
+                                    iteration: Optional[int] = None, device="cuda"):
+        """Reconstruct a network from a model folder written by the reference
+        framework: ``training.yaml`` and torch ``%06d.pth`` checkpoints
+        (:func:`~pdc_tpu_torch.models.torch_import.load_reference_checkpoint`)."""
+        from pdc_tpu_torch.models.torch_import import load_reference_checkpoint
+
+        device = resolve_device(device)
+        training_config = load_yaml(os.path.join(model_folder, "training.yaml"))
+        config = dict(training_config["dense_correspondence_network"])
+        config["path_to_network_params_folder"] = model_folder
+        if model_param_file is None:
+            model_param_file = find_latest_checkpoint(model_folder, iteration, suffix=".pth")
+        config["model_param_filename_tail"] = os.path.basename(model_param_file)
+        dcn = DenseCorrespondenceNetwork.from_config(config, device=device)
+        load_reference_checkpoint(dcn, model_param_file)
+        dcn.model_folder = model_folder
+        return dcn
+
     # -- persistence -----------------------------------------------------------
 
     def save_checkpoint(self, path: str):
@@ -315,8 +335,8 @@ class DenseCorrespondenceNetwork:
 
 def find_latest_checkpoint(model_folder: str, iteration: Optional[int] = None,
                            suffix: str = ".ckpt") -> str:
-    """Find a ``%06d.ckpt`` in a model folder: the given ``iteration``, else
-    the highest all-digit step."""
+    """Find a ``%06d.ckpt`` (or ``suffix``, such as ``.pth``) in a model
+    folder: the given ``iteration``, else the highest all-digit step."""
     if iteration is not None:
         path = os.path.join(model_folder, "%06d" % iteration + suffix)
         if not os.path.exists(path):

@@ -1,18 +1,18 @@
-"""ImageNet initialisation from torchvision ResNet weights.
+"""ImageNet initialisation from torchvision ResNet weights, and the import of
+networks trained by the reference framework.
 
 Port of :mod:`pdc_tpu.models.torch_import`: ``convert_torchvision_resnet``
-(:31-100), ``resolve_pretrained_weights`` (:112-155) and
-``maybe_load_pretrained_backbone`` (:158-174). A torchvision-layout state
+(:31-100), ``resolve_pretrained_weights`` (:112-155),
+``maybe_load_pretrained_backbone`` (:158-174), ``convert_reference_dcn`` and
+``load_reference_checkpoint`` (:177-240). A torchvision-layout state
 dict (``conv1.weight``, ``bn1.*``, ``layer{L}.{B}.{conv,bn}{N}.*``,
 ``layer{L}.{B}.downsample.{0,1}.*``) maps onto the port's
 :class:`~pdc_tpu_torch.models.resnet.ResNetFCN` names (``stem_conv``,
 ``stem_bn``, ``stage{L}_block{B}.{conv,bn}{N}``, ``proj_conv``/``proj_bn``);
 the descriptor head has no torchvision counterpart and keeps its
-initialisation. Nothing is ever downloaded: the weights are a local
+initialisation, except in a reference-trained checkpoint, whose ``fc`` 1x1
+convolution is the head. Nothing is ever downloaded: the weights are a local
 ``.pth`` file.
-
-Not ported yet: ``convert_reference_dcn`` and ``load_reference_checkpoint``
-(:177-240), the import of checkpoints trained by the reference framework.
 """
 
 from __future__ import annotations
@@ -118,3 +118,54 @@ def maybe_load_pretrained_backbone(module: torch.nn.Module,
     logger.info("initializing backbone from pretrained weights: %s", path)
     module.load_state_dict(convert_torchvision_resnet(sd, module.state_dict()), strict=True)
     return module
+
+
+def convert_reference_dcn(state_dict: Mapping, target: Mapping) -> Dict[str, torch.Tensor]:
+    """A new ``state_dict`` for the port's module from a checkpoint trained by
+    the reference framework (its ``%06d.pth``, ``torch.save(dcn.state_dict())``).
+
+    Key layouts: new style ``fcn.resnet34_8s.<torchvision name>``, old style
+    ``resnet34_8s.<torchvision name>`` (any ``resnet<N>_<k>s`` wrapper), each
+    with or without a ``module.`` (DataParallel) prefix. The ``fc`` 1x1
+    convolution becomes the descriptor head (``head``, OIHW as torch keeps
+    it); the rest goes through :func:`convert_torchvision_resnet`.
+
+    :raises ValueError: keys that are not a reference DCN's, or a head of
+        another shape than the module's
+    """
+    sd = dict(state_dict)
+
+    def strip(prefix):
+        nonlocal sd
+        if all(k.startswith(prefix) for k in sd):
+            sd = {k[len(prefix):]: v for k, v in sd.items()}
+
+    strip("module.")
+    strip("fcn.")
+    heads = {k.split(".", 1)[0] for k in sd}
+    if len(heads) == 1 and re.fullmatch(r"resnet\d+_\d+s", next(iter(heads))):
+        strip(next(iter(heads)) + ".")
+    if "conv1.weight" not in sd:
+        raise ValueError("state dict does not look like a reference DCN checkpoint (keys start "
+                         f"with {sorted({k.split('.', 1)[0] for k in sd})[:5]})")
+    fc = {leaf: sd.pop(f"fc.{leaf}") for leaf in ("weight", "bias") if f"fc.{leaf}" in sd}
+    out = convert_torchvision_resnet(sd, target)
+    for leaf, value in fc.items():
+        value = torch.as_tensor(value)
+        name = f"head.{leaf}"
+        if tuple(value.shape) != tuple(out[name].shape):
+            raise ValueError(f"fc.{leaf}: shape {tuple(value.shape)}, module's {name} "
+                             f"{tuple(out[name].shape)}")
+        out[name] = value.detach().to(dtype=out[name].dtype, device=out[name].device).clone()
+    return out
+
+
+def load_reference_checkpoint(dcn, pth_path: str):
+    """Load a reference-trained ``%06d.pth`` into ``dcn``
+    (:class:`~pdc_tpu_torch.models.dcn.DenseCorrespondenceNetwork`) in
+    place; returns ``dcn``."""
+    sd = torch.load(pth_path, map_location="cpu", weights_only=True)
+    if hasattr(sd, "state_dict"):
+        sd = sd.state_dict()
+    dcn.module.load_state_dict(convert_reference_dcn(sd, dcn.module.state_dict()), strict=True)
+    return dcn

@@ -1,17 +1,21 @@
-"""Build and load the port's CUDA kernels: ``nvcc`` into a plain-C shared
-library, loaded with ``ctypes``.
+"""Build and load the port's native libraries: ``nvcc`` (CUDA kernels) or
+the host's C++ compiler (the libpng loader) into a plain-C shared library,
+loaded with ``ctypes``.
 
-Each ``pdc_tpu_torch/csrc/<name>.cu`` becomes
+Each ``pdc_tpu_torch/csrc/<name>.cu`` or ``<name>.cpp`` becomes
 ``build/pdc_tpu_torch_kernels/lib<name>-<hash>.so`` at the repository root,
 where the hash covers the source and the flags, so an edited source or flag
-builds anew and an unchanged one loads at once. The sources include no
-PyTorch header: such a file compiles in seconds, where one that includes
-``torch/extension.h`` takes minutes. :func:`build_all` starts one ``nvcc``
-per source, all at once.
+builds anew and an unchanged one loads at once. A build writes a temporary
+name and renames it into place, so processes that build the same library at
+once each load a whole file. The sources include no PyTorch header: such a
+file compiles in seconds, where one that includes ``torch/extension.h``
+takes minutes. :func:`build_all` starts one ``nvcc`` per CUDA source, all at
+once; ``.cpp`` sources are built by :func:`load` at first use.
 
 ``nvcc`` is looked up in ``$CUDA_HOME/bin``, then on ``PATH``, then in
-``/usr/local/cuda/bin``; without it the build raises. Nothing is compiled
-when this module is imported.
+``/usr/local/cuda/bin``; the C++ compiler is ``$CXX``, else ``g++`` on
+``PATH``. Without the compiler a build raises. Nothing is compiled when this
+module is imported.
 """
 
 from __future__ import annotations
@@ -32,6 +36,9 @@ SOURCE_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "pdc_tpu_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+# host C++ sources (csrc/*.cpp): flags before the source, libraries after it
+CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-Wall")
+CXX_LIBS = ("-lpng", "-lz", "-lpthread")
 NVCC_TIMEOUT_S = 300
 
 _lock = threading.Lock()
@@ -56,42 +63,66 @@ def find_nvcc() -> str:
         "/usr/local/cuda/bin): the port's CUDA kernels cannot be built")
 
 
+def find_cxx() -> str:
+    cxx = os.environ.get("CXX") or shutil.which("g++")
+    if not cxx:
+        raise RuntimeError("no C++ compiler ($CXX unset and no g++ on PATH): the port's "
+                           "host libraries cannot be built")
+    return cxx
+
+
 def sources() -> List[Path]:
+    """The CUDA sources (``csrc/*.cu``); :func:`build_all` builds these."""
     return sorted(SOURCE_DIR.glob("*.cu"))
 
 
+def _source(name: str) -> Path:
+    cu = SOURCE_DIR / f"{name}.cu"
+    return cu if cu.exists() else SOURCE_DIR / f"{name}.cpp"
+
+
+def _flags(source: Path):
+    return NVCC_FLAGS if source.suffix == ".cu" else CXX_FLAGS + CXX_LIBS
+
+
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` is built, keyed by source and flags."""
+    """Where ``csrc/<name>.cu`` (or ``.cpp``) is built, keyed by source and
+    flags."""
+    source = _source(name)
     h = hashlib.sha256()
-    h.update((SOURCE_DIR / f"{name}.cu").read_bytes())
-    h.update("\0".join(NVCC_FLAGS).encode())
+    h.update(source.read_bytes())
+    h.update("\0".join(_flags(source)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def _start(name: str, nvcc: str):
-    """Start nvcc on ``csrc/<name>.cu``, writing to a temporary name."""
+def _start(name: str):
+    """Start the compiler on ``csrc/<name>``, writing to a temporary name."""
+    source = _source(name)
     out = library_path(name)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.tmp{os.getpid()}-{threading.get_ident()}")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE_DIR / f"{name}.cu")]
+    if source.suffix == ".cu":
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+    else:
+        cmd = [find_cxx(), *CXX_FLAGS, "-o", str(tmp), str(source), *CXX_LIBS]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
-    return proc, tmp, out
+    return proc, tmp, out, source.name, os.path.basename(cmd[0])
 
 
 def _finish(name: str, job) -> None:
-    proc, tmp, out = job
+    proc, tmp, out, source, compiler = job
     try:
         log, _ = proc.communicate(timeout=NVCC_TIMEOUT_S)
     except subprocess.TimeoutExpired:
         proc.kill()
         proc.communicate()
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc did not finish {name}.cu in {NVCC_TIMEOUT_S} s")
+        raise RuntimeError(f"{compiler} did not finish {source} in {NVCC_TIMEOUT_S} s")
     build_logs[name] = log
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n{log}")
+        raise RuntimeError(f"{compiler} failed on {source} (exit {proc.returncode}):\n{log}")
     _log_path(out).write_text(log)
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
 
@@ -101,7 +132,7 @@ def _log_path(lib: Path) -> Path:
 
 
 def build_log(name: str) -> str:
-    """nvcc's output for the built ``csrc/<name>.cu`` (kept beside the
+    """The compiler's output for the built ``csrc/<name>`` (kept beside the
     library), or "" if it was never built here."""
     if name in build_logs:
         return build_logs[name]
@@ -141,9 +172,8 @@ def build_all() -> Dict[str, float]:
         missing = [n for n in names if not library_path(n).exists()]
         if not missing:
             return seconds
-        nvcc = find_nvcc()
         t0 = time.perf_counter()
-        jobs = {n: _start(n, nvcc) for n in missing}
+        jobs = {n: _start(n) for n in missing}
         errors = []
         for n, job in jobs.items():  # wait on every nvcc, also after a failure
             try:
@@ -157,14 +187,15 @@ def build_all() -> Dict[str, float]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<name>.cu`` (or ``.cpp``), built first
+    if needed."""
     with _lock:
         lib = _loaded.get(name)
         if lib is not None:
             return lib
         path = library_path(name)
         if not path.exists():
-            _finish(name, _start(name, find_nvcc()))
+            _finish(name, _start(name))
         lib = ctypes.CDLL(str(path))
         _loaded[name] = lib
         return lib

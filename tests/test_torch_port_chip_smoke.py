@@ -1,7 +1,8 @@
 """chip_smoke.py's device timer (``time_device``) on the CPU: it raises
 without a card before calling the timed function, and it never returns a
 host-paced reading, with a stand-in for ``torch.cuda`` whose events say
-whether the queue drained."""
+whether the queue drained. Also the on-disk phase's scene tree and its
+Paeth-filtered timing file, at 64x48."""
 
 from types import SimpleNamespace
 
@@ -79,3 +80,33 @@ def test_kernel_templates_names_each_kernel_by_its_template():
         "best_match<3,32>": {"registers": 120, "spill_stores": 0, "spill_loads": 0},
         "hinge_fwd<3>": {"registers": 64, "spill_stores": 0, "spill_loads": 0},
         "hinge_fwd_final": {"registers": 30, "spill_stores": 8, "spill_loads": 4}}
+
+
+def test_on_disk_tree_and_paeth_file_read_back(tmp_path):
+    import numpy as np
+    from PIL import Image
+
+    from pdc_tpu_torch.data import native_loader as nl
+    from pdc_tpu_torch.data.dataset import SpartanDataset
+    from pdc_tpu_torch.utils.yaml_io import load_yaml
+
+    record = {"synthetic": dict(chip_smoke.DATASET_RECORD["synthetic"], width=64, height=48,
+                                num_frames=3)}
+    composite, scenes = chip_smoke.write_tree(str(tmp_path), record)
+    ds = SpartanDataset(config=load_yaml(composite), data_dir=str(tmp_path),
+                        config_dir=str(tmp_path / "config" / "composite"))
+    assert ds.get_scene_list() == ["scene_000", "scene_001"]
+    assert ds.get_list_of_objects() == ["object_0", "object_1"]
+    for name, sc in scenes.items():
+        rgb, depth, mask, poses = sc.render_all()
+        got = ds.get_scene(name)
+        np.testing.assert_array_equal(got.rgb, rgb)
+        np.testing.assert_array_equal(got.depth, depth)
+        np.testing.assert_allclose(got.poses, poses, rtol=0, atol=1e-12)
+    frame = scenes["scene_000"].render(1)[0]
+    path = str(tmp_path / "paeth.png")
+    chip_smoke.write_paeth_png(np, path, frame)
+    np.testing.assert_array_equal(np.asarray(Image.open(path)), frame)
+    out = np.zeros_like(frame)
+    nl.decode_batch([(path, nl.KIND_RGB8, out)], 48, 64, decoder="zlib")
+    np.testing.assert_array_equal(out, frame)

@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card: the best-match kernel (K3) and the
 pooled-hinge forward and backward (K1, K2) against their plain versions,
 their launch counters, determinism, the server's batched best match, one
-train step through K1/K2, the device cache and pair sampler on the card, and
-three iterations of the training driver.
+train step through K1/K2, the device cache and pair sampler on the card,
+three iterations of the training driver, and the on-disk slice: the PNG
+codecs at 640x480 and ``python -m pdc_tpu_torch train`` from a scene tree.
 
 Needs an NVIDIA GPU with nvcc; skips elsewhere. Imports no JAX, so it runs
 on a GPU host without the JAX package's dependencies:
@@ -505,3 +506,82 @@ def test_training_driver_runs_three_iterations_on_the_card(cuda, tmp_path):
     frame = ds.scenes["scene_000"].rgb[0]
     assert torch.allclose(dcn.forward_on_img(frame), trainer.get_dcn().forward_on_img(frame),
                           atol=1e-6, rtol=0)
+
+
+# -- the on-disk slice: the PNG codecs and ``python -m pdc_tpu_torch train`` ---------------
+
+
+def test_libpng_pool_builds_or_its_absence_is_reported(cuda, tmp_path):
+    from pdc_tpu_torch.data import native_loader as nl
+
+    ok, why = nl.probe_libpng()
+    print(f"libpng probe: {ok} ({why})")
+    if not ok:
+        pytest.skip(f"no libpng pool on this machine: {why}")
+    path = str(tmp_path / "x.png")
+    arr = np.arange(48 * 64 * 3, dtype=np.uint8).reshape(48, 64, 3)
+    nl.encode_batch([(path, nl.KIND_ENC_RGB8, arr)], 48, 64, decoder="libpng")
+    out = np.zeros_like(arr)
+    nl.decode_batch([(path, nl.KIND_RGB8, out)], 48, 64, decoder="libpng")
+    np.testing.assert_array_equal(out, arr)
+
+
+def test_auto_decoder_picks_what_the_probe_says(cuda, monkeypatch):
+    from pdc_tpu_torch.data import native_loader as nl
+
+    monkeypatch.setattr(nl, "decoder_chosen", None)
+    ok, _ = nl.probe_libpng()
+    assert nl.resolve_decoder("auto") == ("libpng" if ok else "zlib") == nl.decoder_chosen
+
+
+def test_scene_round_trips_bit_for_bit_at_640x480(cuda, tmp_path):
+    from pdc_tpu_torch.data import native_loader as nl
+    from pdc_tpu_torch.data.dataset import SceneData
+    from pdc_tpu_torch.data.scene import SceneStructure
+    from pdc_tpu_torch.data.synthetic import SyntheticScene
+
+    sc = SyntheticScene(width=640, height=480, num_frames=3, seed=1,
+                        occluder=(0.05, 0.25, -0.1, 0.1, 0.15))
+    st = SceneStructure(sc.write_scene(str(tmp_path / "scene")))
+    rgb, depth, mask, poses = sc.render_all()
+    got = SceneData.from_structure(st, "scene")
+    for a, b in ((got.rgb, rgb), (got.depth, depth), (got.mask, mask)):
+        np.testing.assert_array_equal(a, b)
+    assert np.abs(got.poses - poses).max() <= 1e-9
+    for dec in ["zlib"] + (["libpng"] if nl.probe_libpng()[0] else []):
+        frames = nl.load_scene_frames(st, [0, 1, 2], 480, 640, decoder=dec)
+        for a, b in zip(frames, (rgb, depth, mask)):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_cli_trains_two_iterations_from_disk_on_the_card(cuda, tmp_path):
+    from pdc_tpu_torch import __main__ as cli
+    from pdc_tpu_torch.data.synthetic import SyntheticScene
+    from pdc_tpu_torch.training.train import DenseCorrespondenceTraining
+    from pdc_tpu_torch.utils.yaml_io import load_yaml, save_yaml
+
+    for i in range(2):
+        SyntheticScene(width=64, height=48, num_frames=6, seed=i).write_scene(
+            str(tmp_path / "logs_proto" / f"scene_{i}"))
+    save_yaml({"object_id": "disc", "train": ["scene_0", "scene_1"], "test": ["scene_1"]},
+              str(tmp_path / "config" / "disc.yaml"))
+    composite = str(tmp_path / "config" / "composite.yaml")
+    save_yaml({"logs_root_path": "logs_proto", "single_object_scenes_config_files": ["disc.yaml"]},
+              composite)
+    cfg = DenseCorrespondenceTraining.load_default_config()
+    cfg["training"].update(batch_size=2, num_matching_attempts=500, masked_pool_size=128,
+                           background_pool_size=128, num_blind_samples=200,
+                           use_tensorboard=False, save_rate=1000)
+    net = cfg["dense_correspondence_network"]
+    net.update(image_width=64, image_height=48)
+    net["backbone"]["resnet_name"] = "Resnet18_8s"
+    cfg_file = str(tmp_path / "training.yaml")
+    save_yaml(cfg, cfg_file)
+    f0, b0 = ph.forward_launches, ph.backward_launches
+    assert cli.main(["train", "--config", cfg_file, "--dataset_config", composite, "--data_dir",
+                     str(tmp_path), "--name", "card", "--logging_dir", str(tmp_path / "models"),
+                     "--num_iterations", "2"]) == 0  # default device: cuda
+    assert (ph.forward_launches - f0, ph.backward_launches - b0) == (4, 4)
+    history = load_yaml(str(tmp_path / "models" / "card" / "000002_log_history.yaml"))
+    assert history["train"]["iteration"] == [1, 2]
+    assert np.isfinite(history["train"]["loss"]).all()

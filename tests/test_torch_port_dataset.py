@@ -109,12 +109,26 @@ def test_accessors_and_reset_seed_equal_jax():
                                   ref.rgb_image_to_tensor(ref.scenes["scene_000"].rgb[0]))
 
 
-def test_on_disk_datasets_wait_for_their_slice():
-    composite = {"logs_root_path": "logs_proto", "single_object_scenes_config_files": ["x.yaml"]}
-    with pytest.raises(NotImplementedError, match="on-disk"):
-        SpartanDataset.from_dataset_config(composite)
-    with pytest.raises(NotImplementedError, match="on-disk"):
-        SceneData.from_structure(None, "scene")
+def test_on_disk_datasets_wait_for_their_slice(tmp_path):
+    """The on-disk slice is ported (tests/test_torch_port_on_disk.py): a
+    composite record loads nothing until a split is used, and a missing
+    scene list or scene raises there as in pdc_tpu."""
+    from pdc_tpu.data.dataset import SceneData as JaxSceneData
+    from pdc_tpu.data.scene import SceneStructure as JaxSceneStructure
+    from pdc_tpu_torch.data.scene import SceneStructure
+
+    composite = {"logs_root_path": "logs_proto", "single_object_scenes_config_files": ["x.yaml"],
+                 "data_dir": str(tmp_path), "config_dir": str(tmp_path)}
+    for cls in (SpartanDataset, JaxSpartanDataset):
+        ds = cls.from_dataset_config(dict(composite))
+        assert ds._registries == {}
+        with pytest.raises(FileNotFoundError, match="x.yaml"):
+            ds.scenes
+    missing = str(tmp_path / "scene" / "processed")
+    with pytest.raises(FileNotFoundError, match="camera_info.yaml"):
+        SceneData.from_structure(SceneStructure(missing), "scene")
+    with pytest.raises(FileNotFoundError, match="camera_info.yaml"):
+        JaxSceneData.from_structure(JaxSceneStructure(missing), "scene")
 
 
 def test_chip_smoke_dataset_record_matches_the_committed_model_folder():
