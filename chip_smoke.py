@@ -60,14 +60,31 @@ Phases, each fatal on failure:
      forward_on_img within 1e-6, and one best-match query on it agrees with
      the plain version; (e) ``python -m pdc_tpu_torch statistics`` on the
      tree is within 1e-6 of float64 numpy over the same frames;
-  9. timings: every kernel's device time (time_device: the queue primed
+  9. the main path's evaluation, "evaluation": ``python -m pdc_tpu_torch
+     evaluate`` in this process on phase 8's model folder, 20 pairs of 100
+     matches in each split (``--no_qualitative`` unless matplotlib imports;
+     one line says whether pandas, matplotlib and cv2 import). It fails
+     unless (a) train/ and test/ data.csv read back (table.read_csv) with
+     the 23 columns and rows; (b) K3 launched once per sweep chunk of 16
+     pairs (and once per qualitative panel); (c) on 4 test pairs the fused
+     route (K3) agrees with the per-pair route run with the plain best
+     match: equal picks, or float64 near-ties within TIE_TOL_D2, every
+     other value within 1e-5, and the rerun equals the written rows; (d)
+     each stats.yaml holds PCK at 5-100 px in [0, 1] and a finite area
+     above the curve; (e) descriptor_statistics.yaml is finite with
+     min <= mean <= max per channel; (f) across_object/data.csv exists
+     (the dataset has 2 objects). Then K3 at the sweep's shape (B=16,
+     Q=100, 640x480) against float64 and its plain version;
+ 10. timings: every kernel's device time (time_device: the queue primed
      with a device-side wait, so the card never waits on the host), the
      wrapper's time per call from an idle queue (time_cuda), the split by
      kernel name (torch.profiler), its bound, its plain version and a
      library yardstick where one exists (device times); forward images/s;
      serving latency; the train step and its split; the driver's step on
      each route against it, and its checkpoint writes; the on-disk run's
-     step against the driver's, and the PNG codecs' times.
+     step against the driver's, and the PNG codecs' times; K3 at the
+     evaluation sweep's shape, and the sweep's seconds split into forwards,
+     correspondences and statistics.
 
 The last lines are a JSON object with every kernel's numbers, the
 nvidia-smi line, and ``{"ok": true, "device": {...}}``. Without CUDA, or when the
@@ -800,13 +817,12 @@ def codec_times(np, nl, tmp, scene, decoders):
     return out
 
 
-def check_on_disk_training(torch, np, dev, here, bm, ph, driver):
-    """The phase "on-disk training": checks (a)-(e) of the module docstring.
-    Returns the numbers the timings phase and the kernels line read."""
+def check_on_disk_training(torch, np, dev, bm, ph, tmp):
+    """The phase "on-disk training", in the directory ``tmp``: checks
+    (a)-(e) of the module docstring. Returns the numbers the timings phase
+    and the kernels line read, and the model folder it trained."""
     import contextlib
     import io
-    import shutil
-    import tempfile
 
     from pdc_tpu_torch import __main__ as cli
     from pdc_tpu_torch.data import native_loader as nl
@@ -817,135 +833,131 @@ def check_on_disk_training(torch, np, dev, here, bm, ph, driver):
     from pdc_tpu_torch.training import train as train_mod
     from pdc_tpu_torch.utils.yaml_io import load_yaml, parse_yaml, save_yaml
 
-    os.makedirs(os.path.join(here, "build"), exist_ok=True)
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_on_disk_", dir=os.path.join(here, "build"))
     out = {}
-    try:
-        # the decoder auto picks, before any decode
-        chosen = nl.resolve_decoder("auto")
-        log(f"on-disk: PNG decoder 'auto' chose {chosen!r} ({nl.decoder_reason})")
-        t = time.perf_counter()
-        composite, scenes = write_tree(tmp, DATASET_RECORD)
-        write_s = time.perf_counter() - t
-        n_frames = sum(s.num_frames for s in scenes.values())
-        log(f"on-disk: wrote {len(scenes)} scenes, {n_frames} frames "
-            f"{DATASET_RECORD['synthetic']['width']}x{DATASET_RECORD['synthetic']['height']} in "
-            f"the pdc layout ({chosen} encoder, PNGs, pose_data.yaml, camera_info.yaml, "
-            f"fusion_mesh.ply) and a composite config in {write_s:.2f} s")
+    # the decoder auto picks, before any decode
+    chosen = nl.resolve_decoder("auto")
+    log(f"on-disk: PNG decoder 'auto' chose {chosen!r} ({nl.decoder_reason})")
+    t = time.perf_counter()
+    composite, scenes = write_tree(tmp, DATASET_RECORD)
+    write_s = time.perf_counter() - t
+    n_frames = sum(s.num_frames for s in scenes.values())
+    log(f"on-disk: wrote {len(scenes)} scenes, {n_frames} frames "
+        f"{DATASET_RECORD['synthetic']['width']}x{DATASET_RECORD['synthetic']['height']} in "
+        f"the pdc layout ({chosen} encoder, PNGs, pose_data.yaml, camera_info.yaml, "
+        f"fusion_mesh.ply) and a composite config in {write_s:.2f} s")
 
-        # the frames on disk against the in-memory rendering
-        t = time.perf_counter()
-        for name, sc in scenes.items():
-            got = SceneData.from_structure(SceneStructure(
-                os.path.join(tmp, "logs_proto", name, "processed")), name)
-            rgb, depth, mask, poses = sc.render_all()
-            pose_err = float(np.abs(got.poses - poses).max())
-            same = (np.array_equal(got.rgb, rgb) and np.array_equal(got.depth, depth)
-                    and np.array_equal(got.mask, mask) and np.array_equal(got.K, sc.K)
-                    and got.frame_ids is None)
-            log(f"on-disk {name}: decoded frames bit-equal to the rendering: {same}; poses "
-                f"max|diff| {pose_err:.3g} (bar 1e-9)")
-            if not same or not pose_err <= 1e-9:
-                fail(f"scene {name} does not read back as it was rendered")
-        read_s = time.perf_counter() - t
-        decoders = ["zlib"] + (["libpng"] if chosen == "libpng" else [])
-        out["codec"] = codec_times(np, nl, tmp, scenes["scene_000"], decoders)
-        for dec, c in out["codec"].items():
-            log(f"on-disk {dec} codec, {scenes['scene_000'].width}x{scenes['scene_000'].height} "
-                f"frame (RGB + depth + mask files): write "
-                f"{c['write_ms']:.2f} ms, decode {c['decode_ms']:.2f} ms (one frame alone, "
-                f"median of 3); a 12-frame scene in one call: write {c['write_ms_batched']:.2f}, "
-                f"decode {c['decode_ms_batched']:.2f} ms per frame (host clock, {os.cpu_count()} "
-                f"cores); the RGB file alone with every row Paeth-filtered: decode "
-                f"{c['paeth_rgb_decode_ms']:.2f} ms")
+    # the frames on disk against the in-memory rendering
+    t = time.perf_counter()
+    for name, sc in scenes.items():
+        got = SceneData.from_structure(SceneStructure(
+            os.path.join(tmp, "logs_proto", name, "processed")), name)
+        rgb, depth, mask, poses = sc.render_all()
+        pose_err = float(np.abs(got.poses - poses).max())
+        same = (np.array_equal(got.rgb, rgb) and np.array_equal(got.depth, depth)
+                and np.array_equal(got.mask, mask) and np.array_equal(got.K, sc.K)
+                and got.frame_ids is None)
+        log(f"on-disk {name}: decoded frames bit-equal to the rendering: {same}; poses "
+            f"max|diff| {pose_err:.3g} (bar 1e-9)")
+        if not same or not pose_err <= 1e-9:
+            fail(f"scene {name} does not read back as it was rendered")
+    read_s = time.perf_counter() - t
+    decoders = ["zlib"] + (["libpng"] if chosen == "libpng" else [])
+    out["codec"] = codec_times(np, nl, tmp, scenes["scene_000"], decoders)
+    for dec, c in out["codec"].items():
+        log(f"on-disk {dec} codec, {scenes['scene_000'].width}x{scenes['scene_000'].height} "
+            f"frame (RGB + depth + mask files): write "
+            f"{c['write_ms']:.2f} ms, decode {c['decode_ms']:.2f} ms (one frame alone, "
+            f"median of 3); a 12-frame scene in one call: write {c['write_ms_batched']:.2f}, "
+            f"decode {c['decode_ms_batched']:.2f} ms per frame (host clock, {os.cpu_count()} "
+            f"cores); the RGB file alone with every row Paeth-filtered: decode "
+            f"{c['paeth_rgb_decode_ms']:.2f} ms")
 
-        # python -m pdc_tpu_torch train, in this process
-        cfg = driver_config(tmp, "on_disk")
-        cfg_file = os.path.join(tmp, "training.yaml")
-        save_yaml(cfg, cfg_file)
-        argv = ["train", "--config", cfg_file, "--dataset_config", composite, "--data_dir", tmp,
-                "--name", "on_disk", "--logging_dir", tmp, "--device", str(dev)]
-        n_iter, batch = cfg["training"]["num_iterations"], cfg["training"]["batch_size"]
-        n_eval = cfg["training"]["test_loss_num_iterations"] // batch
-        ph.forward_launches = ph.backward_launches = 0
-        t = time.perf_counter()
-        with _TrainerOf(train_mod) as rec:
-            rc = cli.main(argv)
-        torch.cuda.synchronize(dev)
-        run_s = time.perf_counter() - t
-        k1, k2 = ph.forward_launches, ph.backward_launches
-        trainer = rec.trainer
-        if rc != 0 or trainer is None:
-            fail(f"python -m pdc_tpu_torch train returned {rc}")
-        folder = trainer.logging_dir
-        log(f"on-disk: python -m pdc_tpu_torch {' '.join(argv)} -> {folder}: route "
-            f"{trainer.route!r}, {n_iter} iterations in {run_s:.2f} s (the scenes' decode, 3 "
-            f"checkpoints and the test loss included)")
-        # (a) launches
-        log(f"on-disk launches: K1 {k1} (expected 2 x {n_iter} steps + 2 x {n_eval} eval "
-            f"batches = {2 * n_iter + 2 * n_eval}), K2 {k2} (expected {2 * n_iter})")
-        if k1 != 2 * n_iter + 2 * n_eval or k2 != 2 * n_iter:
-            fail(f"K1/K2 launched {k1}/{k2} times in the on-disk run")
-        # (b) finite metrics, moved weights
-        tl, te = trainer._logging_dict["train"], trainer._logging_dict["test"]
-        values = [v for k, vs in tl.items() if k != "iteration" for v in vs]
-        values += [v for k, vs in te.items() if k != "iteration" for v in vs]
-        log("on-disk losses: " + ", ".join(f"{x:.5g}" for x in tl["loss"])
-            + f"; test at {te['iteration']}: loss {te['loss']}")
-        if (len(tl["loss"]) != n_iter or te["iteration"] != [n_iter]
-                or not all(np.isfinite(v) for v in values)):
-            fail("an on-disk metric is missing or not finite")
-        first = flax_to_state_dict(read_checkpoint(os.path.join(folder, "000000.ckpt")))
-        live = trainer.state.module.state_dict()
-        still = [k for k, v in first.items() if v.dim() > 1 and torch.equal(v, live[k].cpu())]
-        if still:
-            fail(f"the on-disk run left weights unchanged: {still[:5]}")
-        # (c) the dataset record, and the dataset rebuilt from it
-        record = load_yaml(os.path.join(folder, "dataset.yaml"))
-        want_dirs = (os.path.abspath(tmp), os.path.dirname(os.path.abspath(composite)))
-        log(f"on-disk dataset.yaml: data_dir {record.get('data_dir')}, config_dir "
-            f"{record.get('config_dir')}")
-        if (record.get("data_dir"), record.get("config_dir")) != want_dirs:
-            fail(f"dataset.yaml does not record the absolute data_dir and config_dir {want_dirs}")
-        # (d) the folder's network, and one K3 query on it
-        trained = trainer.dataset
-        reloaded, out["k3_err"] = check_reload(torch, np, bm, dev, folder, trainer,
-                                               trained.scenes["scene_000"], "on-disk")
-        rebuilt = reloaded.load_training_dataset("train")
-        same_ds = rebuilt.get_scene_list() == trained.get_scene_list() and all(
-            rebuilt.get_scene(n).frame_ids is None and s.frame_ids is None
-            and np.array_equal(rebuilt.get_scene(n).poses, s.poses)
-            and rebuilt.get_scene(n).num_frames == s.num_frames
-            for n, s in trained.scenes.items())
-        log(f"on-disk load_training_dataset('train'): scenes {rebuilt.get_scene_list()}, "
-            f"frames {[rebuilt.get_scene(n).num_frames for n in rebuilt.get_scene_list()]}, same "
-            f"names, frame ids and poses as the trained dataset: {same_ds}")
-        if not same_ds:
-            fail("load_training_dataset did not rebuild the on-disk dataset")
-        # (e) statistics on the tree against float64 numpy over the same frames
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            cli.main(["statistics", "--config", composite, "--data_dir", tmp,
-                      "--num_images", str(ONDISK_STAT_IMAGES), "--device", str(dev)])
-        block = parse_yaml(buf.getvalue())["image_normalization"]
-        again = SpartanDataset(config=load_yaml(composite), data_dir=tmp,
-                               config_dir=os.path.dirname(composite))
-        frames = []
-        for _ in range(ONDISK_STAT_IMAGES):
-            name = again.get_random_scene_name()
-            frames.append(again.get_rgbd_mask_pose(name, again.get_random_image_index(name))[0])
-        x = np.stack(frames).reshape(-1, 3).astype(np.float64) / 255.0
-        stat_err = max(float(np.abs(np.asarray(block["mean"]) - x.mean(0)).max()),
-                       float(np.abs(np.asarray(block["std_dev"]) - x.std(0)).max()))
-        log(f"on-disk statistics: mean {block['mean']}, std_dev {block['std_dev']}; "
-            f"max|diff| to float64 numpy over the same {ONDISK_STAT_IMAGES} frames "
-            f"{stat_err:.3g} (bar {STAT_TOL})")
-        if not stat_err <= STAT_TOL:
-            fail("the statistics command disagrees with float64 numpy")
-        out.update(k1=k1, k2=k2, run_s=run_s, write_s=write_s, read_s=read_s, decoder=chosen,
-                   step_ms=[1e3 * s for s in trainer.step_seconds], route=trainer.route)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    # python -m pdc_tpu_torch train, in this process
+    cfg = driver_config(tmp, "on_disk")
+    cfg_file = os.path.join(tmp, "training.yaml")
+    save_yaml(cfg, cfg_file)
+    argv = ["train", "--config", cfg_file, "--dataset_config", composite, "--data_dir", tmp,
+            "--name", "on_disk", "--logging_dir", tmp, "--device", str(dev)]
+    n_iter, batch = cfg["training"]["num_iterations"], cfg["training"]["batch_size"]
+    n_eval = cfg["training"]["test_loss_num_iterations"] // batch
+    ph.forward_launches = ph.backward_launches = 0
+    t = time.perf_counter()
+    with _TrainerOf(train_mod) as rec:
+        rc = cli.main(argv)
+    torch.cuda.synchronize(dev)
+    run_s = time.perf_counter() - t
+    k1, k2 = ph.forward_launches, ph.backward_launches
+    trainer = rec.trainer
+    if rc != 0 or trainer is None:
+        fail(f"python -m pdc_tpu_torch train returned {rc}")
+    folder = trainer.logging_dir
+    log(f"on-disk: python -m pdc_tpu_torch {' '.join(argv)} -> {folder}: route "
+        f"{trainer.route!r}, {n_iter} iterations in {run_s:.2f} s (the scenes' decode, 3 "
+        f"checkpoints and the test loss included)")
+    # (a) launches
+    log(f"on-disk launches: K1 {k1} (expected 2 x {n_iter} steps + 2 x {n_eval} eval "
+        f"batches = {2 * n_iter + 2 * n_eval}), K2 {k2} (expected {2 * n_iter})")
+    if k1 != 2 * n_iter + 2 * n_eval or k2 != 2 * n_iter:
+        fail(f"K1/K2 launched {k1}/{k2} times in the on-disk run")
+    # (b) finite metrics, moved weights
+    tl, te = trainer._logging_dict["train"], trainer._logging_dict["test"]
+    values = [v for k, vs in tl.items() if k != "iteration" for v in vs]
+    values += [v for k, vs in te.items() if k != "iteration" for v in vs]
+    log("on-disk losses: " + ", ".join(f"{x:.5g}" for x in tl["loss"])
+        + f"; test at {te['iteration']}: loss {te['loss']}")
+    if (len(tl["loss"]) != n_iter or te["iteration"] != [n_iter]
+            or not all(np.isfinite(v) for v in values)):
+        fail("an on-disk metric is missing or not finite")
+    first = flax_to_state_dict(read_checkpoint(os.path.join(folder, "000000.ckpt")))
+    live = trainer.state.module.state_dict()
+    still = [k for k, v in first.items() if v.dim() > 1 and torch.equal(v, live[k].cpu())]
+    if still:
+        fail(f"the on-disk run left weights unchanged: {still[:5]}")
+    # (c) the dataset record, and the dataset rebuilt from it
+    record = load_yaml(os.path.join(folder, "dataset.yaml"))
+    want_dirs = (os.path.abspath(tmp), os.path.dirname(os.path.abspath(composite)))
+    log(f"on-disk dataset.yaml: data_dir {record.get('data_dir')}, config_dir "
+        f"{record.get('config_dir')}")
+    if (record.get("data_dir"), record.get("config_dir")) != want_dirs:
+        fail(f"dataset.yaml does not record the absolute data_dir and config_dir {want_dirs}")
+    # (d) the folder's network, and one K3 query on it
+    trained = trainer.dataset
+    reloaded, out["k3_err"] = check_reload(torch, np, bm, dev, folder, trainer,
+                                           trained.scenes["scene_000"], "on-disk")
+    rebuilt = reloaded.load_training_dataset("train")
+    same_ds = rebuilt.get_scene_list() == trained.get_scene_list() and all(
+        rebuilt.get_scene(n).frame_ids is None and s.frame_ids is None
+        and np.array_equal(rebuilt.get_scene(n).poses, s.poses)
+        and rebuilt.get_scene(n).num_frames == s.num_frames
+        for n, s in trained.scenes.items())
+    log(f"on-disk load_training_dataset('train'): scenes {rebuilt.get_scene_list()}, "
+        f"frames {[rebuilt.get_scene(n).num_frames for n in rebuilt.get_scene_list()]}, same "
+        f"names, frame ids and poses as the trained dataset: {same_ds}")
+    if not same_ds:
+        fail("load_training_dataset did not rebuild the on-disk dataset")
+    # (e) statistics on the tree against float64 numpy over the same frames
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["statistics", "--config", composite, "--data_dir", tmp,
+                  "--num_images", str(ONDISK_STAT_IMAGES), "--device", str(dev)])
+    block = parse_yaml(buf.getvalue())["image_normalization"]
+    again = SpartanDataset(config=load_yaml(composite), data_dir=tmp,
+                           config_dir=os.path.dirname(composite))
+    frames = []
+    for _ in range(ONDISK_STAT_IMAGES):
+        name = again.get_random_scene_name()
+        frames.append(again.get_rgbd_mask_pose(name, again.get_random_image_index(name))[0])
+    x = np.stack(frames).reshape(-1, 3).astype(np.float64) / 255.0
+    stat_err = max(float(np.abs(np.asarray(block["mean"]) - x.mean(0)).max()),
+                   float(np.abs(np.asarray(block["std_dev"]) - x.std(0)).max()))
+    log(f"on-disk statistics: mean {block['mean']}, std_dev {block['std_dev']}; "
+        f"max|diff| to float64 numpy over the same {ONDISK_STAT_IMAGES} frames "
+        f"{stat_err:.3g} (bar {STAT_TOL})")
+    if not stat_err <= STAT_TOL:
+        fail("the statistics command disagrees with float64 numpy")
+    out.update(k1=k1, k2=k2, run_s=run_s, write_s=write_s, read_s=read_s, decoder=chosen,
+               step_ms=[1e3 * s for s in trainer.step_seconds], route=trainer.route,
+               folder=folder)
     return out
 
 
@@ -978,6 +990,261 @@ def check_reload(torch, np, bm, dev, folder, trainer, scene, what):
         fail(f"{what}: the reloaded network disagrees with the live one, or K3 with its plain "
              "version")
     return reloaded, vs_plain
+
+
+# -- evaluation ---------------------------------------------------------------------
+
+# python -m pdc_tpu_torch evaluate on phase 8's model folder: 20 pairs of 100
+# matches in each split (seed 1), chunks of SWEEP_PAIR_CHUNK pairs; check (c)
+# reruns the first EVAL_CHECK_PAIRS test pairs both ways
+EVAL_PAIRS, EVAL_MATCHES, EVAL_CHECK_PAIRS = 20, 100, 4
+# the fused route (K3) against the per-pair route (plain best match): the
+# same arithmetic but K3's FMAs, so 1e-5 on every value column
+EVAL_COL_TOL = 1e-5
+# columns that follow the unmasked pick; compared where both routes pick the
+# same pixel (a differing pick must be a near-tie, TIE_TOL_D2)
+PICK_COLUMNS = ("pixel_match_error_l2", "pixel_match_error_l1", "norm_diff_pred_3d",
+                "is_valid", "uv_b_pred")
+
+
+def _timer(torch, owner, name, totals, key, bm=None):
+    """Replace ``owner.name`` by a wrapper that synchronises before and
+    after each call and adds its seconds (and, given ``bm``, its K3
+    launches) to ``totals[key]``. Returns the function that restores it."""
+    orig = owner.__dict__[name]
+    fn = orig.__func__ if isinstance(orig, staticmethod) else orig
+
+    def wrapper(*args, **kwargs):
+        torch.cuda.synchronize()
+        t, n = time.perf_counter(), bm.launches if bm else 0
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            torch.cuda.synchronize()
+            totals[key] = totals.get(key, 0.0) + time.perf_counter() - t
+            if bm:
+                totals[key + "_launches"] = totals.get(key + "_launches", 0) + bm.launches - n
+    setattr(owner, name, staticmethod(wrapper) if isinstance(orig, staticmethod) else wrapper)
+    return lambda: setattr(owner, name, orig)
+
+
+def check_eval_routes(torch, np, bm, ev, ds, pairs, images, table):
+    """Check (c): the first EVAL_CHECK_PAIRS pairs of a sweep through the
+    fused route (one K3 launch) against the per-pair route with the plain
+    best match, and the fused rows against the sweep's table. Returns
+    (differing picks, K3's distance error against the plain version)."""
+    sub = pairs[:EVAL_CHECK_PAIRS]
+    dev = images[sub[0][:2]].device
+    res_a = torch.stack([images[(s, a)] for s, a, _, _ in sub])
+    res_b = torch.stack([images[(s, b)] for s, _, b, _ in sub])
+    frames = ev._chunk_frames(ds, sub, dev)
+    uv_a, uv_b, gt_valid = ev._sweep_correspondences(frames, [p[3] for p in sub],
+                                                     EVAL_MATCHES, 2000)
+    fused = {k: v.cpu().numpy() for k, v in ev._sweep_statistics(
+        frames, uv_a, uv_b, res_a, res_b).items()}
+    gt_valid = gt_valid.cpu().numpy()
+    saved, ev.best_match = ev.best_match, bm.best_match_reference
+    try:
+        plain = [ev._pair_statistics(ds, s, a, b, EVAL_MATCHES, ev.pair_generator(ps), 2000,
+                                     images[(s, a)], images[(s, b)]) for s, a, b, ps in sub]
+    finally:
+        ev.best_match = saved
+    Hd, Wd, Dd = res_a.shape[1:]
+    ties, dist_err, col_err, row = 0, 0.0, 0.0, 0
+    for p, (s, a, b, _) in enumerate(sub):
+        keep = np.nonzero(gt_valid[p])[0]
+        f = {k: v[p][keep] for k, v in fused.items()}
+        q = plain[p]
+        if q is None or len(keep) != len(q["is_valid"]):
+            fail(f"evaluation (c): pair {p} has {len(keep)} fused rows but "
+                 f"{0 if q is None else len(q['is_valid'])} per-pair rows")
+        same = (f["uv_b_pred"] == q["uv_b_pred"]).all(-1)
+        if not same.all():  # a differing pick must be a float64 near-tie
+            qa = res_a[p].reshape(-1, Dd).double()[torch.as_tensor(
+                uv_a[p][keep][:, 1] * Wd + uv_a[p][keep][:, 0], device=dev)]
+            rb = res_b[p].reshape(-1, Dd).double()
+            for i in np.nonzero(~same)[0]:
+                d2 = [float(((rb[int(uv[i][1]) * Wd + int(uv[i][0])] - qa[i]) ** 2).sum())
+                      for uv in (f["uv_b_pred"], q["uv_b_pred"])]
+                if abs(d2[0] - d2[1]) > TIE_TOL_D2:
+                    fail(f"evaluation (c): pair {p} match {i} picks {f['uv_b_pred'][i]} (K3) "
+                         f"and {q['uv_b_pred'][i]} (plain), squared distances {d2}")
+                ties += 1
+        for k in q:
+            mask = same if k in PICK_COLUMNS else np.ones_like(same)
+            x, y = f[k][mask].astype(np.float64), q[k][mask].astype(np.float64)
+            if not np.array_equal(np.isnan(x), np.isnan(y)):
+                fail(f"evaluation (c): NaN pattern of {k} differs on pair {p}")
+            err = float(np.abs(x - y)[~np.isnan(x)].max()) if (~np.isnan(x)).any() else 0.0
+            if k == "norm_diff_descriptor":
+                dist_err = max(dist_err, err)
+            col_err = max(col_err, err)
+        # the rerun against the sweep's own rows (the CSV the command wrote)
+        for c in ("norm_diff_descriptor", "norm_diff_descriptor_masked",
+                  "pixel_match_error_l2", "fraction_pixels_closer_than_ground_truth",
+                  "average_l2_distance_for_false_positives_masked", "norm_diff_pred_3d"):
+            x = table[c][row:row + len(keep)].astype(np.float64)
+            y = f[c].astype(np.float64)
+            if not np.allclose(x, y, atol=EVAL_COL_TOL, rtol=0, equal_nan=True):
+                fail(f"evaluation (c): the rerun's {c} of pair {p} differs from the data.csv "
+                     "the command wrote")
+        row += len(keep)
+    log(f"evaluation (c): {EVAL_CHECK_PAIRS} test pairs, {row} matches, fused route (K3) vs "
+        f"per-pair route (plain best match): {ties} differing picks, all near-ties; max|diff| "
+        f"{col_err:.3g} over the value columns (bar {EVAL_COL_TOL}); the rerun equals the "
+        f"data.csv rows")
+    if col_err > EVAL_COL_TOL:
+        fail("evaluation (c): the fused and per-pair routes disagree")
+    return ties, dist_err
+
+
+def check_evaluation(torch, np, dev, here, bm, folder):
+    """The phase "evaluation": checks (a)-(f) of the module docstring, and
+    the numbers the timings phase and the kernels line read."""
+    import importlib
+    import math
+
+    from pdc_tpu_torch import __main__ as cli
+    from pdc_tpu_torch.evaluation import evaluate as ev
+    from pdc_tpu_torch.evaluation.table import read_csv
+    from pdc_tpu_torch.models.dcn import DenseCorrespondenceNetwork
+    from pdc_tpu_torch.utils.yaml_io import load_yaml
+
+    have = {}
+    for name in ("pandas", "matplotlib", "cv2"):
+        try:
+            importlib.import_module(name)
+            have[name] = True
+        except ImportError:
+            have[name] = False
+    log("evaluation: optional modules on this machine: " + ", ".join(
+        f"{k} {'imports' if v else 'missing'}" for k, v in have.items()))
+    out_dir = os.path.join(folder, "analysis")
+    argv = ["evaluate", "--model_folder", folder, "--num_image_pairs", str(EVAL_PAIRS),
+            "--num_matches_per_image_pair", str(EVAL_MATCHES), "--device", str(dev)]
+    if not have["matplotlib"]:
+        argv.append("--no_qualitative")
+    DCE = ev.DenseCorrespondenceEvaluation
+    totals = {}
+    restore = [_timer(torch, DCE, "evaluate_network_quantitative", totals, "sweep"),
+               _timer(torch, DCE, "compute_descriptor_images_batched", totals, "forwards"),
+               _timer(torch, ev, "_sweep_correspondences", totals, "correspondences"),
+               _timer(torch, ev, "_sweep_statistics", totals, "statistics", bm),
+               _timer(torch, DCE, "compute_descriptor_statistics_on_dataset", totals,
+                      "descriptor statistics"),
+               _timer(torch, DCE, "evaluate_network_across_objects", totals, "across objects")]
+    bm.launches = 0
+    t = time.perf_counter()
+    try:
+        rc = cli.main(argv)
+        torch.cuda.synchronize(dev)
+    finally:
+        for r in restore:
+            r()
+    run_s = time.perf_counter() - t
+    launches = bm.launches
+    if rc != 0:
+        fail(f"python -m pdc_tpu_torch evaluate returned {rc}")
+    log(f"evaluation: python -m pdc_tpu_torch {' '.join(argv)}: {run_s:.2f} s")
+
+    # (a) the sweeps' tables, read back
+    ds = DCE.load_dataset_from_model_folder(folder)
+    tables, pair_lists = {}, {}
+    for mode in ("train", "test"):
+        ds.set_train_mode() if mode == "train" else ds.set_test_mode()
+        pair_lists[mode] = ev.image_pair_list(ds, EVAL_PAIRS, 1)
+        tables[mode] = read_csv(os.path.join(out_dir, mode, "data.csv"))
+        t_ = tables[mode]
+        finite = np.isfinite(t_["norm_diff_descriptor"].astype(np.float64)).all()
+        log(f"evaluation (a) {mode}/data.csv: {len(t_)} rows x {len(t_.columns)} columns from "
+            f"{len(pair_lists[mode])} pairs; columns as EVAL_COLUMNS: "
+            f"{t_.columns == ev.EVAL_COLUMNS}; descriptor distances finite: {finite}")
+        if (t_.columns != ev.EVAL_COLUMNS or not 0 < len(t_) <= EVAL_MATCHES * len(
+                pair_lists[mode]) or not finite):
+            fail(f"evaluation (a): {mode}/data.csv is not a table of the 23 columns")
+    # (b) K3 on the sweeps: one launch per chunk
+    chunks = sum(math.ceil(len(v) / ev.SWEEP_PAIR_CHUNK) for v in pair_lists.values())
+    qual = sum(f.endswith("_matches.png") for _, _, fs in os.walk(out_dir) for f in fs)
+    sweep_launches = totals.get("statistics_launches", 0)
+    log(f"evaluation (b): K3 launches {launches}: {sweep_launches} in the sweeps (expected one "
+        f"per chunk of {ev.SWEEP_PAIR_CHUNK} pairs: {chunks}), {launches - sweep_launches} in "
+        f"{qual} qualitative panels")
+    if sweep_launches != chunks or launches != sweep_launches + qual:
+        fail("evaluation (b): K3 did not launch once per sweep chunk")
+    # (c) fused against per-pair, on the test split's first pairs
+    dcn = DenseCorrespondenceNetwork.from_model_folder(folder, device=dev)
+    pairs = pair_lists["test"]
+    images = DCE.compute_descriptor_images_batched(
+        dcn, ds, [(s, i) for s, a, b, _ in pairs for i in (a, b)])
+    ties, k3_err = check_eval_routes(torch, np, bm, ev, ds, pairs, images, tables["test"])
+    # (d) stats.yaml
+    for mode in ("train", "test"):
+        st = load_yaml(os.path.join(out_dir, mode, "stats.yaml"))
+        pck = [st.get(f"pck_at_{k}px") for k in (5, 10, 25, 50, 100)]
+        log(f"evaluation (d) {mode}/stats.yaml: PCK@5,10,25,50,100 {pck}, area above the 3D "
+            f"CDF {st.get('norm_diff_3d_area_above_curve')}")
+        if (not all(isinstance(x, float) and 0.0 <= x <= 1.0 for x in pck)
+                or not math.isfinite(st.get("norm_diff_3d_area_above_curve", math.nan))):
+            fail(f"evaluation (d): {mode}/stats.yaml is not a set of PCKs in [0, 1]")
+    # (e) descriptor_statistics.yaml
+    ds_stats = load_yaml(os.path.join(folder, "descriptor_statistics.yaml"))
+    ok = all(len(v[k]) == D and all(math.isfinite(x) for x in v[k])
+             for v in ds_stats.values() for k in ("min", "mean", "max")) and all(
+        mn <= me <= mx for v in ds_stats.values()
+        for mn, me, mx in zip(v["min"], v["mean"], v["max"]))
+    log(f"evaluation (e) descriptor_statistics.yaml: {ds_stats}; finite, min <= mean <= max: "
+        f"{ok}")
+    if not ok or set(ds_stats) != {"entire_image", "mask_image"}:
+        fail("evaluation (e): descriptor_statistics.yaml is not finite and ordered")
+    # (f) across objects
+    n_obj = ds.get_number_of_unique_single_objects()
+    ao_csv = os.path.join(out_dir, "across_object", "data.csv")
+    if n_obj > 1:
+        ao = read_csv(ao_csv) if os.path.exists(ao_csv) else None
+        log(f"evaluation (f): {n_obj} objects; across_object/data.csv "
+            f"{'missing' if ao is None else f'{len(ao)} rows, columns {ao.columns}'}")
+        if ao is None or ao.columns != ev.ACROSS_OBJECT_COLUMNS or not len(ao):
+            fail("evaluation (f): the across-object table is missing or empty")
+    files = sorted(os.path.relpath(os.path.join(d, f), folder)
+                   for d, _, fs in os.walk(out_dir) for f in fs)
+    log(f"evaluation files: descriptor_statistics.yaml, {files}")
+
+    # K3 at the sweep's shape: the first chunk's pairs of the test split
+    B = min(ev.SWEEP_PAIR_CHUNK, len(pairs))
+    chunk = pairs[:B]
+    frames = ev._chunk_frames(ds, chunk, dev)
+    uv_a, _, _ = ev._sweep_correspondences(frames, [p[3] for p in chunk], EVAL_MATCHES, 2000)
+    res_a = torch.stack([images[(s, a)] for s, a, _, _ in chunk])
+    res_b = torch.stack([images[(s, b)] for s, _, b, _ in chunk])
+    Hd, Wd, Dd = res_a.shape[1:]
+    flat = (uv_a[..., 1] * Wd + uv_a[..., 0])[..., None].expand(-1, -1, Dd)
+    q = torch.gather(res_a.reshape(B, -1, Dd), 1, flat).contiguous()
+    res = res_b.reshape(B, -1, Dd).transpose(1, 2).contiguous()
+    idx, dist = bm.best_match(res, q)
+    torch.cuda.synchronize()
+    bad, err = check_matches(torch, bm, res, q, idx, dist)
+    vs_plain = float((dist - bm.best_match_reference(res, q)[1]).abs().max())
+    log(f"K3 at the sweep's shape B={B} Q={EVAL_MATCHES} {Wd}x{Hd} D={Dd}: bad_idx {bad}, "
+        f"dist_err {err:.3g}, vs plain {vs_plain:.3g}")
+    if bad or not err <= DIST_TOL or not vs_plain <= PLAIN_TOL:
+        fail("K3 disagrees with its plain version at the sweep's shape")
+    flat_b = res_b.reshape(B, -1, Dd)
+
+    def library():
+        dmat = torch.cdist(flat_b, q)  # [B, HW, Q]
+        i = dmat.argmin(dim=1)
+        return i, dmat.gather(1, i[:, None])
+    k3 = {"B": B, "Q": EVAL_MATCHES, "HW": Hd * Wd,
+          "ms": time_device(torch, lambda: bm.best_match(res, q)),
+          "wrapper_ms": time_cuda(torch, lambda: bm.best_match(res, q)),
+          "plain_ms": time_device(torch, lambda: bm.best_match_reference(res, q), iters=3),
+          "library_ms": time_device(torch, library, iters=3),
+          "split": profile_split(torch, lambda: bm.best_match(res, q))}
+    k3["bound_ms"], k3["bound_by"] = bound(B, EVAL_MATCHES, Dd, Hd * Wd)
+    return {"run_s": run_s, "totals": totals, "launches": launches, "have": have,
+            "k3_err": max(k3_err, vs_plain), "k3": k3, "ties": ties,
+            "pairs": {m: len(v) for m, v in pair_lists.items()},
+            "rows": {m: len(v) for m, v in tables.items()}}
 
 
 def flatten(tree, prefix=""):
@@ -1323,13 +1590,27 @@ def main():
     phase("training driver", t0)
 
     # 8. the main path from disk: python -m pdc_tpu_torch train --------------------
-    t0 = time.perf_counter()
-    on_disk = check_on_disk_training(torch, np, dev, here, bm, ph, driver)
-    on_disk["phase_s"] = time.perf_counter() - t0
-    torch.cuda.empty_cache()
-    phase("on-disk training", t0)
+    import shutil
+    import tempfile
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    tree = tempfile.mkdtemp(prefix="chip_smoke_on_disk_", dir=os.path.join(here, "build"))
+    try:
+        t0 = time.perf_counter()
+        on_disk = check_on_disk_training(torch, np, dev, bm, ph, tree)
+        on_disk["phase_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        phase("on-disk training", t0)
 
-    # 9. timings ---------------------------------------------------------------
+        # 9. the main path's evaluation: python -m pdc_tpu_torch evaluate -------------
+        t0 = time.perf_counter()
+        evaluation = check_evaluation(torch, np, dev, here, bm, on_disk["folder"])
+        evaluation["phase_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        phase("evaluation", t0)
+    finally:
+        shutil.rmtree(tree, ignore_errors=True)
+
+    # 10. timings ---------------------------------------------------------------
     t0 = time.perf_counter()
     log(smi)
     # Kernel times are device times (time_device: the queue primed before
@@ -1370,11 +1651,16 @@ def main():
             entry = {"name": "best_match", "route": "cuda",
                      "source": "pdc_tpu_torch/csrc/best_match.cu",
                      "replaces": "pdc_tpu/ops/pallas_kernels.py:30",
-                     "launches": launches, "launches_by_path": {"serving": launches},
-                     "max_abs_err": max(max_abs_err, driver["k3_err"], on_disk["k3_err"]),
+                     "launches": launches,
+                     "launches_by_path": {"serving": launches,
+                                          "evaluation": evaluation["launches"]},
+                     "max_abs_err": max(max_abs_err, driver["k3_err"], on_disk["k3_err"],
+                                        evaluation["k3_err"]),
                      "ms": k_ms, "device_ms": k_ms, "wrapper_ms": w_ms, "plain_ms": p_ms,
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-                     "empty_launch_ms": empty_ms}
+                     "empty_launch_ms": empty_ms,
+                     "evaluation_shape": {k: v for k, v in evaluation["k3"].items()
+                                          if k != "split"}}
     with torch.inference_mode():
         for B in (1, 8):
             xb = x[:B].contiguous()
@@ -1468,6 +1754,22 @@ def main():
             f"{c['write_ms']:.2f}, decode {c['decode_ms']:.2f} (one frame alone); write "
             f"{c['write_ms_batched']:.2f}, decode {c['decode_ms_batched']:.2f} (12 frames in "
             f"one call); an RGB file of Paeth rows alone: decode {c['paeth_rgb_decode_ms']:.2f}")
+    k3e, tot = evaluation["k3"], evaluation["totals"]
+    log(f"best_match at the evaluation sweep's shape B={k3e['B']} Q={k3e['Q']} HW={k3e['HW']} "
+        f"D=3: kernel device {k3e['ms']:.5f} ms, wrapper {k3e['wrapper_ms']:.5f} ms per call, "
+        f"plain {k3e['plain_ms']:.4f} ms, cdist+argmin {k3e['library_ms']:.4f} ms (device), "
+        f"bound {k3e['bound_ms']:.5f} ms ({k3e['bound_by']}), kernel at "
+        f"{100 * k3e['bound_ms'] / k3e['ms']:.1f}% of bound; {split_text(k3e['split'])}")
+    sweep_parts = ("forwards", "correspondences", "statistics")
+    log(f"evaluation (python -m pdc_tpu_torch evaluate, {EVAL_PAIRS} pairs x {EVAL_MATCHES} "
+        f"matches in each split; pairs kept {evaluation['pairs']}, rows {evaluation['rows']}): "
+        f"command {evaluation['run_s']:.2f} s; the two sweeps {tot['sweep']:.3f} s, of which "
+        + ", ".join(f"{k} {tot.get(k, 0.0):.3f} s" for k in sweep_parts)
+        + f" (host clock, synchronised at each part), rest "
+        f"{tot['sweep'] - sum(tot.get(k, 0.0) for k in sweep_parts):.3f} s; descriptor "
+        f"statistics {tot.get('descriptor statistics', 0.0):.3f} s, across objects "
+        f"{tot.get('across objects', 0.0):.3f} s; K3 launches {evaluation['launches']}; phase "
+        f"{evaluation['phase_s']:.2f} s")
     for route, r in driver["routes"].items():
         mean_route = sum(r["step_ms"]) / len(r["step_ms"])
         log(f"training driver route {route!r}, {ROUTE_STEPS} iterations: host wall clock per "

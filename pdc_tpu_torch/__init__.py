@@ -4,8 +4,8 @@ The JAX package stays the reference; this package mirrors its module paths so
 each port module sits where its counterpart does (``models/resnet.py``,
 ``ops/matching.py``, ``apps/serve.py``, ...). It imports torch, numpy and the
 standard library only, never ``jax``, ``flax`` or ``pdc_tpu``; optional
-third-party packages (``yaml``, ``cv2``/``PIL``) are imported inside the
-functions that need them.
+third-party packages (``yaml``, ``cv2``/``PIL``, ``pandas``, ``matplotlib``)
+are imported inside the functions that need them.
 
 Every entry point takes an explicit ``device`` that defaults to ``"cuda"``
 and raises when CUDA is absent unless the caller asks for ``"cpu"``. The
@@ -17,9 +17,13 @@ match with the streaming argmin kernel, the microbatching TCP server), the
 train step of the default config (sample assembly, train-mode BatchNorm,
 the pooled matrix loss with its hinge forward and backward kernels, Adam;
 :func:`pdc_tpu_torch.training.train.make_train_step`) and the training
-driver on in-memory datasets (:class:`pdc_tpu_torch.data.dataset.SpartanDataset`,
-the device cache and sampler, the model folder;
-:class:`pdc_tpu_torch.training.train.DenseCorrespondenceTraining`).
+driver on in-memory datasets and scenes on disk
+(:class:`pdc_tpu_torch.data.dataset.SpartanDataset`, the device cache and
+sampler, the model folder;
+:class:`pdc_tpu_torch.training.train.DenseCorrespondenceTraining`), and the
+evaluation of a model folder (the 23-column match statistics, CDF stats,
+descriptor statistics, qualitative panels and keypoints;
+:mod:`pdc_tpu_torch.evaluation`, ``python -m pdc_tpu_torch evaluate``).
 """
 
 __version__ = "0.1.0"

@@ -3,14 +3,23 @@
 Ported commands:
 
     python -m pdc_tpu_torch train --dataset_config <composite.yaml> --data_dir <root>
+    python -m pdc_tpu_torch evaluate --model_folder trained_models/net
     python -m pdc_tpu_torch statistics --config <composite.yaml> --data_dir <root>
     python -m pdc_tpu_torch serve --model_folder trained_models/net
 
 Each runs on the CUDA card unless ``--device cpu`` is given, and raises
 without CUDA otherwise. ``python -m pdc_tpu_torch <command> --help`` lists a
-command's options. The other ``python -m pdc_tpu`` commands (evaluate,
-export-serving, descriptor-images, ...) are still to be ported (see
+command's options. The other ``python -m pdc_tpu`` commands (export-serving,
+descriptor-images, experiment, ...) are still to be ported (see
 ROADMAP.md).
+
+``evaluate`` writes ``descriptor_statistics.yaml`` into the model folder and
+the train and test sweeps' ``data.csv`` and ``stats.yaml`` (PCK at 5-100
+px, the area above the 3D-error CDF) under ``--output_dir`` (default
+``<model_folder>/analysis``), plus ``across_object/`` when the dataset has
+more than one object. The figures and the qualitative panels need
+matplotlib: without it the figures are skipped, and the qualitative panels
+must be turned off with ``--no_qualitative``.
 
 A scene tree to train from, on the CPU (the port writes the pdc layout
 itself; no download):
@@ -35,7 +44,8 @@ the test loss, the test split of the same config, and writes the model
 folder under ``training.logging_dir`` (default ``trained_models/``).
 
 On the card, ``python3 chip_smoke.py`` runs ``train`` this way at 640x480
-with ResNet-34-8s (its "on-disk training" phase). PNGs are decoded by the
+with ResNet-34-8s (its "on-disk training" phase), then ``evaluate`` on the
+folder it wrote (its "evaluation" phase). PNGs are decoded by the
 libpng pool where ``png.h`` is found and by the port's zlib codec
 elsewhere, which gives the same arrays; the card's machine has no
 ``png.h`` and uses the zlib codec (:mod:`pdc_tpu_torch.data.native_loader`).
@@ -109,18 +119,56 @@ def _cmd_train(argv):
     print(f"trained model folder: {trainer.logging_dir}")
 
 
+def _cmd_evaluate(argv):
+    """The analysis of a model folder (``run_evaluation_on_network``)."""
+    import argparse
+
+    p = argparse.ArgumentParser(prog="python -m pdc_tpu_torch evaluate")
+    p.add_argument("--model_folder", required=True)
+    p.add_argument("--num_image_pairs", type=int, default=100)
+    p.add_argument("--num_matches_per_image_pair", type=int, default=100)
+    p.add_argument("--output_dir", default=None, help="default: <model_folder>/analysis")
+    p.add_argument("--iteration", type=int, default=None)
+    p.add_argument("--no_qualitative", action="store_true")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = p.parse_args(argv)
+    if not args.no_qualitative:
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            p.error("the qualitative panels need matplotlib, which is not installed: install "
+                    "it, or pass --no_qualitative for the quantitative analysis alone")
+
+    import torch
+
+    from pdc_tpu_torch.evaluation.evaluate import DenseCorrespondenceEvaluation
+
+    # evaluate in fp32, as the JAX package does: no TF32 in matmuls or cuDNN
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = DenseCorrespondenceEvaluation.run_evaluation_on_network(
+        args.model_folder, num_image_pairs=args.num_image_pairs,
+        num_matches_per_image_pair=args.num_matches_per_image_pair,
+        output_dir=args.output_dir, iteration=args.iteration,
+        qualitative=not args.no_qualitative, device=args.device)
+    print(f"analysis written: {out}")
+
+
+COMMANDS = {"train": _cmd_train, "evaluate": _cmd_evaluate}
+
+
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help"):
         print(__doc__.strip())
         return 0 if argv else 2
     cmd, rest = argv[0], argv[1:]
-    if cmd == "train":
-        _cmd_train(rest)
+    if cmd in COMMANDS:
+        COMMANDS[cmd](rest)
         return 0
     if cmd not in DELEGATED:
         print(f"unknown or not yet ported command {cmd!r}; ported: "
-              f"{', '.join(sorted(DELEGATED) + ['train'])}", file=sys.stderr)
+              f"{', '.join(sorted(DELEGATED) + sorted(COMMANDS))}", file=sys.stderr)
         return 2
     import importlib
 

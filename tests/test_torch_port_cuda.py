@@ -585,3 +585,145 @@ def test_cli_trains_two_iterations_from_disk_on_the_card(cuda, tmp_path):
     history = load_yaml(str(tmp_path / "models" / "card" / "000002_log_history.yaml"))
     assert history["train"]["iteration"] == [1, 2]
     assert np.isfinite(history["train"]["loss"]).all()
+
+
+# -- evaluation: the sweep's K3 route and ``python -m pdc_tpu_torch evaluate`` -------------
+
+
+def test_kernel_at_the_sweep_shape_b16_q100(cuda):
+    """K3 at the evaluation sweep's shape: 16 pairs' 640x480 images, 100
+    queries each, half of them exact matches."""
+    g = np.random.default_rng(16)
+    B, Q, HW = 16, 100, 307200
+    res = torch.as_tensor(g.standard_normal((B, 3, HW), dtype=np.float32), device=cuda)
+    q = torch.as_tensor(g.standard_normal((B, Q, 3), dtype=np.float32), device=cuda)
+    px = torch.as_tensor(g.integers(0, HW, (B, Q // 2)), device=cuda)
+    q[:, : Q // 2] = torch.gather(res, 2, px[:, None, :].expand(-1, 3, -1)).transpose(1, 2)
+    before = bm.launches
+    idx, dist = bm.best_match(res, q.contiguous())
+    torch.cuda.synchronize()
+    assert bm.launches == before + 1
+    _check(res, q, idx, dist)
+    assert float(dist[:, : Q // 2].max()) == 0.0
+    assert float((dist - bm.best_match_reference(res, q.contiguous())[1]).abs().max()) <= 1e-4
+
+
+def _eval_setup(width=160, height=120):
+    from pdc_tpu_torch.data.dataset import SpartanDataset
+    from pdc_tpu_torch.models.dcn import DenseCorrespondenceNetwork
+
+    ds = SpartanDataset.make_synthetic(num_scenes=2, num_objects=2, width=width, height=height,
+                                       num_frames=6, object_radius=0.3)
+    dcn = DenseCorrespondenceNetwork.from_config(
+        {"descriptor_dimension": 3, "image_width": width, "image_height": height,
+         "backbone": {"model_class": "Resnet", "resnet_name": "Resnet34_8s"}},
+        generator=torch.Generator().manual_seed(3))
+    return ds, dcn
+
+
+def test_sweep_k3_route_matches_the_plain_route(cuda, monkeypatch):
+    """The fused sweep's statistics with K3 against the same with the plain
+    best match: equal picks or float64 near-ties (1e-5 in squared
+    distance), every other value within 1e-5; and one launch per chunk."""
+    from pdc_tpu_torch.evaluation import evaluate as ev
+
+    ds, dcn = _eval_setup()
+    pairs = ev.image_pair_list(ds, 20, seed=1)
+    images = ev.DenseCorrespondenceEvaluation.compute_descriptor_images_batched(
+        dcn, ds, [(s, i) for s, a, b, _ in pairs for i in (a, b)])
+    chunk = pairs[:ev.SWEEP_PAIR_CHUNK]
+    frames = ev._chunk_frames(ds, chunk, cuda)
+    uv_a, uv_b, valid = ev._sweep_correspondences(frames, [p[3] for p in chunk], 100, 2000)
+    res_a = torch.stack([images[(s, a)] for s, a, _, _ in chunk])
+    res_b = torch.stack([images[(s, b)] for s, _, b, _ in chunk])
+    before = bm.launches
+    k3 = ev._sweep_statistics(frames, uv_a, uv_b, res_a, res_b)
+    assert bm.launches == before + 1
+    monkeypatch.setattr(ev, "best_match", bm.best_match_reference)
+    plain = ev._sweep_statistics(frames, uv_a, uv_b, res_a, res_b)
+    B, Hh, Ww, Dd = res_a.shape
+    same = (k3["uv_b_pred"] == plain["uv_b_pred"]).all(-1)
+    q = torch.gather(res_a.reshape(B, -1, Dd), 1, (uv_a[..., 1] * Ww + uv_a[..., 0])[..., None]
+                     .expand(-1, -1, Dd)).double()
+    rb = res_b.reshape(B, -1, Dd).double()
+
+    def d2(uv):
+        flat = (uv[..., 1] * Ww + uv[..., 0])[..., None].expand(-1, -1, Dd)
+        return ((torch.gather(rb, 1, flat) - q) ** 2).sum(-1)
+
+    assert float((d2(k3["uv_b_pred"]) - d2(plain["uv_b_pred"])).abs().max()) <= 1e-5
+    for k in plain:
+        m = same if k in ("uv_b_pred", "pixel_match_error_l2", "pixel_match_error_l1",
+                          "norm_diff_pred_3d", "is_valid") else torch.ones_like(same)
+        x, y = k3[k][m].double(), plain[k][m].double()
+        assert torch.equal(torch.isnan(x), torch.isnan(y)), k
+        assert float((x - y)[~torch.isnan(x)].abs().max()) <= 1e-5, k
+    monkeypatch.undo()
+    # the whole sweep: one launch per chunk of 16 pairs
+    before = bm.launches
+    t = ev.DenseCorrespondenceEvaluation.evaluate_network_quantitative(
+        dcn, ds, num_image_pairs=20, num_matches_per_image_pair=100)
+    assert bm.launches - before == -(-len(pairs) // ev.SWEEP_PAIR_CHUNK)
+    assert len(t) > 0 and np.isfinite(t["norm_diff_descriptor"]).all()
+
+
+def test_cli_evaluates_a_model_folder_on_the_card(cuda, tmp_path):
+    from pdc_tpu_torch import __main__ as cli
+    from pdc_tpu_torch.evaluation.table import read_csv
+    from pdc_tpu_torch.models.checkpoint import write_checkpoint
+    from pdc_tpu_torch.models.convert import state_dict_to_flax
+    from pdc_tpu_torch.training.train import DenseCorrespondenceTraining
+    from pdc_tpu_torch.utils.yaml_io import save_yaml
+
+    ds, dcn = _eval_setup(64, 48)
+    folder = tmp_path / "net"
+    folder.mkdir()
+    cfg = DenseCorrespondenceTraining.load_default_config()
+    cfg["dense_correspondence_network"] = dict(dcn.config)
+    save_yaml(cfg, str(folder / "training.yaml"))
+    save_yaml(ds.config_snapshot(), str(folder / "dataset.yaml"))
+    write_checkpoint(state_dict_to_flax(dcn.module.state_dict()), str(folder / "000000.ckpt"))
+    before = bm.launches
+    assert cli.main(["evaluate", "--model_folder", str(folder), "--num_image_pairs", "6",
+                     "--num_matches_per_image_pair", "50", "--no_qualitative"]) == 0
+    assert bm.launches - before == 2  # one chunk a split
+    for mode in ("train", "test"):
+        t = read_csv(str(folder / "analysis" / mode / "data.csv"))
+        assert len(t.columns) == 23 and len(t) > 0
+    assert (folder / "descriptor_statistics.yaml").exists()
+    assert (folder / "analysis" / "across_object" / "data.csv").exists()
+
+
+def test_trained_tpu_journey_pck_on_the_card(cuda):
+    """trained_models/tpu_journey on its test split at 50 pairs x 100
+    matches, seed 1, fp32 on the card: PCK@5 and PCK@10 within the band of
+    the committed bf16 summary (3 standard deviations of the PCK over the
+    pairs, plus 0.05 for the dtype), as the CPU anchor test holds them."""
+    import json
+
+    from pdc_tpu_torch.evaluation import evaluate as ev
+    from pdc_tpu_torch.evaluation.plotting import cdf_at_threshold
+    from pdc_tpu_torch.models.dcn import DenseCorrespondenceNetwork
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    folder = os.path.join(root, "trained_models", "tpu_journey")
+    summary = os.path.join(root, "trained_models", "quantized_serving", "summary.json")
+    if not (os.path.exists(os.path.join(folder, "003500.ckpt")) and os.path.exists(summary)):
+        pytest.skip("trained_models/tpu_journey/003500.ckpt is not in this copy of the tree")
+    dcn = DenseCorrespondenceNetwork.from_model_folder(folder)
+    ds = ev.DenseCorrespondenceEvaluation.load_dataset_from_model_folder(folder)
+    ds.set_test_mode()
+    t = ev.DenseCorrespondenceEvaluation.evaluate_network_quantitative(
+        dcn, ds, num_image_pairs=50, num_matches_per_image_pair=100, seed=1)
+    with open(summary) as f:
+        bf16 = json.load(f)["results"]["bf16"]
+    px = t["pixel_match_error_l2"]
+    keys = [f"{s}/{a}/{b}" for s, a, b in zip(t["scene_name"], t["img_a_idx"], t["img_b_idx"])]
+    for k in (5, 10):
+        per_pair = [float(np.mean(px[[x == key for x in keys]] <= k)) for key in
+                    dict.fromkeys(keys)]
+        margin = 3 * float(np.std(per_pair, ddof=1)) / np.sqrt(len(per_pair))
+        pck = cdf_at_threshold(px, k)
+        print(f"tpu_journey on the card: PCK@{k} {pck:.4f} (bf16 summary "
+              f"{bf16[f'pck@{k}px']}, margin {margin:.4f} + 0.05)")
+        assert abs(pck - bf16[f"pck@{k}px"]) <= margin + 0.05

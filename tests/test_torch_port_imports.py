@@ -12,7 +12,7 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "pdc_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pdc_tpu")
-LAZY = ("yaml", "cv2", "PIL", "msgpack", "triton")
+LAZY = ("yaml", "cv2", "PIL", "msgpack", "triton", "pandas", "matplotlib")
 
 
 def _port_files():

@@ -1,9 +1,11 @@
 """The port's YAML emitter and reader (pdc_tpu_torch.utils.yaml_io) against
 PyYAML: what the emitter writes loads with PyYAML to the same dict, floats
 included, and for model-folder files byte for byte as PyYAML's own block
-dump; the reader reads
-the repo's configs and model-folder files as PyYAML does; and without
-PyYAML the port reads what it writes.
+dump; the reader reads the repo's configs and model-folder files as PyYAML
+does, and what PyYAML writes in flow or block style (flow mappings, nested
+flow and block collections; fault F7); it raises on timestamps and base-60
+numbers rather than read them as strings; and without PyYAML the port reads
+what it writes.
 """
 
 import glob
@@ -73,7 +75,7 @@ def test_nan_round_trips():
 
 
 def _repo_yaml_files():
-    files = [os.path.join(ROOT, "configs", "training.yaml")]
+    files = sorted(glob.glob(os.path.join(ROOT, "configs", "**", "*.yaml"), recursive=True))
     files += sorted(glob.glob(os.path.join(ROOT, "trained_models", "*", "*.yaml")))
     return files
 
@@ -117,3 +119,78 @@ def test_emitter_refuses_what_it_does_not_write():
         yaml_io.dump_yaml({"a": object()})
     with pytest.raises(TypeError):
         yaml_io.dump_yaml([1, 2])
+
+
+# fault F7: what PyYAML writes in its other styles, nested any way
+F7_DATA = {
+    "pose": {"quaternion": {"w": 0.8535533905932737, "x": -0.14644660940672624,
+                            "y": 0.3535533905932737, "z": 0.3535533905932737},
+             "translation": {"x": 1.0, "y": -2.5e-05, "z": 3.0}},
+    "nested_lists": [[1, 2], [3, [4, 5.5]], [], [[]]],
+    "list_of_maps": [{"u": 1, "v": 2, "keypoint": "toe"}, {"u": 3, "v": 4, "name": "it's"}],
+    "map_of_lists": {"a": [1, {"b": [True, None, "x y"]}], "c": {}},
+    "strings": {"comma": "a, b", "brace": "}{", "colon": "k: v", "quote": "say \"hi\""},
+    "empty": [],
+}
+
+
+@pytest.mark.parametrize("style", [None, False, True], ids=["flow_leaves", "block", "flow"])
+def test_reader_reads_what_pyyaml_writes_in_each_style(style):
+    text = yaml.dump(F7_DATA, Dumper=yaml.SafeDumper, default_flow_style=style, width=60)
+    assert yaml_io.parse_yaml(text) == yaml.safe_load(text) == F7_DATA
+
+
+@pytest.mark.parametrize("text", [
+    "q: {w: 1.0, x: 0.0, y: 0.0, z: 0.0}\n",
+    "a: [[1, 2], [3, [4, 5]], {b: [6, {c: d}]}]\n",
+    "- - b\n  - c\n- - - d\n  - e\n- f\n",
+    "- a: 1\n  b: [1, 2]\n- c:\n  - x\n  - y: 2\n    z: 3\n",
+    "top:\n  - name: a\n    pixels:\n    - {u: 1, v: 2}\n    - u: 3\n      v: 4\n",
+    "m: {a: [1,\n    2], b: {c: 3,\n  d: 4}}\nn: 5\n",
+    "[a: 1, b]\n",
+    "a: {b, c: }\nd: it's # comment\ne: 'x # y'\nf: 0b101\n",
+    "a: x[1\nb: y{2, 3]\nc:\n- z[\n- [1,\n   2]\n",
+], ids=["flow_map", "nested_flow", "nested_block_seq", "seq_of_maps", "annotations",
+        "flow_over_lines", "flow_pair", "quirks", "plain_brackets"])
+def test_reader_reads_nested_flow_and_block_collections_as_pyyaml(text):
+    assert yaml_io.parse_yaml(text) == yaml.safe_load(text)
+
+
+@pytest.mark.parametrize("text", ["a: 2018-04-09\n", "a: 2001-12-14 21:59:43.10 -5\n",
+                                  "a: 12:30\n", "a: [1:20.5]\n"])
+def test_reader_raises_on_timestamps_and_base_60_numbers(text):
+    assert not isinstance(list(yaml.safe_load(text).values())[0], str)
+    with pytest.raises(ValueError, match="timestamp or a base-60"):
+        yaml_io.parse_yaml(text)
+
+
+def test_flow_style_pose_file_reads_without_pyyaml(tmp_path, monkeypatch):
+    """A pose_data.yaml written as PyYAML wrote before 5.1
+    (default_flow_style=None: each leaf mapping on one line, wrapped at 80
+    columns), read by the scene loader with and without PyYAML."""
+    import numpy as np
+
+    from pdc_tpu_torch.data.scene import SceneStructure
+
+    rng = np.random.default_rng(0)
+    poses = {}
+    for i in range(6):
+        q = rng.standard_normal(4)
+        q /= np.linalg.norm(q)
+        poses[i] = {"camera_to_world": {
+            "quaternion": {k: float(v) for k, v in zip("wxyz", q)},
+            "translation": {k: float(v) for k, v in zip("xyz", rng.standard_normal(3))}},
+            "timestamp": 1523400000000 + i, "rgb_image_filename": "%06d_rgb.png" % i}
+    processed = tmp_path / "scene" / "processed"
+    (processed / "images").mkdir(parents=True)
+    text = yaml.dump(poses, default_flow_style=None)
+    assert "quaternion: {w:" in text and "\n      z:" in text  # flow leaves wrapped
+    (processed / "images" / "pose_data.yaml").write_text(text)
+    structure = SceneStructure(str(processed))
+    assert structure.pose_data_filename == str(processed / "images" / "pose_data.yaml")
+    with_pyyaml = structure.load_pose_data()
+    monkeypatch.setitem(sys.modules, "yaml", None)
+    without = structure.load_pose_data()
+    assert sorted(without) == list(range(6))
+    for i in range(6):
+        np.testing.assert_array_equal(without[i], with_pyyaml[i])
