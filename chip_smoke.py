@@ -75,7 +75,24 @@ Phases, each fatal on failure:
      min <= mean <= max per channel; (f) across_object/data.csv exists
      (the dataset has 2 objects). Then K3 at the sweep's shape (B=16,
      Q=100, 640x480) against float64 and its plain version;
- 10. timings: every kernel's device time (time_device: the queue primed
+ 10. the per-pair loss and synthetic multi-object samples, "per-pair and
+     synthetic multi-object". It fails unless (a) ``make_train_step`` with
+     the values of phase 6 and ``use_matrix_loss: false`` takes 5 steps with
+     finite metrics, moving weights and no K1/K2 launch, and one batch's
+     ``compose_loss`` terms on the card equal the CPU's on the same
+     predictions and indices (rtol 1e-5, gradients relative L2 1e-4); (b)
+     ``run`` on DATASET_RECORD with the shoes experiments' mix (SHOES_MIX:
+     within-scene, different-object and synthetic multi-object, 0.33 each)
+     on the matrix loss, 6 iterations, takes the on-device sampler route,
+     draws type-4 rows, launches K1 and K2 2 each per step, has finite
+     metrics, keeps no blind entry and no match of the object behind that
+     the front object covers in its composited rows, and a kernel step on
+     one such batch equals the plain-hinge step (as phase 6); (c) the same
+     run on the per-pair loss takes the cached host sampler route, launches
+     no K1/K2 and reloads through from_model_folder (as phase 7's (g)); (d)
+     ``compute_loss_on_dataset`` on phase 8's folder gives three finite
+     numbers;
+ 11. timings: every kernel's device time (time_device: the queue primed
      with a device-side wait, so the card never waits on the host), the
      wrapper's time per call from an idle queue (time_cuda), the split by
      kernel name (torch.profiler), its bound, its plain version and a
@@ -84,7 +101,9 @@ Phases, each fatal on failure:
      each route against it, and its checkpoint writes; the on-disk run's
      step against the driver's, and the PNG codecs' times; K3 at the
      evaluation sweep's shape, and the sweep's seconds split into forwards,
-     correspondences and statistics.
+     correspondences and statistics; the per-pair step and its split
+     against the matrix step, and a synthetic multi-object batch's assembly
+     on each route.
 
 The last lines are a JSON object with every kernel's numbers, the
 nvidia-smi line, and ``{"ok": true, "device": {...}}``. Without CUDA, or when the
@@ -92,6 +111,7 @@ package is not beside this script, it exits non-zero and prints no result.
 A watchdog turns a hang into a traceback and a non-zero exit.
 """
 
+import dataclasses
 import faulthandler
 import json
 import os
@@ -461,6 +481,60 @@ def templates_text(report):
     return "; ".join(f"{k} {v['registers']} registers, spill stores {v['spill_stores']} B, "
                      f"spill loads {v['spill_loads']} B" for k, v in report.items()) \
         or "no nvcc output kept"
+
+
+def new_train_state(torch, tc):
+    """The backbone of the training config ``tc``, initialised from SEED, on
+    the card with its optimizer."""
+    from pdc_tpu_torch.models.dcn import build_backbone
+    from pdc_tpu_torch.models.resnet import init_weights_
+    from pdc_tpu_torch.training.train import create_train_state
+
+    module = init_weights_(build_backbone(tc["dense_correspondence_network"]),
+                           torch.Generator().manual_seed(SEED))
+    return create_train_state(module, tc, device="cuda")
+
+
+def compare_kernel_and_plain_steps(torch, tc, assembled, what):
+    """One train step with the pooled-hinge kernels and one with the plain
+    pooled hinge, on the same assembled batch and fresh weights of the same
+    seed: loss within STEP_LOSS_RTOL, gradients within STEP_GRAD_RTOL by
+    relative L2 norm, parameters as STEP_PARAM_SHARE says. Fatal on
+    disagreement."""
+    from pdc_tpu_torch.data.assembler import AssemblerConfig
+    from pdc_tpu_torch.losses.pixelwise_contrastive import LossConfig
+    from pdc_tpu_torch.ops.pooled_hinge import pooled_hinge_reference
+    from pdc_tpu_torch.training.train import make_train_step
+
+    loss_cfg = LossConfig.from_dict(tc["loss_function"])
+    asm_cfg = AssemblerConfig.from_training_config(tc)
+    Wt = tc["dense_correspondence_network"]["image_width"]
+    s_kernel, s_plain = new_train_state(torch, tc), new_train_state(torch, tc)
+    m_kernel = make_train_step(tc, loss_cfg, asm_cfg, Wt).update(s_kernel, *assembled)
+    m_plain = make_train_step(tc, loss_cfg, asm_cfg, Wt,
+                              hinge=pooled_hinge_reference).update(s_plain, *assembled)
+    lr = tc["training"]["learning_rate"]
+    num = den = 0.0
+    close = total = 0
+    param_max = 0.0
+    plain_params = dict(s_plain.module.named_parameters())
+    for name, p in s_kernel.module.named_parameters():
+        q = plain_params[name]
+        num += float(((p.grad - q.grad) ** 2).sum())
+        den += float((q.grad ** 2).sum())
+        d = (p.detach() - q.detach()).abs()
+        param_max = max(param_max, float(d.max()))
+        sig = q.grad.abs() > 1e-3 * float(q.grad.abs().max())
+        close += int((d[sig] <= 1e-2 * lr).sum())
+        total += int(sig.sum())
+    grad_rel = (num / den) ** 0.5
+    loss_k, loss_p = float(m_kernel["loss"]), float(m_plain["loss"])
+    log(f"{what}, kernels vs plain hinge: loss {loss_k:.8g} vs {loss_p:.8g}, gradient "
+        f"relative L2 {grad_rel:.3g}, parameters max|diff| {param_max:.3g} (lr {lr}), "
+        f"{close}/{total} significant elements within 1e-2 lr")
+    if abs(loss_k - loss_p) > STEP_LOSS_RTOL * abs(loss_p) or grad_rel > STEP_GRAD_RTOL \
+            or param_max > 2 * lr * (1 + 1e-3) or close < STEP_PARAM_SHARE * total:
+        fail(f"{what}: the step with the kernels disagrees with the plain-hinge step")
 
 
 def device_frames(torch, np, dev, scene):
@@ -1247,6 +1321,316 @@ def check_evaluation(torch, np, dev, here, bm, folder):
             "rows": {m: len(v) for m, v in tables.items()}}
 
 
+# -- per-pair and synthetic multi-object --------------------------------------------
+
+# the type mix of the shoes experiments (trained_models/experiments/shoes/*/training.yaml)
+SHOES_MIX = {"SINGLE_OBJECT_WITHIN_SCENE": 0.33, "SINGLE_OBJECT_ACROSS_SCENE": 0,
+             "DIFFERENT_OBJECT": 0.33, "MULTI_OBJECT": 0, "SYNTHETIC_MULTI_OBJECT": 0.33}
+PER_PAIR_STEPS = 5
+# the per-pair terms on the card against the CPU's from the same predictions and
+# indices: the same float32 operations, but index_add's atomics order the
+# gradient's sums differently: terms rtol 1e-5, gradients relative L2 1e-4
+PAIR_TERM_RTOL, PAIR_GRAD_RTOL = 1e-5, 1e-4
+
+
+def per_pair_config(**training):
+    """TRAINING_CONFIG on the per-pair loss (use_matrix_loss: false)."""
+    import copy
+    cfg = copy.deepcopy(TRAINING_CONFIG)
+    cfg["training"].update(use_matrix_loss=False, **training)
+    return cfg
+
+
+class _AssemblySpy:
+    """Within the block, counts the rows (and the synthetic multi-object rows)
+    that ``name`` of the train module assembles, and keeps the first batch
+    that holds a synthetic multi-object row, with its assembly and config."""
+
+    def __init__(self, train_mod, name):
+        self.mod, self.name = train_mod, name
+        self.rows = self.smo_rows = 0
+        self.kept = None
+
+    def __enter__(self):
+        self.real = real = getattr(self.mod, self.name)
+
+        def spy(batch, cfg, generator, device="cuda"):
+            out = real(batch, cfg, generator, device=device)
+            n = int((out[2].match_type == 4).sum())
+            self.rows += len(out[2].match_type)
+            self.smo_rows += n
+            if n and self.kept is None:
+                self.kept = (batch, out, cfg)
+            return out
+
+        setattr(self.mod, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.real)
+
+
+def smo_occlusion(torch, asm, kept):
+    """Of an assembled batch's synthetic multi-object rows: (rows, matches
+    of the object behind that the front object covers, those of them still
+    valid, valid blind entries). The front object of each composite is read
+    from the image: the composite is where(front mask, front, back), which
+    equals exactly one of the two orders because the backgrounds differ."""
+    batch, (img_a, img_b, s), cfg = kept
+    rows = torch.nonzero(s.match_type == 4).flatten().tolist()
+    half = cfg.num_matching_attempts // 2
+    covered_n = bad = 0
+    for r in rows:
+        valid = s.matches_valid[r]
+        for img, view, flat in ((img_a, "a", s.matches_a), (img_b, "b", s.matches_b)):
+            norm = [asm._normalize(batch[f"rgb_{view}{x}"][r], cfg) for x in ("", "_2")]
+            masks = [batch[f"mask_{view}{x}"][r] != 0 for x in ("", "_2")]
+            first = torch.equal(img[r], torch.where(masks[0][..., None], norm[0], norm[1]))
+            second = torch.equal(img[r], torch.where(masks[1][..., None], norm[1], norm[0]))
+            if first == second:
+                fail(f"synthetic multi-object row {r}: its composite {view} is neither order "
+                     "of its two pairs")
+            behind = slice(half, None) if first else slice(0, half)
+            covered = (masks[0] if first else masks[1]).reshape(-1)[flat[r, behind]]
+            covered_n += int(covered.sum())
+            bad += int((covered & valid[behind]).sum())
+    blind = int(s.blind_nm_valid[rows].sum()) if rows else 0
+    return len(rows), covered_n, bad, blind
+
+
+def check_per_pair_and_smo(torch, np, dev, here, bm, ph, frames_t, folder):
+    """The phase "per-pair and synthetic multi-object": checks (a)-(d) of
+    the module docstring. Returns what the timings phase reads."""
+    import shutil
+    import tempfile
+
+    from pdc_tpu_torch.data import assembler as asm
+    from pdc_tpu_torch.data.dataset import SpartanDataset
+    from pdc_tpu_torch.evaluation.evaluate import DenseCorrespondenceEvaluation
+    from pdc_tpu_torch.losses.composer import compose_loss
+    from pdc_tpu_torch.losses.pixelwise_contrastive import LossConfig
+    from pdc_tpu_torch.models.dcn import DenseCorrespondenceNetwork
+    from pdc_tpu_torch.training import train as train_mod
+
+    out = {}
+    # (a) the per-pair train step at full width
+    tc = per_pair_config()
+    net_cfg = tc["dense_correspondence_network"]
+    Bt, Wt = tc["training"]["batch_size"], net_cfg["image_width"]
+    HWt = Wt * net_cfg["image_height"]
+    loss_cfg = LossConfig.from_dict(tc["loss_function"])
+    state = new_train_state(torch, tc)
+    initial = {k: v.detach().clone() for k, v in state.module.named_parameters()}
+    step = train_mod.make_train_step(tc, loss_cfg, asm.AssemblerConfig.from_training_config(tc),
+                                     Wt)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    pair_rng = np.random.default_rng(SEED + 2)
+
+    def batch():
+        return pair_batch(torch, frames_t, *draw_pairs(np, pair_rng, Bt, N_FRAMES))
+
+    ph.forward_launches = ph.backward_launches = 0
+    history = [{k: float(v) for k, v in step(state, batch(), gen).items()}
+               for _ in range(PER_PAIR_STEPS)]
+    torch.cuda.synchronize()
+    launches = (ph.forward_launches, ph.backward_launches)
+    for i, m in enumerate(history):
+        log(f"per-pair train step {i}: " + ", ".join(f"{k} {v:.6g}" for k, v in m.items()))
+    still = [k for k, v in state.module.named_parameters()
+             if v.dim() > 1 and torch.equal(v.detach(), initial[k])]
+    log(f"per-pair training: {net_cfg['backbone']['resnet_name']} {Wt}x{HWt // Wt} B={Bt}, "
+        f"{PER_PAIR_STEPS} steps through make_train_step (use_matrix_loss false); weight "
+        f"tensors unchanged: {len(still)}; launches K1 {launches[0]}, K2 {launches[1]} "
+        f"(0 expected: the per-pair loss runs no kernel)")
+    if not all(np.isfinite(v) for m in history for v in m.values()) or still:
+        fail("a per-pair training metric is not finite, or the weights did not move")
+    if launches != (0, 0):
+        fail(f"the per-pair route launched K1/K2 {launches} times")
+    # one step's terms on the card against the CPU's, from the same predictions
+    img_a, img_b, idx = step.assemble(state, batch(), gen)
+    module = state.module
+    with torch.no_grad():
+        module.eval()
+        o = module(torch.cat([img_a, img_b]).permute(0, 3, 1, 2).contiguous())
+        module.train()
+    pred = o.permute(0, 2, 3, 1).reshape(2 * Bt, HWt, o.shape[1])
+    w = torch.linspace(0.5, 1.5, Bt)
+
+    def terms_and_grads(pred, indices):
+        pa = pred[:Bt].clone().requires_grad_()
+        pb = pred[Bt:].clone().requires_grad_()
+        terms = compose_loss(pa, pb, indices, loss_cfg, Wt)
+        (terms.loss * w.to(pred.device)).sum().backward()
+        return terms, pa.grad, pb.grad
+
+    card = terms_and_grads(pred, idx)
+    cpu = terms_and_grads(pred.cpu(), type(idx)(*[x.cpu() for x in idx]))
+    term_err = max(float(((a.detach().cpu() - b.detach()).abs()
+                          / b.detach().abs().clamp(min=1e-30)).max())
+                   for a, b in zip(card[0], cpu[0]))
+    grad_rel = max(float((a.cpu() - b).norm() / b.norm()) for a, b in zip(card[1:], cpu[1:]))
+    log(f"per-pair compose_loss on the card vs the CPU, same predictions and indices "
+        f"({int(idx.masked_nm_valid.sum())} valid masked and "
+        f"{int(idx.background_nm_valid.sum())} background non-matches): loss "
+        f"{card[0].loss.detach().cpu().tolist()} vs {cpu[0].loss.detach().tolist()}, largest "
+        f"relative term difference {term_err:.3g} (bar {PAIR_TERM_RTOL}), gradient relative "
+        f"L2 {grad_rel:.3g} (bar {PAIR_GRAD_RTOL})")
+    if not term_err <= PAIR_TERM_RTOL or not grad_rel <= PAIR_GRAD_RTOL:
+        fail("the per-pair terms on the card disagree with the CPU's")
+    out["per_pair"] = {"state": state, "step": step, "gen": gen, "batch": batch,
+                       "loss_cfg": loss_cfg}
+    del card, cpu, pred, o
+
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_smo_", dir=os.path.join(here, "build"))
+    try:
+        ds = SpartanDataset.from_dataset_config(DATASET_RECORD, mode="train")
+        # (b) synthetic multi-object rows on the matrix route, through the driver
+        cfg = driver_config(tmp, "smo", compute_test_loss=False, save_rate=1000,
+                            data_type_probabilities=SHOES_MIX)
+        n_iter = cfg["training"]["num_iterations"]
+        trainer = train_mod.DenseCorrespondenceTraining(cfg, ds, device=dev)
+        ph.forward_launches = ph.backward_launches = 0
+        t = time.perf_counter()
+        with _AssemblySpy(train_mod, "assemble_batch_matrix") as spy:
+            trainer.run()
+        torch.cuda.synchronize(dev)
+        run_s = time.perf_counter() - t
+        k = (ph.forward_launches, ph.backward_launches)
+        losses = trainer._logging_dict["train"]["loss"]
+        log(f"synthetic multi-object, matrix route: route {trainer.route!r}, {n_iter} "
+            f"iterations in {run_s:.2f} s, {spy.smo_rows} of {spy.rows} rows of type 4; "
+            f"launches K1 {k[0]}, K2 {k[1]} (expected {2 * n_iter} each); losses "
+            + ", ".join(f"{x:.5g}" for x in losses))
+        if trainer.route != train_mod.ROUTE_DEVICE_SAMPLER:
+            fail(f"the synthetic multi-object run took the {trainer.route!r} route")
+        if not spy.smo_rows:
+            fail("no synthetic multi-object row was drawn")
+        if k != (2 * n_iter, 2 * n_iter):
+            fail(f"K1/K2 launched {k} times in {n_iter} steps with synthetic multi-object rows")
+        if len(losses) != n_iter or not all(np.isfinite(x) for x in losses):
+            fail("a synthetic multi-object training metric is missing or not finite")
+        rows, covered, bad, blind = smo_occlusion(torch, asm, spy.kept)
+        log(f"synthetic multi-object batch: {rows} composited rows; matches of the object "
+            f"behind covered by the front object {covered}, of them valid {bad} (0 expected); "
+            f"valid blind entries {blind} (0 expected)")
+        if bad or blind:
+            fail("a synthetic multi-object row keeps an occluded match or a blind entry")
+        compare_kernel_and_plain_steps(torch, cfg, spy.kept[1], "synthetic multi-object step")
+        out["smo"] = {"launches": k, "kept": spy.kept, "run_s": run_s}
+
+        # (c) the per-pair route through the driver, with the same mix
+        cfg_pp = driver_config(tmp, "per_pair", compute_test_loss=False, save_rate=1000,
+                               use_matrix_loss=False, data_type_probabilities=SHOES_MIX)
+        trainer = train_mod.DenseCorrespondenceTraining(cfg_pp, ds, device=dev)
+        ph.forward_launches = ph.backward_launches = 0
+        t = time.perf_counter()
+        with _AssemblySpy(train_mod, "assemble_batch") as spy_pp:
+            folder_pp = trainer.run()
+        torch.cuda.synchronize(dev)
+        run_pp = time.perf_counter() - t
+        k = (ph.forward_launches, ph.backward_launches)
+        losses = trainer._logging_dict["train"]["loss"]
+        log(f"per-pair driver: route {trainer.route!r}, {n_iter} iterations in {run_pp:.2f} s, "
+            f"{spy_pp.smo_rows} of {spy_pp.rows} rows of type 4; launches K1 {k[0]}, K2 {k[1]}; "
+            "losses " + ", ".join(f"{x:.5g}" for x in losses))
+        if trainer.route != train_mod.ROUTE_CACHED_HOST_SAMPLER or k != (0, 0):
+            fail(f"the per-pair driver took the {trainer.route!r} route or launched K1/K2")
+        if len(losses) != n_iter or not all(np.isfinite(x) for x in losses):
+            fail("a per-pair driver metric is missing or not finite")
+        _, out["k3_err"] = check_reload(torch, np, bm, dev, folder_pp, trainer,
+                                        ds.scenes["scene_000"], "per-pair driver")
+        out["per_pair_run_s"] = run_pp
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (d) the test loss over phase 8's dataset, from its model folder
+    dcn = DenseCorrespondenceNetwork.from_model_folder(folder, device=dev)
+    t = time.perf_counter()
+    values = DenseCorrespondenceEvaluation.compute_loss_on_dataset(
+        dcn, dcn.load_training_dataset(), TRAINING_CONFIG["loss_function"])
+    out["loss_on_dataset_s"] = time.perf_counter() - t
+    log(f"compute_loss_on_dataset on phase 8's folder (50 batches of 1 pair): loss, match "
+        f"loss, non-match loss {list(values)} in {out['loss_on_dataset_s']:.2f} s")
+    if len(values) != 3 or not all(np.isfinite(v) for v in values):
+        fail("compute_loss_on_dataset did not give three finite numbers")
+    return out
+
+
+def time_per_pair_and_smo(torch, pp, smo):
+    """The per-pair step at full width (whole, then split between CUDA
+    events into assembly, forward, the loss, the backward and Adam; and the
+    loss alone on fixed predictions, forward and backward) and a synthetic
+    multi-object batch's assembly on each route."""
+    from pdc_tpu_torch.data import assembler as asm
+
+    state, step, gen, batch = pp["state"], pp["step"], pp["gen"], pp["batch"]
+    module, Wt = state.module, step.image_width
+
+    def events(n):
+        return [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+
+    whole = []
+    for _ in range(TRAIN_TIMED_STEPS):
+        b = batch()
+        e = events(2)
+        e[0].record()
+        step(state, b, gen)
+        e[1].record()
+        torch.cuda.synchronize()
+        whole.append(e[0].elapsed_time(e[1]))
+    parts = {k: [] for k in ("assembly", "forward", "loss", "backward", "optimizer")}
+    for _ in range(TRAIN_TIMED_STEPS):
+        b = batch()
+        e = events(6)
+        e[0].record()
+        img_a, img_b, idx = step.assemble(state, b, gen)
+        e[1].record()
+        state.optimizer.zero_grad(set_to_none=True)
+        module.train()
+        o = module(torch.cat([img_a, img_b]).permute(0, 3, 1, 2).contiguous())
+        e[2].record()
+        B = img_a.shape[0]
+        pred = o.permute(0, 2, 3, 1).reshape(2 * B, -1, o.shape[1])
+        loss = step.compose(pred[:B], pred[B:], idx, step.loss_cfg, Wt).loss.mean()
+        e[3].record()
+        loss.backward()
+        e[4].record()
+        state.optimizer.step()
+        e[5].record()
+        torch.cuda.synchronize()
+        for j, k in enumerate(parts):
+            parts[k].append(e[j].elapsed_time(e[j + 1]))
+    fixed = pred.detach()
+    alone = {"loss forward": [], "loss backward": []}
+    for _ in range(TRAIN_TIMED_STEPS):
+        pa = fixed[:B].clone().requires_grad_()
+        pb = fixed[B:].clone().requires_grad_()
+        e = events(3)
+        e[0].record()
+        loss = step.compose(pa, pb, idx, step.loss_cfg, Wt).loss.sum()
+        e[1].record()
+        loss.backward()
+        e[2].record()
+        torch.cuda.synchronize()
+        alone["loss forward"].append(e[0].elapsed_time(e[1]))
+        alone["loss backward"].append(e[1].elapsed_time(e[2]))
+    rows = idx.masked_nm_a.numel() + idx.background_nm_a.numel()
+
+    batch_smo, _, cfg_m = smo["kept"]
+    all_smo = dict(batch_smo, match_type=torch.full_like(batch_smo["match_type"], 4))
+    cfg_p = dataclasses.replace(cfg_m, use_matrix_loss=False)
+    assembly = {}
+    for name, fn, cfg in (("matrix", asm.assemble_batch_matrix, cfg_m),
+                          ("per-pair", asm.assemble_batch, cfg_p)):
+        for what, b in (("as drawn", batch_smo), ("every row type 4", all_smo)):
+            assembly[(name, what)] = time_cuda(torch, lambda: fn(b, cfg, gen, gen.device),
+                                               iters=5, warmup=1)
+    return {"step_ms": whole, "parts": {k: sum(v) / len(v) for k, v in parts.items()},
+            "alone": {k: sum(v) / len(v) for k, v in alone.items()}, "rows": rows,
+            "smo_types": batch_smo["match_type"].tolist(), "assembly": assembly}
+
+
 def flatten(tree, prefix=""):
     """{'a/b': leaf} of a nested dict."""
     out = {}
@@ -1501,9 +1885,7 @@ def main():
     from pdc_tpu_torch.data.assembler import AssemblerConfig
     from pdc_tpu_torch.data.synthetic import SyntheticScene
     from pdc_tpu_torch.losses.pixelwise_contrastive import LossConfig
-    from pdc_tpu_torch.models.dcn import build_backbone
-    from pdc_tpu_torch.models.resnet import init_weights_
-    from pdc_tpu_torch.training.train import build_loss_fn, create_train_state, make_train_step
+    from pdc_tpu_torch.training.train import build_loss_fn, make_train_step, pick_assembly
 
     tc = TRAINING_CONFIG
     net_cfg = tc["dense_correspondence_network"]
@@ -1518,11 +1900,7 @@ def main():
         f"{time.perf_counter() - t_render:.2f} s; object pixels per frame "
         f"{frames_t['count'].tolist()}")
 
-    def new_state():
-        module = init_weights_(build_backbone(net_cfg), torch.Generator().manual_seed(SEED))
-        return create_train_state(module, tc, device="cuda")
-
-    state = new_state()
+    state = new_train_state(torch, tc)
     initial = {k: v.detach().clone() for k, v in state.module.state_dict().items()}
     step = make_train_step(tc, loss_cfg, asm_cfg, Wt)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1550,36 +1928,9 @@ def main():
              f"not 2 per step each")
 
     # one step with the kernels and one with the plain hinge, same batch and weights
-    from pdc_tpu_torch.ops.pooled_hinge import pooled_hinge_reference
     assembled = step.assemble(state, pair_batch(torch, frames_t, *draw_pairs(
         np, pair_rng, Bt, N_FRAMES)), torch.Generator(device=dev).manual_seed(SEED + 1))
-    s_kernel, s_plain = new_state(), new_state()
-    m_kernel = step.update(s_kernel, *assembled)
-    m_plain = make_train_step(tc, loss_cfg, asm_cfg, Wt,
-                              hinge=pooled_hinge_reference).update(s_plain, *assembled)
-    lr = tc["training"]["learning_rate"]
-    num = den = 0.0
-    close = total = 0
-    param_max = 0.0
-    plain_params = dict(s_plain.module.named_parameters())
-    for name, p in s_kernel.module.named_parameters():
-        q = plain_params[name]
-        num += float(((p.grad - q.grad) ** 2).sum())
-        den += float((q.grad ** 2).sum())
-        d = (p.detach() - q.detach()).abs()
-        param_max = max(param_max, float(d.max()))
-        sig = q.grad.abs() > 1e-3 * float(q.grad.abs().max())
-        close += int((d[sig] <= 1e-2 * lr).sum())
-        total += int(sig.sum())
-    grad_rel = (num / den) ** 0.5
-    loss_k, loss_p = float(m_kernel["loss"]), float(m_plain["loss"])
-    log(f"train step, kernels vs plain hinge: loss {loss_k:.8g} vs {loss_p:.8g}, gradient "
-        f"relative L2 {grad_rel:.3g}, parameters max|diff| {param_max:.3g} (lr {lr}), "
-        f"{close}/{total} significant elements within 1e-2 lr")
-    if abs(loss_k - loss_p) > STEP_LOSS_RTOL * abs(loss_p) or grad_rel > STEP_GRAD_RTOL \
-            or param_max > 2 * lr * (1 + 1e-3) or close < STEP_PARAM_SHARE * total:
-        fail("the train step with the kernels disagrees with the plain-hinge step")
-    del s_kernel, s_plain, plain_params
+    compare_kernel_and_plain_steps(torch, tc, assembled, "train step")
     torch.cuda.empty_cache()
     phase("training", t0)
 
@@ -1607,10 +1958,18 @@ def main():
         evaluation["phase_s"] = time.perf_counter() - t0
         torch.cuda.empty_cache()
         phase("evaluation", t0)
+
+        # 10. the per-pair loss and synthetic multi-object samples --------------------
+        t0 = time.perf_counter()
+        pair_smo = check_per_pair_and_smo(torch, np, dev, here, bm, ph, frames_t,
+                                          on_disk["folder"])
+        pair_smo["phase_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        phase("per-pair and synthetic multi-object", t0)
     finally:
         shutil.rmtree(tree, ignore_errors=True)
 
-    # 10. timings ---------------------------------------------------------------
+    # 11. timings ---------------------------------------------------------------
     t0 = time.perf_counter()
     log(smi)
     # Kernel times are device times (time_device: the queue primed before
@@ -1655,7 +2014,7 @@ def main():
                      "launches_by_path": {"serving": launches,
                                           "evaluation": evaluation["launches"]},
                      "max_abs_err": max(max_abs_err, driver["k3_err"], on_disk["k3_err"],
-                                        evaluation["k3_err"]),
+                                        evaluation["k3_err"], pair_smo["k3_err"]),
                      "ms": k_ms, "device_ms": k_ms, "wrapper_ms": w_ms, "plain_ms": p_ms,
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
                      "empty_launch_ms": empty_ms,
@@ -1709,7 +2068,7 @@ def main():
         captured.append([a.detach() for a in args[:8]])
         return ph.pooled_hinge(*args)
 
-    loss_fn = build_loss_fn(state.module, loss_cfg, Wt, hinge=capture)
+    loss_fn = build_loss_fn(state.module, loss_cfg, Wt, pick_assembly(asm_cfg, hinge=capture)[1])
     for _ in range(TRAIN_TIMED_STEPS):
         batch = pair_batch(torch, frames_t, *draw_pairs(np, pair_rng, Bt, N_FRAMES))
         e = events(4)
@@ -1778,6 +2137,33 @@ def main():
             f"{mean_route / mean_step:.3f} x make_train_step's {mean_step:.3f} ms of CUDA-event "
             f"step time; K1/K2 launches {r['launches']}")
 
+    # the per-pair step and a synthetic multi-object batch's assembly
+    pt = time_per_pair_and_smo(torch, pair_smo["per_pair"], pair_smo["smo"])
+    pp_mean = sum(pt["step_ms"]) / len(pt["step_ms"])
+    log(smi)
+    log(f"per-pair train step {net_cfg['backbone']['resnet_name']} fp32 {Wt}x{Ht} B={Bt} "
+        f"(CUDA events, {TRAIN_TIMED_STEPS} steps after {PER_PAIR_STEPS + 1} warm-up): "
+        f"{pp_mean:.3f} ms [{', '.join(f'{x:.3f}' for x in pt['step_ms'])}], "
+        f"{1e3 * Bt / pp_mean:.2f} pairs/s, {pp_mean / mean_step:.3f} x the matrix step's "
+        f"{mean_step:.3f} ms")
+    total = sum(pt["parts"].values())
+    log("per-pair train step split (separate steps, CUDA events): " + ", ".join(
+        f"{k} {v:.3f} ms ({100 * v / total:.1f}%)" for k, v in pt["parts"].items())
+        + f"; forward+backward {pt['parts']['forward'] + pt['parts']['backward']:.3f} ms "
+        f"(the backward includes the loss's index_add over {pt['rows']} non-match rows and "
+        f"the match and blind rows)")
+    log(f"per-pair loss alone on fixed predictions: forward {pt['alone']['loss forward']:.3f} "
+        f"ms, backward to the predictions {pt['alone']['loss backward']:.3f} ms")
+    log(f"synthetic multi-object assembly of the kept batch (types {pt['smo_types']}), B={Bt} "
+        f"{Wt}x{Ht} (host clock with synchronisation; the composited rows are found on the "
+        "host): " + "; ".join(f"{route} route {what}: {ms:.3f} ms"
+                              for (route, what), ms in pt["assembly"].items())
+        + f"; the matrix step's assembly {split['assembly']:.3f} ms")
+    log(f"per-pair and synthetic multi-object phase {pair_smo['phase_s']:.2f} s; the "
+        f"synthetic multi-object driver run {pair_smo['smo']['run_s']:.2f} s, the per-pair "
+        f"driver run {pair_smo['per_pair_run_s']:.2f} s (6 iterations each, checkpoints "
+        f"included); compute_loss_on_dataset {pair_smo['loss_on_dataset_s']:.2f} s")
+
     # K1 and K2 at the main path's shapes: the masked pool's rows of a real step
     hargs = [a.contiguous() for a in captured[0]]
     g_one = torch.ones(hargs[0].shape[0], device=dev)
@@ -1829,7 +2215,8 @@ def main():
                 "source": "pdc_tpu_torch/csrc/pooled_hinge.cu",
                 "replaces": "pdc_tpu/ops/pallas_loss.py:42", "launches": k1_launches,
                 "launches_by_path": {"training": k1_launches, "training driver": driver["k1"],
-                                     "on-disk training": on_disk["k1"]},
+                                     "on-disk training": on_disk["k1"],
+                                     "smo matrix": pair_smo["smo"]["launches"][0]},
                 "max_abs_err": k1_err, "ms": k1_ms, "device_ms": k1_ms,
                 "wrapper_ms": k1_wrapper, "plain_ms": p1_ms, "bound_ms": b1_ms,
                 "bound_by": b1_by, "library_ms": None}
@@ -1837,7 +2224,8 @@ def main():
                 "source": "pdc_tpu_torch/csrc/pooled_hinge.cu",
                 "replaces": "pdc_tpu/ops/pallas_loss.py:77", "launches": k2_launches,
                 "launches_by_path": {"training": k2_launches, "training driver": driver["k2"],
-                                     "on-disk training": on_disk["k2"]},
+                                     "on-disk training": on_disk["k2"],
+                                     "smo matrix": pair_smo["smo"]["launches"][1]},
                 "max_abs_err": k2_err, "ms": k2_ms, "device_ms": k2_ms,
                 "wrapper_ms": k2_wrapper, "plain_ms": p2_ms, "bound_ms": b2_ms,
                 "bound_by": b2_by, "library_ms": None}

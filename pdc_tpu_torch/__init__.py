@@ -15,15 +15,17 @@ first use (:mod:`pdc_tpu_torch.ops._build`).
 Ported so far: the serving path (ResNet-18/34-8s descriptor inference, best
 match with the streaming argmin kernel, the microbatching TCP server), the
 train step of the default config (sample assembly, train-mode BatchNorm,
-the pooled matrix loss with its hinge forward and backward kernels, Adam;
+the pooled matrix loss with its hinge forward and backward kernels, or the
+per-pair loss, synthetic multi-object samples on both, Adam;
 :func:`pdc_tpu_torch.training.train.make_train_step`) and the training
 driver on in-memory datasets and scenes on disk
 (:class:`pdc_tpu_torch.data.dataset.SpartanDataset`, the device cache and
 sampler, the model folder;
 :class:`pdc_tpu_torch.training.train.DenseCorrespondenceTraining`), and the
 evaluation of a model folder (the 23-column match statistics, CDF stats,
-descriptor statistics, qualitative panels and keypoints;
-:mod:`pdc_tpu_torch.evaluation`, ``python -m pdc_tpu_torch evaluate``).
+descriptor statistics, qualitative panels, keypoints and the test loss
+over a dataset; :mod:`pdc_tpu_torch.evaluation`, ``python -m pdc_tpu_torch
+evaluate``).
 """
 
 __version__ = "0.1.0"

@@ -13,9 +13,9 @@ decoded by :mod:`pdc_tpu_torch.data.native_loader`), named by a composite
 dataset config (``logs_root_path`` and per-object scene-list YAMLs with
 ``train``/``test`` splits), or from the synthetic renderer
 (:meth:`SpartanDataset.make_synthetic`). A composite config's split is
-decoded when that split is first used. Synthetic-multi-object pairs are
-sampled as in the JAX package; their assembly waits for the per-pair-loss
-slice.
+decoded when that split is first used. Synthetic-multi-object pairs carry
+their second within-scene pair (``SamplePair.second``), which the assembler
+composites.
 """
 
 from __future__ import annotations
@@ -505,9 +505,10 @@ class SpartanDataset:
     def make_host_batch(self, batch_size: int, with_second_pair: bool = None):
         """Stack ``batch_size`` sampled pairs into numpy arrays, the batch
         dict that :func:`~pdc_tpu_torch.data.assembler.assemble_batch_matrix`
-        reads. With synthetic multi-object in the type mix (or
-        ``with_second_pair``), ``*_2`` arrays carry each pair's second pair
-        (the pair itself for the other types)."""
+        and :func:`~pdc_tpu_torch.data.assembler.assemble_batch` read. With
+        synthetic multi-object in the type mix (or ``with_second_pair``),
+        ``*_2`` arrays carry each pair's second pair (the pair itself for the
+        other types)."""
         pairs = [self.sample_pair() for _ in range(batch_size)]
         if with_second_pair is None:
             with_second_pair = MATCH_TYPE_SYNTHETIC_MULTI_OBJECT in self._data_type_probabilities

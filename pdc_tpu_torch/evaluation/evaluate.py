@@ -726,11 +726,50 @@ class DenseCorrespondenceEvaluation:
     @staticmethod
     def compute_loss_on_dataset(dcn, dataset, loss_config: dict, num_iterations: int = 50,
                                 batch_size: int = 1, seed: int = 0):
-        """Not ported: the average composed loss needs the per-pair loss
-        (``assemble_batch``, ``compose_loss``)."""
-        raise NotImplementedError(
-            "compute_loss_on_dataset is not ported to pdc_tpu_torch yet: it needs the per-pair "
-            "loss (assemble_batch, compose_loss), which waits for ROADMAP queue 1, item 4")
+        """Mean per-pair loss over ``num_iterations`` batches of ``dataset``
+        (reference evaluation.py:2072-2152): the batches are drawn first,
+        then each is assembled for the per-pair loss (at most 5000 match
+        attempts, the dataset's non-match counts, the defaults otherwise;
+        draws from a generator on the network's device seeded with
+        ``seed``), forwarded with eval-mode BatchNorm (the network's raw
+        output) and scored with :func:`~pdc_tpu_torch.losses.composer.compose_loss`.
+        Returns ``(loss, match_loss, non_match_loss)``: means over the
+        batches of each batch's mean over its pairs, the non-match loss the
+        masked plus the background term."""
+        from pdc_tpu_torch.data.assembler import AssemblerConfig, assemble_batch
+        from pdc_tpu_torch.losses.composer import compose_loss
+        from pdc_tpu_torch.losses.pixelwise_contrastive import LossConfig
+
+        loss_cfg = LossConfig.from_dict(loss_config)
+        acfg = AssemblerConfig(
+            num_matching_attempts=min(dataset.num_matching_attempts, 5000),
+            num_masked_non_matches_per_match=dataset.num_masked_non_matches_per_match,
+            num_background_non_matches_per_match=dataset.num_background_non_matches_per_match,
+        )
+        W = dcn.image_shape[1]
+        dev = dcn.device
+        generator = torch.Generator(device=dev).manual_seed(seed)
+        batches = [dataset.make_host_batch(batch_size) for _ in range(num_iterations)]
+        module = dcn.module
+        modes = [(m, m.training) for m in module.modules()]
+        module.eval()
+        total = torch.zeros(3, dtype=torch.float32, device=dev)
+        try:
+            with torch.inference_mode():
+                for batch in batches:
+                    img_a, img_b, idx = assemble_batch(batch, acfg, generator, device=dev)
+                    B, H, Wd, _ = img_a.shape
+                    imgs = torch.cat([img_a, img_b]).permute(0, 3, 1, 2).contiguous()
+                    out = module(imgs)
+                    pred = out.permute(0, 2, 3, 1).reshape(2 * B, H * Wd, out.shape[1])
+                    t = compose_loss(pred[:B], pred[B:], idx, loss_cfg, W)
+                    total += torch.stack([
+                        t.loss.mean(), t.match_loss.mean(),
+                        (t.masked_non_match_loss + t.background_non_match_loss).mean()])
+        finally:
+            for m, training in modes:
+                m.training = training
+        return tuple(float(x) for x in (total / num_iterations).cpu().numpy())
 
     # -- the full pipeline --------------------------------------------------------------
 

@@ -1,11 +1,13 @@
 """Matrix-form (pooled) pixelwise contrastive loss, batched over pairs.
 
 Port of :mod:`pdc_tpu.losses.matrix_loss`: ``MatrixSampleIndices`` (:46-63),
-``pooled_non_match_loss_from_rows`` (:66-121), ``_gather_rows`` (:192-198)
-and ``compose_loss_matrix`` (:201-318). Non-matches are scored as a distance
-matrix of every match row against a shared pool of image-b pixels (one pool
-on the object mask, one off it), with the reference's hard-negative
-normalisation, so the loss equals the reference's in expectation.
+``pooled_non_match_loss_from_rows`` (:66-121) and ``compose_loss_matrix``
+(:201-318); ``_gather_rows`` (:192-198) is
+:func:`~pdc_tpu_torch.losses.pixelwise_contrastive.gather_rows`. Non-matches
+are scored as a distance matrix of every match row against a shared pool of
+image-b pixels (one pool on the object mask, one off it), with the
+reference's hard-negative normalisation, so the loss equals the reference's
+in expectation.
 
 Where the JAX package vmaps one pair at a time, everything here carries a
 leading batch axis ``B``: the pooled hinge of all pairs is one K1 launch
@@ -31,6 +33,7 @@ from pdc_tpu_torch.losses.composer import (
 )
 from pdc_tpu_torch.losses.pixelwise_contrastive import (
     LossConfig,
+    gather_rows,
     hinge_from_rows,
     match_loss_from_rows,
 )
@@ -75,15 +78,6 @@ def pooled_non_match_loss_from_rows(da, db, matches_uv_b, matches_valid, pool_b,
         float(M), bool(use_l2_pixel_loss), float(M_pixel))
 
 
-def _gather_rows(table, hw: int, indices, valid):
-    """Rows of ``table [B*HW, D]`` at each pair's flat ``indices [B, N]``
-    (invalid rows read pixel 0), as float32 ``[B, N, D]``."""
-    B, N = indices.shape
-    offset = torch.arange(B, device=indices.device)[:, None] * hw
-    idx = torch.where(valid, indices.to(torch.int64), 0) + offset
-    return table.index_select(0, idx.reshape(-1)).reshape(B, N, -1).to(torch.float32)
-
-
 def compose_loss_matrix(image_a_pred, image_b_pred, s: MatrixSampleIndices, cfg: LossConfig,
                         image_width: int, hinge=pooled_hinge) -> LossTerms:
     """Per-pair loss terms of a batch, dispatched on ``s.match_type``.
@@ -91,9 +85,6 @@ def compose_loss_matrix(image_a_pred, image_b_pred, s: MatrixSampleIndices, cfg:
     :param image_*_pred: ``[B, H*W, D]`` predictions (flat n = v*W + u)
     :return: :class:`LossTerms` of ``[B]`` tensors
     """
-    B, HW, D = image_a_pred.shape
-    table_a = image_a_pred.reshape(B * HW, D)
-    table_b = image_b_pred.reshape(B * HW, D)
     mt = s.match_type
     is_empty = mt == MATCH_TYPE_EMPTY
     is_within = ((mt == MATCH_TYPE_SINGLE_OBJECT_WITHIN_SCENE) | (mt == MATCH_TYPE_MULTI_OBJECT)
@@ -102,12 +93,12 @@ def compose_loss_matrix(image_a_pred, image_b_pred, s: MatrixSampleIndices, cfg:
     is_diff = mt == MATCH_TYPE_DIFFERENT_OBJECT
 
     # one gather per row set, shared by every term that reads it
-    da_m = _gather_rows(table_a, HW, s.matches_a, s.matches_valid)
-    db_m = _gather_rows(table_b, HW, s.matches_b, s.matches_valid)
-    pool_masked = _gather_rows(table_b, HW, s.masked_pool_b, s.masked_pool_valid)
-    pool_bg = _gather_rows(table_b, HW, s.background_pool_b, s.background_pool_valid)
-    blind_a = _gather_rows(table_a, HW, s.blind_nm_a, s.blind_nm_valid)
-    blind_b = _gather_rows(table_b, HW, s.blind_nm_b, s.blind_nm_valid)
+    da_m = gather_rows(image_a_pred, s.matches_a, s.matches_valid)
+    db_m = gather_rows(image_b_pred, s.matches_b, s.matches_valid)
+    pool_masked = gather_rows(image_b_pred, s.masked_pool_b, s.masked_pool_valid)
+    pool_bg = gather_rows(image_b_pred, s.background_pool_b, s.background_pool_valid)
+    blind_a = gather_rows(image_a_pred, s.blind_nm_a, s.blind_nm_valid)
+    blind_b = gather_rows(image_b_pred, s.blind_nm_b, s.blind_nm_valid)
 
     m_loss, _ = match_loss_from_rows(da_m, db_m, s.matches_valid)
     masked_loss, n_masked_hard = pooled_non_match_loss_from_rows(

@@ -3,11 +3,11 @@ leading axes.
 
 Port of :mod:`pdc_tpu.ops.augmentation` (``flip_180`` :17-25,
 ``random_flip_180`` :28-44, ``domain_randomize_background`` :62-95,
-``random_domain_randomize_background`` :98-103). Images are
-``[..., H, W, C]`` uint8, pixel positions ``[..., N, 2]`` (u, v). Every op
-keeps static shapes and selects per image with ``torch.where``.
-``merge_images_with_occlusions`` and ``merge_matches`` (synthetic
-multi-object samples) are not ported yet.
+``random_domain_randomize_background`` :98-103,
+``merge_images_with_occlusions`` :106-156, ``merge_matches`` :159-164).
+Images are ``[..., H, W, C]`` uint8, pixel positions ``[..., N, 2]``
+(u, v). Every op keeps static shapes and selects per image with
+``torch.where``.
 """
 
 from __future__ import annotations
@@ -88,3 +88,54 @@ def random_domain_randomize_background(image_rgb, mask, generator: torch.Generat
     do = sampling.uniform(image.shape[:-3], generator, image.device) < 0.5
     randomized = domain_randomize_background(image, mask, generator)
     return torch.where(do[..., None, None, None], randomized, image)
+
+
+def merge_images_with_occlusions(image_a, image_b, mask_a, mask_b, matches_a_pair,
+                                 matches_b_pair, valid_a, valid_b, generator: torch.Generator):
+    """Composite two object crops into one image (synthetic multi-object
+    samples) and invalidate the matches that the object in front covers.
+
+    One coin per composite (``[...]``, drawn first) puts object a in front
+    when below 0.5. A match of the object behind dies where the front
+    object's mask covers its pixel in this image (uv truncated toward zero,
+    then clipped to the image).
+
+    :param image_*: ``[..., H, W, 3]`` uint8; ``mask_*``: ``[..., H, W]``
+    :param matches_*_pair: ``(uv in this image [..., N, 2], uv in the
+        partner image)`` of object a's and object b's matches
+    :param valid_*: ``[..., N]`` bool
+    :return: ``(merged image [..., H, W, 3] uint8, merged mask [..., H, W]
+        int32 (the union), (matches_a_pair, valid_a), (matches_b_pair,
+        valid_b))``
+    """
+    mask_a = torch.as_tensor(mask_a) != 0
+    mask_b = torch.as_tensor(mask_b).to(mask_a.device) != 0
+    H, W = mask_a.shape[-2:]
+    a_is_fg = sampling.uniform(mask_a.shape[:-2], generator, mask_a.device) < 0.5
+    fg_mask = torch.where(a_is_fg[..., None, None], mask_a, mask_b)
+    image_a = torch.as_tensor(image_a).to(torch.uint8)
+    image_b = torch.as_tensor(image_b).to(torch.uint8)
+    a_front = a_is_fg[..., None, None, None]
+    fg_img = torch.where(a_front, image_a, image_b)
+    bg_img = torch.where(a_front, image_b, image_a)
+    merged = torch.where(fg_mask[..., None], fg_img, bg_img)
+    merged_mask = (mask_a | mask_b).to(torch.int32)
+
+    fg_flat = fg_mask.reshape(fg_mask.shape[:-2] + (H * W,))
+
+    def occluded(uv):
+        u = torch.clamp(uv[..., 0].to(torch.int64), 0, W - 1)
+        v = torch.clamp(uv[..., 1].to(torch.int64), 0, H - 1)
+        return torch.gather(fg_flat, -1, v * W + u)
+
+    fg = a_is_fg[..., None]
+    valid_a = valid_a & (fg | ~occluded(matches_a_pair[0]))
+    valid_b = valid_b & (~fg | ~occluded(matches_b_pair[0]))
+    return merged, merged_mask, (matches_a_pair, valid_a), (matches_b_pair, valid_b)
+
+
+def merge_matches(matches_one, valid_one, matches_two, valid_two):
+    """Concatenate two match sets ``[..., N, 2]`` and their validity
+    ``[..., N]`` along the match axis."""
+    return (torch.cat([torch.as_tensor(matches_one), torch.as_tensor(matches_two)], dim=-2),
+            torch.cat([torch.as_tensor(valid_one), torch.as_tensor(valid_two)], dim=-1))

@@ -3,18 +3,15 @@ over leading axes.
 
 Port of :mod:`pdc_tpu.ops.correspondence`: ``find_pixel_correspondences``
 (:35-88), ``reproject_pixels`` (:91-146), ``_depth_to_metres`` (:149-153),
-``make_blind_non_matches`` (:236-279) and ``make_blind_non_matches_perm``
-(:282-325). Every stage yields a validity mask over a fixed-size candidate
-set instead of pruning:
+``create_non_correspondences`` (:156-233), ``make_blind_non_matches``
+(:236-279) and ``make_blind_non_matches_perm`` (:282-325). Every stage
+yields a validity mask over a fixed-size candidate set instead of pruning:
 
   1. sample candidate pixels in image a (uniform over a mask if given)
   2. unproject with depth a, camera a -> world -> camera b, project
   3. valid where (a) depth a > 0, (b) the projection lies in image b's field
      of view, (c) image b's depth at the truncated pixel is present and not
      closer than the projected depth minus a 3 mm margin
-
-``create_non_correspondences`` (the per-pair loss's non-matches) is not
-ported yet.
 """
 
 from __future__ import annotations
@@ -94,6 +91,69 @@ def find_pixel_correspondences(depth_a, pose_a, depth_b, pose_b, K,
         uv_a, mask_ok = sampling.sample_from_mask(mask_a, num_attempts, generator)
     uv_b, valid = reproject_pixels(uv_a, depth_a, pose_a, depth_b, pose_b, K)
     return uv_a, uv_b, valid & mask_ok[..., None]
+
+
+# create_non_correspondences draws its masked candidates from a pool of at
+# most this many exact mask samples
+NON_MATCH_POOL_SIZE = 8192
+
+
+def create_non_correspondences(uv_b_matches, image_shape, generator: torch.Generator,
+                               num_non_matches_per_match: int = 100, mask_b=None):
+    """Non-matches in image b for each match, perturbing any that collide
+    with it, as the reference does (perturb instead of prune).
+
+    Candidates are uniform over image b, or over the nonzero pixels of
+    ``mask_b [..., H, W]`` when given: a pool of ``min(N * M, 8192)`` exact
+    inverse-CDF samples of the mask, then ``floor(u * pool_size)`` picks
+    from it (the pool itself when it is that large); an empty mask falls
+    back to uniform pixels. A candidate within 1 px of its row's match in u
+    or in v is shifted by +-0.5 + N(0, 10) px (one scalar for both
+    coordinates); coordinates then wrap once by ``dim - 1`` and are
+    clipped to the image.
+
+    Draw order: the pool, the picks, the uniform fallback (masked); the
+    candidates (unmasked); then the signs and the normal noise.
+
+    :param uv_b_matches: ``[..., N, 2]`` match pixels (u, v) in image b
+    :param image_shape: ``(H, W)``
+    :return: ``[..., N, M, 2]`` float32 non-match pixels
+    """
+    H, W = image_shape
+    uv = torch.as_tensor(uv_b_matches).to(torch.float32)
+    batch, N = uv.shape[:-2], uv.shape[-2]
+    M = num_non_matches_per_match
+    total = N * M
+    dev = uv.device
+
+    if mask_b is not None:
+        mask_b = torch.as_tensor(mask_b, device=dev)
+        pool_size = min(total, NON_MATCH_POOL_SIZE)
+        pool, mask_ok = sampling.sample_from_mask(mask_b, pool_size, generator)
+        if pool_size == total:
+            cand = pool
+        else:
+            u = sampling.uniform(batch + (total,), generator, dev)
+            pick = torch.clamp(torch.floor(u * pool_size).to(torch.int64), max=pool_size - 1)
+            cand = torch.gather(pool, -2, pick[..., None].expand(batch + (total, 2)))
+        fallback = sampling.sample_uniform_pixels(W, H, total, generator, batch, dev)
+        cand = torch.where(mask_ok[..., None, None], cand, fallback)
+    else:
+        cand = sampling.sample_uniform_pixels(W, H, total, generator, batch, dev)
+    cand = cand.reshape(batch + (N, M, 2)).to(torch.float32)
+
+    diffs = torch.abs(uv[..., :, None, :] - cand)
+    too_close = (diffs[..., 0] < 1.0) | (diffs[..., 1] < 1.0)
+
+    sign = torch.floor(sampling.uniform(batch + (N, M), generator, dev) * 2.0) - 0.5
+    minimal = sign * 2.0 * 0.5
+    noise = sampling.normal(batch + (N, M), generator, dev) * 10.0 + minimal
+    out = cand + torch.where(too_close, noise, torch.zeros_like(noise))[..., None]
+
+    ub = torch.tensor([W - 1.0, H - 1.0], dtype=torch.float32, device=dev)
+    out = torch.where(out > ub, out - ub, out)
+    out = torch.where(out < 0.0, out + ub, out)
+    return torch.minimum(torch.clamp(out, min=0.0), ub)
 
 
 def _matched_bitmap(matches_a_flat, matches_valid, hw: int):

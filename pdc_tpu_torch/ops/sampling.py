@@ -4,11 +4,11 @@ Port of :mod:`pdc_tpu.ops.sampling` (:17-86). Masks are sampled by inverse
 CDF over their cumulative sum (uniform over the nonzero pixels, with
 replacement), or from a precomputed valid-first pixel permutation.
 
-Draws come from a ``torch.Generator`` through :func:`uniform`, the one place
-the port's data pipeline makes random numbers. They cannot reproduce
-``jax.random``'s bits; the tests hold the stages by feeding both packages
-the same draws and by distribution checks. Indices are int64, torch's
-index type (int32 in the JAX package).
+Draws come from a ``torch.Generator`` through :func:`uniform` and
+:func:`normal`, the only places the port's data pipeline makes random
+numbers. They cannot reproduce ``jax.random``'s bits; the tests hold the
+stages by feeding both packages the same draws and by distribution checks.
+Indices are int64, torch's index type (int32 in the JAX package).
 """
 
 from __future__ import annotations
@@ -21,6 +21,13 @@ def uniform(shape, generator: torch.Generator, device=None, dtype=torch.float32)
     device, then moved to ``device``)."""
     u = torch.rand(tuple(shape), generator=generator, device=generator.device, dtype=dtype)
     return u if device is None else u.to(device)
+
+
+def normal(shape, generator: torch.Generator, device=None, dtype=torch.float32):
+    """Standard normal draws (made on the generator's device, then moved to
+    ``device``)."""
+    n = torch.randn(tuple(shape), generator=generator, device=generator.device, dtype=dtype)
+    return n if device is None else n.to(device)
 
 
 def inverse_cdf(mask_flat, u):

@@ -21,6 +21,8 @@ The bounded and sharded samplers (:189-356) wait for the parallel slice.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -216,6 +218,10 @@ class DeviceSampledTrainStep(TrainStep):
         self.type_probs = tuple((t, p) for t, p in type_probs if p > 0)
         self.with_second = any(t == MATCH_TYPE_SYNTHETIC_MULTI_OBJECT
                                for t, _ in self.type_probs)
+        # synthetic multi-object rows composite exactly when the mix draws
+        # them, whatever the config said (as the JAX package's scanned step)
+        self.assembler_cfg = dataclasses.replace(
+            self.assembler_cfg, enable_synthetic_multi_object=self.with_second)
         self.tables = build_sampling_tables(cache)
         self.poses = torch.as_tensor(cache.poses, dtype=torch.float32, device=cache.device)
         self.Ks = torch.as_tensor(cache.Ks, dtype=torch.float32, device=cache.device)

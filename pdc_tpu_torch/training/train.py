@@ -1,9 +1,11 @@
 """The train step, the test-loss step and the training driver.
 
 Port of :mod:`pdc_tpu.training.train`: ``make_optimizer`` (:56-66),
-``create_train_state`` (:69-88), ``build_loss_fn`` (:107-141),
-``make_train_step`` (:144-170), ``make_eval_loss_step`` (:173-203) and
-``DenseCorrespondenceTraining`` (:206-771), for the matrix (pooled) loss.
+``create_train_state`` (:69-88), ``pick_assembly`` (:90-104),
+``build_loss_fn`` (:107-141), ``make_train_step`` (:144-170),
+``make_eval_loss_step`` (:173-203) and ``DenseCorrespondenceTraining``
+(:206-771), for the matrix (pooled) loss and the per-pair loss
+(``use_matrix_loss: false``).
 The JAX step is one jitted program that returns a new state; here the step
 runs eagerly and updates the state in place (the module's parameters and
 BatchNorm statistics, the optimizer's moments, the step count).
@@ -20,9 +22,9 @@ The driver keeps the JAX package's model folder (``training.yaml``,
 same formats, so a folder moves between the two packages in both
 directions, and its three routes (:meth:`DenseCorrespondenceTraining.run`).
 
-Not ported yet: the per-pair loss (``use_matrix_loss: false``), and the
-multi-device layouts (``data_parallel``/``fsdp`` on several devices,
-``tensor_parallel``, ``pipeline``), which wait for the parallel slice.
+Not ported yet: the multi-device layouts (``data_parallel``/``fsdp`` on
+several devices, ``tensor_parallel``, ``pipeline``), which wait for the
+parallel slice.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import datetime
+import functools
 import logging
 import os
 import signal
@@ -41,9 +44,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from pdc_tpu_torch.data.assembler import AssemblerConfig, assemble_batch_matrix
+from pdc_tpu_torch.data.assembler import AssemblerConfig, assemble_batch, assemble_batch_matrix
 from pdc_tpu_torch.data.native_loader import PrefetchLoader
-from pdc_tpu_torch.losses.matrix_loss import MatrixSampleIndices, compose_loss_matrix
+from pdc_tpu_torch.losses.composer import compose_loss
+from pdc_tpu_torch.losses.matrix_loss import compose_loss_matrix
 from pdc_tpu_torch.losses.pixelwise_contrastive import LossConfig
 from pdc_tpu_torch.models.checkpoint import packb, read_checkpoint
 from pdc_tpu_torch.models.convert import (
@@ -103,22 +107,33 @@ def create_train_state(module: torch.nn.Module, training_config: dict,
                                                               module.parameters()))
 
 
-def build_loss_fn(module: torch.nn.Module, loss_cfg: LossConfig, image_width: int,
-                  hinge=pooled_hinge):
+def pick_assembly(assembler_cfg: AssemblerConfig, hinge=pooled_hinge):
+    """``(assemble, compose)`` of the configured loss: the matrix (pooled)
+    loss, its non-matches shared pools scored by the pooled hinge
+    (``hinge``, by default the K1/K2 wrapper), or the per-pair loss
+    (``use_matrix_loss: false``), the reference's replicated index lists
+    and no kernel. Both composite synthetic multi-object rows.
+    ``assemble(batch, cfg, generator, device)``, ``compose(pred_a, pred_b,
+    indices, loss_cfg, image_width)``."""
+    if assembler_cfg.use_matrix_loss:
+        return assemble_batch_matrix, functools.partial(compose_loss_matrix, hinge=hinge)
+    return assemble_batch, compose_loss
+
+
+def build_loss_fn(module: torch.nn.Module, loss_cfg: LossConfig, image_width: int, compose):
     """The train-mode loss of a batch: one forward of the ``[2B]`` images
     (a then b, so BatchNorm takes its statistics over both), the per-pair
-    terms of :func:`compose_loss_matrix`, and their mean over non-empty
-    pairs. ``loss_fn(img_a, img_b, indices) -> (loss, metrics)``; ``hinge``
-    as in :func:`compose_loss_matrix`."""
+    terms of ``compose`` (:func:`pick_assembly`'s), and their mean over
+    non-empty pairs. ``loss_fn(img_a, img_b, indices) -> (loss,
+    metrics)``."""
 
-    def loss_fn(img_a, img_b, indices: MatrixSampleIndices):
+    def loss_fn(img_a, img_b, indices):
         B, H, W, _ = img_a.shape
         imgs = torch.cat([img_a, img_b], dim=0).permute(0, 3, 1, 2).contiguous()
         module.train()
         out = module(imgs)  # [2B, D, H, W]
         pred = out.permute(0, 2, 3, 1).reshape(2 * B, H * W, out.shape[1])
-        terms = compose_loss_matrix(pred[:B], pred[B:], indices, loss_cfg, image_width,
-                                    hinge=hinge)
+        terms = compose(pred[:B], pred[B:], indices, loss_cfg, image_width)
         non_empty = (indices.match_type >= 0).to(torch.float32)
         denom = torch.clamp(non_empty.sum(), min=1.0)
 
@@ -140,24 +155,21 @@ def build_loss_fn(module: torch.nn.Module, loss_cfg: LossConfig, image_width: in
 
 
 class _BatchStep:
-    """What the train and test-loss steps share: the matrix loss's
-    settings, and a batch (any host or device dict that
-    :func:`~pdc_tpu_torch.data.assembler.assemble_batch_matrix` reads)
-    assembled on the state's device with draws from ``generator``."""
+    """What the train and test-loss steps share: the loss's settings, the
+    assembly and composer the config picks (:func:`pick_assembly`), and a
+    batch (any host or device dict that the assembly reads) assembled on
+    the state's device with draws from ``generator``."""
 
     def __init__(self, loss_cfg: LossConfig, assembler_cfg: AssemblerConfig,
                  image_width: int, hinge=pooled_hinge):
-        if not assembler_cfg.use_matrix_loss:
-            raise NotImplementedError(
-                "the per-pair loss (use_matrix_loss: false) is not ported yet")
         self.loss_cfg = loss_cfg
         self.assembler_cfg = assembler_cfg
         self.image_width = image_width
-        self.hinge = hinge
+        self.assemble_fn, self.compose = pick_assembly(assembler_cfg, hinge)
 
     def assemble(self, state: TrainState, batch: dict, generator: torch.Generator):
         device = next(state.module.parameters()).device
-        return assemble_batch_matrix(batch, self.assembler_cfg, generator, device=device)
+        return self.assemble_fn(batch, self.assembler_cfg, generator, device=device)
 
 
 class TrainStep(_BatchStep):
@@ -170,9 +182,9 @@ class TrainStep(_BatchStep):
         super().__init__(loss_cfg, assembler_cfg, image_width, hinge)
         self.training_config = training_config
 
-    def update(self, state: TrainState, img_a, img_b, indices: MatrixSampleIndices):
+    def update(self, state: TrainState, img_a, img_b, indices):
         """One step on an assembled batch: forward, backward, Adam."""
-        loss_fn = build_loss_fn(state.module, self.loss_cfg, self.image_width, self.hinge)
+        loss_fn = build_loss_fn(state.module, self.loss_cfg, self.image_width, self.compose)
         state.optimizer.zero_grad(set_to_none=True)
         loss, metrics = loss_fn(img_a, img_b, indices)
         loss.backward()
@@ -201,7 +213,7 @@ class EvalLossStep(_BatchStep):
     (masked plus background) as 0-dim tensors on the device, means over the
     non-empty pairs."""
 
-    def evaluate(self, state: TrainState, img_a, img_b, indices: MatrixSampleIndices):
+    def evaluate(self, state: TrainState, img_a, img_b, indices):
         module = state.module
         modes = [(m, m.training) for m in module.modules()]
         module.eval()
@@ -211,8 +223,8 @@ class EvalLossStep(_BatchStep):
                 imgs = torch.cat([img_a, img_b], dim=0).permute(0, 3, 1, 2).contiguous()
                 out = module(imgs)
                 pred = out.permute(0, 2, 3, 1).reshape(2 * B, H * W, out.shape[1])
-                terms = compose_loss_matrix(pred[:B], pred[B:], indices, self.loss_cfg,
-                                            self.image_width, hinge=self.hinge)
+                terms = self.compose(pred[:B], pred[B:], indices, self.loss_cfg,
+                                     self.image_width)
                 non_empty = (indices.match_type >= 0).to(torch.float32)
                 denom = torch.clamp(non_empty.sum(), min=1.0)
                 return {

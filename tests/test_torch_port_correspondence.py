@@ -395,7 +395,9 @@ def test_assembler_mask_path_and_augmentation(frames):
                 s.matches_a[i].numpy()[s.matches_valid[i].numpy()].tolist())
 
 
-def test_assembler_config_from_training_config():
+def test_assembler_config_from_training_config(frames):
+    import copy
+
     import yaml
 
     with open("configs/training.yaml") as f:
@@ -403,8 +405,29 @@ def test_assembler_config_from_training_config():
     got = AssemblerConfig.from_training_config(tc)
     want = JaxAssemblerConfig.from_training_config(tc)
     assert got.__dict__ == want.__dict__
-    with pytest.raises(NotImplementedError, match="SYNTHETIC_MULTI_OBJECT"):
-        assemble_batch_matrix({}, AssemblerConfig(enable_synthetic_multi_object=True), G, "cpu")
+    # the shoes experiments' mix on both loss routes
+    smo = copy.deepcopy(tc)
+    smo["training"]["data_type_probabilities"].update(
+        SINGLE_OBJECT_WITHIN_SCENE=0.33, DIFFERENT_OBJECT=0.33, SYNTHETIC_MULTI_OBJECT=0.33)
+    for use_matrix_loss in (True, False):
+        smo["training"]["use_matrix_loss"] = use_matrix_loss
+        got = AssemblerConfig.from_training_config(smo)
+        assert got.__dict__ == JaxAssemblerConfig.from_training_config(smo).__dict__
+        assert got.enable_synthetic_multi_object and got.use_matrix_loss == use_matrix_loss
+    # a synthetic multi-object row assembles (tests/test_torch_port_smo.py holds
+    # its values against the JAX package's)
+    rgb, depth, mask, poses = frames
+    ia, ib = np.array([2, 3, 4]), np.array([4, 5, 0])
+    batch = _batch(frames, with_perm=True)
+    batch.update(rgb_a_2=rgb[ia], depth_a_2=depth[ia], mask_a_2=mask[ia],
+                 pose_a_2=poses[ia].astype(np.float32), rgb_b_2=rgb[ib], depth_b_2=depth[ib],
+                 mask_b_2=mask[ib], pose_b_2=poses[ib].astype(np.float32), K_2=batch["K"],
+                 match_type=np.array([0, 4, 2], np.int32))
+    cfg = AssemblerConfig(**{**CFG.__dict__, "enable_synthetic_multi_object": True})
+    img_a, _, s = assemble_batch_matrix(batch, cfg, G, "cpu")
+    assert img_a.shape == (3, H, W, 3) and s.matches_a.shape == (3, 400)
+    assert s.match_type.tolist() == [0, 4, 2] and s.matches_valid[1].any()
+    assert not s.blind_nm_valid[1].any() and s.blind_nm_valid[2].all()
     if not torch.cuda.is_available():  # the default device is cuda, never a silent CPU
         with pytest.raises(RuntimeError, match="CUDA"):
             assemble_batch_matrix({}, AssemblerConfig(), G)

@@ -2,8 +2,11 @@
 pooled-hinge forward and backward (K1, K2) against their plain versions,
 their launch counters, determinism, the server's batched best match, one
 train step through K1/K2, the device cache and pair sampler on the card,
-three iterations of the training driver, and the on-disk slice: the PNG
-codecs at 640x480 and ``python -m pdc_tpu_torch train`` from a scene tree.
+three iterations of the training driver, the per-pair loss and synthetic
+multi-object rows (a composited matrix step with the kernels against the
+plain hinge, the per-pair terms against the CPU's), and the on-disk slice:
+the PNG codecs at 640x480 and ``python -m pdc_tpu_torch train`` from a
+scene tree.
 
 Needs an NVIDIA GPU with nvcc; skips elsewhere. Imports no JAX, so it runs
 on a GPU host without the JAX package's dependencies:
@@ -506,6 +509,103 @@ def test_training_driver_runs_three_iterations_on_the_card(cuda, tmp_path):
     frame = ds.scenes["scene_000"].rgb[0]
     assert torch.allclose(dcn.forward_on_img(frame), trainer.get_dcn().forward_on_img(frame),
                           atol=1e-6, rtol=0)
+
+
+# -- the per-pair loss and synthetic multi-object samples ------------------------------------
+
+
+def _smo_dataset():
+    from pdc_tpu_torch.data.dataset import SpartanDataset
+
+    ds = SpartanDataset.make_synthetic(num_scenes=4, num_objects=2, width=64, height=48,
+                                       num_frames=6)
+    ds._data_type_probabilities = {0: 0.4, 2: 0.2, 4: 0.4}
+    ds.reset_seed(3)
+    return ds
+
+
+def test_smo_matrix_step_with_the_kernels_equals_the_plain_hinge(cuda):
+    """A batch with synthetic multi-object rows on the matrix route: one
+    step with K1/K2 (2 launches each) and one with the plain pooled hinge,
+    on the same assembled batch and weights: loss rtol 1e-5, gradients
+    relative L2 1e-4 (chip_smoke.py phase 10's bars)."""
+    from pdc_tpu_torch.data.assembler import AssemblerConfig
+    from pdc_tpu_torch.losses.pixelwise_contrastive import LossConfig
+    from pdc_tpu_torch.models.resnet import ResNet18_8s, init_weights_
+    from pdc_tpu_torch.training.train import create_train_state, make_train_step
+
+    tc = {"training": {"learning_rate": 1e-4, "learning_rate_decay": 0.9,
+                       "steps_between_learning_rate_decay": 250, "weight_decay": 1e-4}}
+    cfg = AssemblerConfig(num_matching_attempts=500, masked_pool_size=128,
+                          background_pool_size=128, num_blind_samples=200,
+                          enable_synthetic_multi_object=True)
+
+    def state():
+        return create_train_state(init_weights_(ResNet18_8s(3), torch.Generator().manual_seed(0)),
+                                  tc)
+
+    step = make_train_step(tc, LossConfig(), cfg, 64)
+    batch = _smo_dataset().make_host_batch(6)
+    assert (batch["match_type"] == 4).any()
+    s_k, s_p = state(), state()
+    assembled = step.assemble(s_k, batch, torch.Generator(device=cuda).manual_seed(0))
+    assert not assembled[2].blind_nm_valid[assembled[2].match_type == 4].any()
+    f0, b0 = ph.forward_launches, ph.backward_launches
+    m_k = step.update(s_k, *assembled)
+    assert (ph.forward_launches - f0, ph.backward_launches - b0) == (2, 2)
+    m_p = make_train_step(tc, LossConfig(), cfg, 64,
+                          hinge=ph.pooled_hinge_reference).update(s_p, *assembled)
+    assert abs(float(m_k["loss"]) - float(m_p["loss"])) <= 1e-5 * abs(float(m_p["loss"]))
+    num = den = 0.0
+    plain = dict(s_p.module.named_parameters())
+    for name, p in s_k.module.named_parameters():
+        num += float(((p.grad - plain[name].grad) ** 2).sum())
+        den += float((plain[name].grad ** 2).sum())
+    assert (num / den) ** 0.5 <= 1e-4
+
+
+def test_per_pair_terms_on_the_card_equal_the_cpu(cuda):
+    """The per-pair route on the card: a step launches no K1/K2 and its
+    loss is finite; compose_loss on the card equals the CPU's on the same
+    predictions and indices (terms rtol 1e-5, gradients relative L2 1e-4:
+    index_add's atomics order the sums differently)."""
+    from pdc_tpu_torch.data.assembler import AssemblerConfig
+    from pdc_tpu_torch.losses.composer import compose_loss
+    from pdc_tpu_torch.losses.pixelwise_contrastive import LossConfig
+    from pdc_tpu_torch.models.resnet import ResNet18_8s, init_weights_
+    from pdc_tpu_torch.training.train import create_train_state, make_train_step
+
+    tc = {"training": {"learning_rate": 1e-4, "learning_rate_decay": 0.9,
+                       "steps_between_learning_rate_decay": 250, "weight_decay": 1e-4}}
+    cfg = AssemblerConfig(num_matching_attempts=500, num_masked_non_matches_per_match=20,
+                          num_background_non_matches_per_match=20, num_blind_samples=200,
+                          enable_synthetic_multi_object=True, use_matrix_loss=False)
+    state = create_train_state(init_weights_(ResNet18_8s(3), torch.Generator().manual_seed(0)),
+                               tc)
+    step = make_train_step(tc, LossConfig(), cfg, 64)
+    batch = _smo_dataset().make_host_batch(6)
+    assert (batch["match_type"] == 4).any()
+    g = torch.Generator(device=cuda).manual_seed(1)
+    f0, b0 = ph.forward_launches, ph.backward_launches
+    assert np.isfinite(float(step(state, batch, g)["loss"]))
+    assert (ph.forward_launches - f0, ph.backward_launches - b0) == (0, 0)
+    _, _, idx = step.assemble(state, batch, g)
+    pred = torch.randn(12, 48 * 64, 3, generator=torch.Generator().manual_seed(2)) * 0.3
+    w = torch.linspace(0.5, 1.5, 6)
+
+    def run(pred, indices):
+        pa, pb = pred[:6].clone().requires_grad_(), pred[6:].clone().requires_grad_()
+        terms = compose_loss(pa, pb, indices, LossConfig(), 64)
+        (terms.loss * w.to(pred.device)).sum().backward()
+        return terms, pa.grad, pb.grad
+
+    card = run(pred.to(cuda), idx)
+    cpu = run(pred, type(idx)(*[x.cpu() for x in idx]))
+    for a, b in zip(card[0], cpu[0]):
+        np.testing.assert_allclose(a.detach().cpu().numpy(), b.detach().numpy(), rtol=1e-5,
+                                   atol=1e-7)
+    for a, b in zip(card[1:], cpu[1:]):
+        assert float((a.cpu() - b).norm() / b.norm()) <= 1e-4
 
 
 # -- the on-disk slice: the PNG codecs and ``python -m pdc_tpu_torch train`` ---------------

@@ -305,7 +305,7 @@ def test_fused_and_per_pair_routes_give_equal_rows(port_sweeps, datasets, nets, 
         np.testing.assert_array_equal(again[c], fused[c], err_msg=c)
 
 
-def test_sweep_is_reproducible_and_keeps_its_schema(port_sweeps, datasets, nets):
+def test_sweep_is_reproducible_and_keeps_its_schema(port_sweeps, datasets, nets, monkeypatch):
     fused, _ = port_sweeps
     assert fused["is_valid"].dtype == bool and fused["img_a_idx"].dtype == np.int64
     assert fused["scene_name_a"].dtype == object and all(v is None for v in fused["scene_name_a"])
@@ -319,8 +319,16 @@ def test_sweep_is_reproducible_and_keeps_its_schema(port_sweeps, datasets, nets)
         np.array_equal(again[c], fused[c], equal_nan=True) for c in EVAL_COLUMNS[9:22])
     with pytest.raises(NotImplementedError, match="parallel slice"):
         DCE.evaluate_network_quantitative(dcn, ds, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 4"):
-        DCE.compute_loss_on_dataset(dcn, ds, {})
+    # the test loss over a dataset runs and agrees with pdc_tpu's on the same
+    # batches (tests/test_torch_port_per_pair.py holds it at 1e-5 on a smaller one)
+    from tests.test_torch_port_per_pair import compute_loss_against_jax
+
+    jdcn, _ = nets
+    got, want = compute_loss_against_jax(monkeypatch, jdcn, _jax_fake_dataset(), dcn,
+                                         SpartanDataset.make_synthetic(**SYNTH), {},
+                                         num_iterations=1, batch_size=1, seed=0)
+    assert all(np.isfinite(got))
+    np.testing.assert_allclose(got, np.asarray(want, np.float64), rtol=1e-5, atol=1e-5)
 
 
 def _jax_fake_dataset():

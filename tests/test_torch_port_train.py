@@ -23,6 +23,7 @@ from pdc_tpu.models.resnet import ResNetFCN as JaxResNetFCN
 from pdc_tpu.training import schedule as jax_schedule
 from pdc_tpu.training.train import build_loss_fn as jax_build_loss_fn
 from pdc_tpu.training.train import make_optimizer as jax_make_optimizer
+from pdc_tpu.training.train import pick_assembly as jax_pick_assembly
 from pdc_tpu_torch.data.assembler import AssemblerConfig
 from pdc_tpu_torch.losses.matrix_loss import MatrixSampleIndices
 from pdc_tpu_torch.losses.pixelwise_contrastive import LossConfig
@@ -169,8 +170,15 @@ def test_lr_schedule_and_optimizer(tmp_path, monkeypatch):
     with pytest.raises(FileNotFoundError, match="pretrained"):
         pretrained = {**TC, "dense_correspondence_network": {"backbone": {"pretrained": True}}}
         create_train_state(ResNetFCN(D, stage_sizes=R18), pretrained, device="cpu")
-    with pytest.raises(NotImplementedError, match="per-pair"):
-        make_train_step(TC, LossConfig(), AssemblerConfig(use_matrix_loss=False), W)
+    # each loss route assembles and composes as the JAX package picks
+    for use_matrix_loss in (True, False):
+        step = make_train_step(TC, LossConfig(), AssemblerConfig(use_matrix_loss=use_matrix_loss),
+                               W)
+        j_assemble, j_compose = jax_pick_assembly(
+            JaxAssemblerConfig(use_matrix_loss=use_matrix_loss))
+        compose = getattr(step.compose, "func", step.compose)
+        assert (step.assemble_fn.__name__, compose.__name__) == (
+            j_assemble.__name__, getattr(j_compose, "__name__", None))
     if not torch.cuda.is_available():  # the default device is cuda, never a silent CPU
         with pytest.raises(RuntimeError, match="CUDA"):
             create_train_state(ResNetFCN(D, stage_sizes=R18), TC)
