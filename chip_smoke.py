@@ -92,7 +92,34 @@ Phases, each fatal on failure:
      no K1/K2 and reloads through from_model_folder (as phase 7's (g)); (d)
      ``compute_loss_on_dataset`` on phase 8's folder gives three finite
      numbers;
- 11. timings: every kernel's device time (time_device: the queue primed
+ 11. the apps, "apps", on phase 8's model folder and scene tree (ResNet-34-8s,
+     D=3, 640x480). It fails unless (a) ``python -m pdc_tpu_torch
+     descriptor-images`` in this process writes one .npy per frame (24),
+     named by frame id, each within 1e-4 of ``forward_on_img``; (b) a
+     ``GraspPointStream`` of 16 descriptors taken at object pixels of frame
+     0, over the 12 frames of scene_000, launches K3 once per frame, picks
+     what the plain ``best_match_reference`` picks on the same descriptor
+     image or a float64 near-tie (TIE_TOL_D2), with distances within 1e-5
+     of the plain version's, and on frame 0 matches each query to its own
+     pixel or a tie, at distance <= 1e-5; (c) ``HeatmapEngine`` on one pair
+     and 8 query pixels gives the float64 argmin of the norm diffs (near
+     ties excepted) and the [480, 640] heatmap within 1e-6 of
+     ``exp(-nd / variance)`` in float64; (d) ``python -m pdc_tpu_torch
+     export-serving --batch_size 8 --platform cuda`` writes a program that,
+     loaded with ``torch.export.load``, gives ``forward_on_img`` on 8 frames
+     within 1e-4, and a second load the first within 1e-6; (e) the
+     descriptor video of one scene (``run(..., masked=True)``) writes three
+     PNGs a frame that the port's decoder reads back equal to the uint8 of
+     the forward, the masked one 0 off the mask (whether ffmpeg exists and
+     how many videos it made is printed); (f) mesh descriptors of the
+     scene's fusion mesh over its frames on the card equal the CPU's on the
+     same descriptor images (observations exactly, descriptors within
+     1e-5); (g) ``visualize_saved_correspondences`` of 2 annotated pairs
+     writes 4 PNGs with each reticle's colour at its click (on the ring at
+     10 px, and at the click itself without cv2), and ``debug_batch_panels``
+     draws 5 panels where matplotlib imports, else raises an ImportError
+     naming it (which case is printed);
+ 12. timings: every kernel's device time (time_device: the queue primed
      with a device-side wait, so the card never waits on the host), the
      wrapper's time per call from an idle queue (time_cuda), the split by
      kernel name (torch.profiler), its bound, its plain version and a
@@ -103,7 +130,11 @@ Phases, each fatal on failure:
      evaluation sweep's shape, and the sweep's seconds split into forwards,
      correspondences and statistics; the per-pair step and its split
      against the matrix step, and a synthetic multi-object batch's assembly
-     on each route.
+     on each route; the grasp stream's ms per frame split into upload and
+     normalisation, forward, K3 and fetch, a heatmap event, descriptor
+     images per frame (forward and np.save), the export's seconds and the
+     loaded program's B=8 forward against the live module's, and mesh
+     descriptors per frame.
 
 The last lines are a JSON object with every kernel's numbers, the
 nvidia-smi line, and ``{"ok": true, "device": {...}}``. Without CUDA, or when the
@@ -1031,7 +1062,7 @@ def check_on_disk_training(torch, np, dev, bm, ph, tmp):
         fail("the statistics command disagrees with float64 numpy")
     out.update(k1=k1, k2=k2, run_s=run_s, write_s=write_s, read_s=read_s, decoder=chosen,
                step_ms=[1e3 * s for s in trainer.step_seconds], route=trainer.route,
-               folder=folder)
+               folder=folder, composite=composite, scenes=scenes)
     return out
 
 
@@ -1631,6 +1662,313 @@ def time_per_pair_and_smo(torch, pp, smo):
             "smo_types": batch_smo["match_type"].tolist(), "assembly": assembly}
 
 
+# the apps phase: sizes of its checks
+APPS_QUERIES, APPS_HEAT_PIXELS, APPS_EXPORT_B = 16, 8, 8
+N_APPS_FRAMES = DATASET_RECORD["synthetic"]["num_frames"]  # the frames of one scene
+HEAT_VARIANCE = 0.25  # configs/heatmap_vis.yaml's kernel_variance
+HEAT_TOL = 1e-6  # the heatmap against exp(-nd / variance) in float64
+MESH_TOL = 1e-5  # mesh descriptors on the card against the CPU, same descriptor images
+EXPORT_RELOAD_TOL = 1e-6
+# annotation clicks (u, v), more than 25 px apart so that no reticle covers another
+ANNOTATED_PAIRS = [("scene_000", 0, [(100, 120), (300, 200)], "scene_001", 3,
+                    [(110, 130), (320, 210)]),
+                   ("scene_001", 5, [(400, 300)], "scene_000", 7, [(200, 100)])]
+
+
+def _events(torch, n):
+    return [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+
+
+def _decode_rgb(np, nl, path, height, width):
+    out = np.empty((height, width, 3), np.uint8)
+    nl.decode_batch([(path, nl.KIND_RGB8, out)], height, width, decoder="zlib")
+    return out
+
+
+def _spread(np, mask, n):
+    """``n`` (v, u) object pixels of ``mask``, evenly spread."""
+    obj = np.argwhere(mask > 0)
+    return obj[np.linspace(0, len(obj) - 1, n).astype(int)]
+
+
+def check_apps(torch, np, dev, bm, on_disk, tmp):
+    """The phase "apps" on phase 8's model folder and scene tree, in the
+    directory ``<tmp>/apps``: checks (a)-(g) of the module docstring.
+    Returns the numbers the timings phase and the kernels line read."""
+    import contextlib
+    import io
+    import shutil
+
+    from pdc_tpu_torch import __main__ as cli
+    from pdc_tpu_torch.apps import compute_descriptor_images as cdi
+    from pdc_tpu_torch.apps import debug_visualization as dbg
+    from pdc_tpu_torch.apps import export_serving as exp
+    from pdc_tpu_torch.apps import make_descriptor_video as vid
+    from pdc_tpu_torch.apps import mesh_descriptors as mesh
+    from pdc_tpu_torch.apps.annotate_correspondences import (
+        LABEL_COLORS,
+        make_annotation_entry,
+        save_annotations,
+    )
+    from pdc_tpu_torch.apps.live_heatmap_visualization import GraspPointStream, HeatmapEngine
+    from pdc_tpu_torch.data import native_loader as nl
+    from pdc_tpu_torch.data.dataset import SpartanDataset
+    from pdc_tpu_torch.models.dcn import DenseCorrespondenceNetwork
+    from pdc_tpu_torch.utils.yaml_io import load_yaml
+
+    folder, composite = on_disk["folder"], on_disk["composite"]
+    work = os.path.join(tmp, "apps")
+    os.makedirs(work)
+    out = {}
+    dcn = DenseCorrespondenceNetwork.from_model_folder(folder, device=dev)
+    ds = SpartanDataset(config=load_yaml(composite), data_dir=tmp,
+                        config_dir=os.path.dirname(composite))
+    scene = ds.get_scene("scene_000")
+    n, Hs, Ws = scene.rgb.shape[:3]
+
+    # (a) python -m pdc_tpu_torch descriptor-images, in this process
+    buf, cwd = io.StringIO(), os.getcwd()
+    os.chdir(work)  # it writes under ./descriptor_images_out
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["descriptor-images", "--model_folder", folder, "--config", composite,
+                           "--data_dir", tmp, "--device", str(dev)])
+    finally:
+        os.chdir(cwd)
+    net = os.path.basename(os.path.normpath(folder))
+    n_files, desc_err, names_ok = 0, 0.0, True
+    with torch.inference_mode():
+        for name, s in ds.scenes.items():
+            d = os.path.join(work, "descriptor_images_out", name, "descriptor_images", net)
+            want = ["%06d_descriptor.npy" % s.frame_id(i) for i in range(s.num_frames)]
+            names_ok &= sorted(os.listdir(d)) == want
+            for i, f in enumerate(want):
+                got = torch.from_numpy(np.load(os.path.join(d, f))).to(dev)
+                ref = dcn.forward_on_img(s.rgb[i])
+                desc_err = max(desc_err, float((got - ref).abs().max()))
+                names_ok &= bool(torch.allclose(got, ref, atol=DESC_TOL, rtol=DESC_TOL))
+                n_files += 1
+    rec = DATASET_RECORD["synthetic"]
+    log(f"apps (a): python -m pdc_tpu_torch descriptor-images -> {buf.getvalue().strip()!r}, "
+        f"rc {rc}; {n_files} .npy files named by frame id, max|diff| to forward_on_img "
+        f"{desc_err:.3g} (bar {DESC_TOL})")
+    if rc != 0 or not names_ok or n_files != rec["num_scenes"] * rec["num_frames"]:
+        fail("descriptor-images wrote other files or other descriptors than forward_on_img")
+    timings = {}
+    for _ in range(2):  # the second run is timed
+        timings = {}
+        cdi.compute_descriptor_images_for_scene(dcn, scene, os.path.join(work, "timed"), 8,
+                                                timings)
+    out["descriptor_images_ms"] = {k: 1e3 * v / n for k, v in timings.items()}
+
+    # (b) the grasp stream: one K3 launch per frame
+    with torch.inference_mode():
+        res0 = dcn.forward_on_img(scene.rgb[0])
+        own = _spread(np, scene.mask[0], APPS_QUERIES)  # (v, u)
+        q = res0[torch.as_tensor(own[:, 0]), torch.as_tensor(own[:, 1])].contiguous()
+    stream = GraspPointStream(dcn, q.cpu().numpy())
+    bm.launches = 0
+    picks = [stream.process_frame(f) for f in scene.rgb]
+    launches = bm.launches
+    worst_tie, dist_err, self_ok = 0.0, 0.0, True
+    with torch.inference_mode():
+        for f, (uv, dist) in enumerate(picks):
+            res = dcn.forward_on_img(scene.rgb[f]).permute(2, 0, 1).reshape(1, D, -1).contiguous()
+            pidx, pdist = bm.best_match_reference(res, q[None])
+            d2 = bm.squared_distances(res.double(), q[None].double())[0]  # [Q, HW]
+            idx = torch.as_tensor(uv[:, 1] * Ws + uv[:, 0], device=dev).long()[:, None]
+            gap = (d2.gather(1, idx) - d2.gather(1, pidx[0].long()[:, None]))[:, 0]
+            worst_tie = max(worst_tie, float(gap.abs().max()))
+            dist_err = max(dist_err, float((torch.from_numpy(dist).to(dev) - pdist[0]).abs().max()))
+            if f == 0:
+                own_flat = torch.as_tensor(own[:, 0] * Ws + own[:, 1], device=dev)
+                self_ok = bool((dist <= 1e-5).all()) and bool(
+                    ((idx[:, 0] == own_flat) | (d2.gather(1, idx)[:, 0].sqrt() <= 1e-5)).all())
+    log(f"apps (b): GraspPointStream, {APPS_QUERIES} descriptors at object pixels of frame 0, "
+        f"{n} frames: K3 launches {launches} (1 per frame); picks against the plain best match: "
+        f"largest float64 d2 gap {worst_tie:.3g} (near-tie bar {TIE_TOL_D2}); distances "
+        f"max|diff| {dist_err:.3g} (bar 1e-5); frame 0 matches each query's own pixel or a tie "
+        f"at distance <= 1e-5: {self_ok}")
+    if launches != n or worst_tie > TIE_TOL_D2 or not dist_err <= 1e-5 or not self_ok:
+        fail("the grasp stream disagrees with the plain best match or did not launch K3 once "
+             "per frame")
+    out.update(launches=launches, k3_err=dist_err)
+    split = {"upload + normalise": [], "forward": [], "K3": [], "fetch": []}
+    wall = []
+    with torch.inference_mode():
+        for f in scene.rgb:
+            e = _events(torch, 5)
+            t = time.perf_counter()
+            e[0].record()
+            x = stream.upload(f)
+            e[1].record()
+            res = stream.forward(x)
+            e[2].record()
+            uv, dist = stream.match(res)
+            e[3].record()
+            uv, dist = uv.cpu().numpy(), dist.cpu().numpy()
+            e[4].record()
+            wall.append(1e3 * (time.perf_counter() - t))
+            torch.cuda.synchronize()
+            for k, (a, b) in zip(split, ((0, 1), (1, 2), (2, 3), (3, 4))):
+                split[k].append(e[a].elapsed_time(e[b]))
+    out["stream"] = {"wall_ms": sum(wall) / len(wall),
+                     "split": {k: sum(v) / len(v) for k, v in split.items()}}
+
+    # (c) the heatmap engine on one pair, 8 query pixels
+    eng = HeatmapEngine([dcn], variance=HEAT_VARIANCE)
+    eng.set_images(scene.rgb[0], scene.rgb[3])
+    res_a, res_b = eng._res_a[0].double(), eng._res_b[0].double()
+    heat_err, uv_gap, diff_err = 0.0, 0.0, 0.0
+    for v, u in _spread(np, scene.mask[0], APPS_HEAT_PIXELS):
+        (uv, diff, heat), = eng.find_best_match(int(u), int(v))
+        nd = torch.sqrt(((res_b - res_a[v, u]) ** 2).sum(-1))  # float64 [H, W]
+        flat = nd.reshape(-1)
+        chosen = flat[int(uv[1]) * Ws + int(uv[0])]
+        uv_gap = max(uv_gap, float(chosen ** 2 - flat.min() ** 2))
+        diff_err = max(diff_err, abs(diff - float(chosen)))
+        heat_err = max(heat_err, float((torch.from_numpy(heat).to(dev).double()
+                                        - torch.exp(-nd / HEAT_VARIANCE)).abs().max()))
+        if heat.shape != (Hs, Ws):
+            fail(f"heatmap of shape {heat.shape}")
+    log(f"apps (c): HeatmapEngine, {APPS_HEAT_PIXELS} query pixels: best uv against the float64 "
+        f"argmin, largest d2 gap {uv_gap:.3g} (near-tie bar {TIE_TOL_D2}); distance max|diff| "
+        f"{diff_err:.3g}; [{Hs}, {Ws}] heatmap max|diff| to exp(-nd / {HEAT_VARIANCE}) in "
+        f"float64 {heat_err:.3g} (bar {HEAT_TOL})")
+    if uv_gap > TIE_TOL_D2 or not heat_err <= HEAT_TOL or not diff_err <= 1e-5:
+        fail("the heatmap engine disagrees with float64")
+    event_ms = []
+    for _ in range(10):
+        t = time.perf_counter()
+        eng.find_best_match(Ws // 2, Hs // 2)
+        event_ms.append(1e3 * (time.perf_counter() - t))
+    out["heat_event_ms"] = sorted(event_ms)[len(event_ms) // 2]
+
+    # (d) python -m pdc_tpu_torch export-serving, then the artifact on the card
+    path = os.path.join(work, f"net_b{APPS_EXPORT_B}.pt2")
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["export-serving", "--model_folder", folder, "--output", path,
+                       "--batch_size", str(APPS_EXPORT_B), "--platform", dev.type])
+    out["export_s"] = time.perf_counter() - t
+    x = torch.as_tensor(scene.rgb[:APPS_EXPORT_B], device=dev)
+    with torch.inference_mode():
+        program = exp.load_exported(path).module()
+        first = program(x)
+        second = exp.load_exported(path).module()(x)
+        ref = torch.stack([dcn.forward_on_img(f) for f in scene.rgb[:APPS_EXPORT_B]])
+    exp_err = float((first - ref).abs().max())
+    reload_err = float((second - first).abs().max())
+    log(f"apps (d): python -m pdc_tpu_torch export-serving -> {buf.getvalue().strip()!r}, rc "
+        f"{rc}, {os.path.getsize(path)} bytes in {out['export_s']:.2f} s; loaded program on "
+        f"{APPS_EXPORT_B} frames: {tuple(first.shape)} on {first.device}, max|diff| to "
+        f"forward_on_img {exp_err:.3g} (bar {DESC_TOL}); a second load max|diff| {reload_err:.3g} "
+        f"(bar {EXPORT_RELOAD_TOL})")
+    if (rc != 0 or first.shape != ref.shape
+            or not torch.allclose(first, ref, atol=DESC_TOL, rtol=DESC_TOL)
+            or not reload_err <= EXPORT_RELOAD_TOL):
+        fail("the exported program disagrees with the live network")
+    with torch.inference_mode():
+        xn = dcn.normalize_on_device(x).permute(0, 3, 1, 2).contiguous()
+        out["program_ms"] = time_cuda(torch, lambda: program(x), iters=10)
+        out["module_ms"] = time_cuda(torch, lambda: dcn.module(xn), iters=10)
+        out["forward_on_images_ms"] = time_cuda(torch, lambda: dcn.forward_on_images(x),
+                                                iters=10)
+    out["export_bytes"] = os.path.getsize(path)
+    del program
+
+    # (e) the descriptor video's frames
+    has_ffmpeg = shutil.which("ffmpeg") is not None
+    video = vid.run(folder, ds, scene_names=["scene_000"], output_dir=os.path.join(work, "video"),
+                    masked=True, device=dev)["scene_000"]
+    frames_dir = os.path.join(work, "video", "scene_000", "video_images")
+    try:
+        stats = dcn.descriptor_image_stats
+    except (FileNotFoundError, OSError, KeyError):
+        stats = None
+    with torch.inference_mode():
+        res_all = torch.cat([dcn.forward_on_images(scene.rgb[s:s + 8])
+                             for s in range(0, n, 8)]).cpu().numpy()
+    video_ok = video["frames"] == n and len(os.listdir(frames_dir)) == 3 * n
+    for idx in range(n):
+        want = vid.descriptor_rgb(res_all[idx], stats)
+        m = scene.mask[idx] > 0
+        rgb = _decode_rgb(np, nl, os.path.join(frames_dir, "%06d_rgb.png" % idx), Hs, Ws)
+        res_png = _decode_rgb(np, nl, os.path.join(frames_dir, "%06d_res.png" % idx), Hs, Ws)
+        masked = _decode_rgb(np, nl, os.path.join(frames_dir, "%06d_res_masked.png" % idx), Hs,
+                             Ws)
+        video_ok &= (np.array_equal(rgb, scene.rgb[idx]) and np.array_equal(res_png, want)
+                     and np.array_equal(masked, want * m[..., None]) and not masked[~m].any())
+    norm = "descriptor_statistics.yaml" if stats else "per-image"
+    log(f"apps (e): descriptor video of scene_000 ({norm} normalisation): {video['frames']} frames x 3 PNGs decoded equal to the forward's "
+        f"uint8 and zero off the mask: {video_ok}; ffmpeg installed: {has_ffmpeg}, videos "
+        f"written: {len(video['videos'])}")
+    if not video_ok:
+        fail("the descriptor video's frames differ from what the forward gives")
+
+    # (f) mesh descriptors on the scene's fusion mesh, on the card and on the CPU
+    verts, _ = on_disk["scenes"]["scene_000"].fusion_mesh()
+    with torch.inference_mode():
+        images = [dcn.forward_on_img(f) for f in scene.rgb]
+        on_card = mesh.accumulate_mesh_descriptors(scene, verts, lambda i: images[i], device=dev)
+        on_cpu = mesh.accumulate_mesh_descriptors(scene, verts, lambda i: images[i].cpu(),
+                                                  device="cpu")
+    obs_equal = np.array_equal(on_card["num_observations"], on_cpu["num_observations"])
+    mesh_err = float(np.abs(on_card["descriptors"] - on_cpu["descriptors"]).max())
+    seen = float((on_card["num_observations"] > 0).mean())
+    log(f"apps (f): mesh descriptors of {len(verts)} fusion-mesh vertices over {n} frames: "
+        f"num_observations equal to the CPU's: {obs_equal}; descriptors max|diff| {mesh_err:.3g} "
+        f"(bar {MESH_TOL}); share of vertices seen {seen:.4f}, mean observations "
+        f"{float(on_card['num_observations'].mean()):.2f}")
+    if not obs_equal or not mesh_err <= MESH_TOL or not 0 < seen <= 1:
+        fail("mesh descriptors on the card differ from the CPU's")
+    for rep in range(2):  # the second run is timed
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        mesh.compute_mesh_descriptors(dcn, scene, verts)
+        out["mesh_ms"] = 1e3 * (time.perf_counter() - t) / n
+
+    # (g) annotation replay and the assembler's debug panels
+    anns = [make_annotation_entry(*a) for a in ANNOTATED_PAIRS]
+    ann_file = os.path.join(work, "new_annotated_pairs.yaml")
+    save_annotations(anns, ann_file)
+    pngs = dbg.visualize_saved_correspondences(ds, ann_file, output_dir=os.path.join(work, "view"))
+    try:
+        import cv2  # noqa: F401
+        with_cv2 = True
+    except ImportError:
+        with_cv2 = False
+    colours_ok = len(pngs) == 2 * len(anns)
+    for j, ann in enumerate(anns):
+        for k, side in enumerate(("image_a", "image_b")):
+            img = _decode_rgb(np, nl, pngs[2 * j + k], Hs, Ws)
+            for i, px in enumerate(ann[side]["pixels"]):
+                u, v, colour = px["u"], px["v"], LABEL_COLORS[i]
+                colours_ok &= tuple(img[v, u + 10]) == colour  # on the reticle's ring
+                if not with_cv2:  # the numpy cross covers the clicked pixel too
+                    colours_ok &= tuple(img[v, u]) == colour
+    try:
+        import matplotlib  # noqa: F401
+        panels = dbg.debug_batch_panels(ds, 1, os.path.join(work, "panels"), device=dev)
+        panel_case = (f"matplotlib imports: {len(panels[0][1])} debug panels of type "
+                      f"{panels[0][0]}")
+        panels_ok = len(panels[0][1]) == 5
+    except ImportError:
+        try:
+            dbg.debug_batch_panels(ds, 1, os.path.join(work, "panels"), device=dev)
+            panels_ok, panel_case = False, "no matplotlib, and debug_batch_panels did not raise"
+        except ImportError as e:
+            panels_ok = "matplotlib" in str(e)
+            panel_case = f"no matplotlib: debug_batch_panels raised ImportError {str(e)!r}"
+    log(f"apps (g): visualize_saved_correspondences, {len(anns)} pairs -> {len(pngs)} PNGs, "
+        f"each reticle's colour at its clicked pixel's ring{' and centre' if not with_cv2 else ''} "
+        f"({'cv2' if with_cv2 else 'numpy'} reticles): {colours_ok}; {panel_case}")
+    if not colours_ok or not panels_ok:
+        fail("the annotation replay or the debug panels failed")
+    return out
+
+
 def flatten(tree, prefix=""):
     """{'a/b': leaf} of a nested dict."""
     out = {}
@@ -1966,10 +2304,17 @@ def main():
         pair_smo["phase_s"] = time.perf_counter() - t0
         torch.cuda.empty_cache()
         phase("per-pair and synthetic multi-object", t0)
+
+        # 11. the apps on phase 8's folder and tree ----------------------------------
+        t0 = time.perf_counter()
+        apps = check_apps(torch, np, dev, bm, on_disk, tree)
+        apps["phase_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        phase("apps", t0)
     finally:
         shutil.rmtree(tree, ignore_errors=True)
 
-    # 11. timings ---------------------------------------------------------------
+    # 12. timings ---------------------------------------------------------------
     t0 = time.perf_counter()
     log(smi)
     # Kernel times are device times (time_device: the queue primed before
@@ -2012,9 +2357,11 @@ def main():
                      "replaces": "pdc_tpu/ops/pallas_kernels.py:30",
                      "launches": launches,
                      "launches_by_path": {"serving": launches,
-                                          "evaluation": evaluation["launches"]},
+                                          "evaluation": evaluation["launches"],
+                                          "grasp stream": apps["launches"]},
                      "max_abs_err": max(max_abs_err, driver["k3_err"], on_disk["k3_err"],
-                                        evaluation["k3_err"], pair_smo["k3_err"]),
+                                        evaluation["k3_err"], pair_smo["k3_err"],
+                                        apps["k3_err"]),
                      "ms": k_ms, "device_ms": k_ms, "wrapper_ms": w_ms, "plain_ms": p_ms,
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
                      "empty_launch_ms": empty_ms,
@@ -2163,6 +2510,30 @@ def main():
         f"synthetic multi-object driver run {pair_smo['smo']['run_s']:.2f} s, the per-pair "
         f"driver run {pair_smo['per_pair_run_s']:.2f} s (6 iterations each, checkpoints "
         f"included); compute_loss_on_dataset {pair_smo['loss_on_dataset_s']:.2f} s")
+
+    # the apps: the grasp stream, a heatmap event, descriptor images, the exported
+    # program, mesh descriptors
+    st = apps["stream"]
+    log(smi)
+    log(f"grasp stream (GraspPointStream, ResNet-34-8s fp32 {Wt}x{Ht}, {APPS_QUERIES} "
+        f"descriptors, {N_APPS_FRAMES} frames after {N_APPS_FRAMES} warm-up): "
+        f"{st['wall_ms']:.3f} ms per frame on the host clock, {1e3 / st['wall_ms']:.2f} "
+        f"frames/s; split by CUDA events: " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in st["split"].items()))
+    log(f"heatmap event (HeatmapEngine.find_best_match, query to the [{Ht}, {Wt}] heatmap on "
+        f"the host): median {apps['heat_event_ms']:.3f} ms of 10")
+    di = apps["descriptor_images_ms"]
+    log(f"descriptor images (compute_descriptor_images_for_scene, B=8, {N_APPS_FRAMES} frames, "
+        f"host clock): {sum(di.values()):.3f} ms per frame, of which forward (upload, "
+        f"forward, fetch) {di['forward']:.3f} ms and np.save {di['save']:.3f} ms")
+    log(f"export-serving at B={APPS_EXPORT_B}: {apps['export_s']:.2f} s to export and save "
+        f"{apps['export_bytes']} bytes; the loaded program {apps['program_ms']:.3f} ms per "
+        f"call (uint8 in, normalisation included) against the live module's "
+        f"{apps['module_ms']:.3f} ms on normalised NCHW input and "
+        f"forward_on_images' {apps['forward_on_images_ms']:.3f} ms (uint8 in); "
+        f"{apps['program_ms'] / apps['module_ms']:.3f} x the module")
+    log(f"mesh descriptors (compute_mesh_descriptors, forward included): "
+        f"{apps['mesh_ms']:.3f} ms per frame; apps phase {apps['phase_s']:.2f} s")
 
     # K1 and K2 at the main path's shapes: the masked pool's rows of a real step
     hargs = [a.contiguous() for a in captured[0]]

@@ -6,12 +6,16 @@ Ported commands:
     python -m pdc_tpu_torch evaluate --model_folder trained_models/net
     python -m pdc_tpu_torch statistics --config <composite.yaml> --data_dir <root>
     python -m pdc_tpu_torch serve --model_folder trained_models/net
+    python -m pdc_tpu_torch export-serving --model_folder trained_models/net --output net.pt2
+    python -m pdc_tpu_torch descriptor-images --model_folder <folder> --config <composite.yaml>
+    python -m pdc_tpu_torch descriptor-video --model_folder <folder> --config <composite.yaml>
+    python -m pdc_tpu_torch debug-vis view|debug --config <composite.yaml>
 
-Each runs on the CUDA card unless ``--device cpu`` is given, and raises
-without CUDA otherwise. ``python -m pdc_tpu_torch <command> --help`` lists a
-command's options. The other ``python -m pdc_tpu`` commands (export-serving,
-descriptor-images, experiment, ...) are still to be ported (see
-ROADMAP.md).
+Each runs on the CUDA card unless ``--device cpu`` is given (``--platform
+cpu`` for export-serving), and raises without CUDA otherwise. ``python -m
+pdc_tpu_torch <command> --help`` lists a command's options. The other
+``python -m pdc_tpu`` commands (preprocess, config-gen, experiment, ...) are
+still to be ported (see ROADMAP.md).
 
 ``evaluate`` writes ``descriptor_statistics.yaml`` into the model folder and
 the train and test sweeps' ``data.csv`` and ``stats.yaml`` (PCK at 5-100
@@ -57,7 +61,11 @@ import sys
 
 # commands whose module's main(argv) parses its own arguments
 DELEGATED = {"serve": "pdc_tpu_torch.apps.serve",
-             "statistics": "pdc_tpu_torch.data.statistics"}
+             "statistics": "pdc_tpu_torch.data.statistics",
+             "export-serving": "pdc_tpu_torch.apps.export_serving",
+             "descriptor-images": "pdc_tpu_torch.apps.compute_descriptor_images",
+             "descriptor-video": "pdc_tpu_torch.apps.make_descriptor_video",
+             "debug-vis": "pdc_tpu_torch.apps.debug_visualization"}
 PARALLEL_FLAGS = ("data_parallel", "fsdp", "tensor_parallel", "pipeline")
 
 

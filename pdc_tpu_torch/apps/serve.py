@@ -45,6 +45,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from pdc_tpu_torch.apps import INT8_NOT_PORTED, add_unported_flags, reject_unported_flags
 from pdc_tpu_torch.ops.best_match import best_match
 
 _JOIN_TIMEOUT_S = 10.0
@@ -579,8 +580,7 @@ class DescriptorClient:
 
 
 _NOT_PORTED = {
-    "int8": "int8 serving waits for the int8 slice",
-    "int8_static": "int8 serving waits for the int8 slice",
+    **INT8_NOT_PORTED,
     "data_parallel": "multi-card serving waits for the parallel slice",
     "model_parallel": "multi-card serving waits for the parallel slice",
 }
@@ -603,12 +603,9 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on (default cuda; cpu must be "
                         "asked for)")
-    for flag, why in _NOT_PORTED.items():
-        p.add_argument(f"--{flag}", action="store_true", help=f"not ported: {why}")
+    add_unported_flags(p, _NOT_PORTED)
     args = p.parse_args(argv)
-    for flag, why in _NOT_PORTED.items():
-        if getattr(args, flag):
-            p.error(f"--{flag} is not ported to pdc_tpu_torch yet: {why}")
+    reject_unported_flags(p, args, _NOT_PORTED)
 
     from pdc_tpu_torch.models.dcn import DenseCorrespondenceNetwork
 

@@ -374,6 +374,17 @@ def encode_png(arr: np.ndarray, kind: int) -> bytes:
             + _chunk(b"IEND", b""))
 
 
+def write_png(path: str, arr_u8) -> None:
+    """Write uint8 ``[H, W, 3]`` (RGB) or ``[H, W]``/``[H, W, 1]`` (gray) to
+    ``path`` with :func:`encode_png`, whatever decoder is installed."""
+    arr = np.ascontiguousarray(arr_u8, np.uint8)
+    if arr.ndim == 3 and arr.shape[2] == 1:
+        arr = arr[..., 0]
+    data = encode_png(arr, KIND_ENC_RGB8 if arr.ndim == 3 else KIND_ENC_GRAY8)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
 # -- the batch entry points -----------------------------------------------------------
 
 _DECODE_SPEC = {KIND_RGB8: (np.uint8, 3), KIND_GRAY16: (np.uint16, None), KIND_MASK8: (np.uint8, None)}

@@ -59,8 +59,13 @@ def convert_keypoint_annotations_to_dataframe(annotations: list) -> Table:
 
 def extract_descriptor_images_for_scene(dcn, dataset, scene_name: str, output_dir: str,
                                         batch_size: int = 8):
-    """Not ported: the export goes through ``compute_descriptor_images``."""
-    raise NotImplementedError(
-        "extract_descriptor_images_for_scene is not ported to pdc_tpu_torch yet: it needs "
-        "apps/compute_descriptor_images, which waits for the apps slice (ROADMAP queue 1, "
-        "item 5)")
+    """Write a ``%06d_descriptor.npy`` per frame of one scene (reference
+    utils.py:109-160) with
+    :func:`~pdc_tpu_torch.apps.compute_descriptor_images.compute_descriptor_images_for_scene`;
+    returns the number of frames."""
+    from pdc_tpu_torch.apps.compute_descriptor_images import (
+        compute_descriptor_images_for_scene,
+    )
+
+    return compute_descriptor_images_for_scene(dcn, dataset.get_scene(scene_name), output_dir,
+                                               batch_size)

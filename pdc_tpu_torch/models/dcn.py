@@ -187,13 +187,27 @@ class DenseCorrespondenceNetwork:
             raise ValueError(f"need one [H, W, 3] image, got shape {tuple(x.shape)}")
         return self.forward(x[None])[0]
 
+    def normalize_on_device(self, rgb_u8):
+        """uint8 RGB ``[..., H, W, 3]`` (numpy, or a tensor on any device)
+        -> float32 on ``self.device``, ``(x / 255 - mean) / std``. The
+        frames cross to the device as uint8."""
+        if not isinstance(rgb_u8, torch.Tensor):
+            rgb_u8 = torch.from_numpy(np.ascontiguousarray(rgb_u8))
+        x = rgb_u8.to(self.device).to(torch.float32) / 255.0
+        mean = torch.as_tensor(self._image_mean, dtype=torch.float32, device=self.device)
+        std = torch.as_tensor(self._image_std_dev, dtype=torch.float32, device=self.device)
+        return (x - mean) / std
+
     def forward_on_img(self, img):
         """uint8 RGB [H, W, 3] -> descriptor image; applies the stored
         mean/std normalization."""
-        x = torch.as_tensor(np.asarray(img), device=self.device).to(torch.float32) / 255.0
-        mean = torch.as_tensor(self._image_mean, dtype=torch.float32, device=self.device)
-        std = torch.as_tensor(self._image_std_dev, dtype=torch.float32, device=self.device)
-        return self.forward_single_image_tensor((x - mean) / std)
+        return self.forward_single_image_tensor(self.normalize_on_device(img))
+
+    def forward_on_images(self, imgs):
+        """uint8 RGB ``[B, H, W, 3]`` -> ``[B, H, W, D]`` descriptor images on
+        ``self.device``: one forward of the batch, normalised as
+        :meth:`forward_on_img` normalises one frame."""
+        return self.forward(self.normalize_on_device(imgs))
 
     def process_network_output(self, image_pred, N: int):
         """[N, H, W, D] -> [N, H*W, D]; row-major over (v, u), so flat index

@@ -115,7 +115,7 @@ def _scalar_text(v) -> str:
     raise TypeError(f"cannot write {type(v).__name__} as a YAML scalar")
 
 
-def _emit(data, indent: int, out: list):
+def _emit(data, indent: int, out: list, nested: bool = False):
     pad = " " * indent
     for key in sorted(data):
         value = data[key]
@@ -123,30 +123,57 @@ def _emit(data, indent: int, out: list):
         if isinstance(value, dict):
             if value:
                 out.append(head)
-                _emit(value, indent + 2, out)
+                _emit(value, indent + 2, out, nested)
             else:
                 out.append(head + " {}")
         elif isinstance(value, (list, tuple)):
             if value:
                 out.append(head)
-                for item in value:
-                    if isinstance(item, (dict, list, tuple)):
-                        raise TypeError(f"{key}: only lists of scalars are written")
-                    out.append(f"{pad}- {_scalar_text(item)}")
+                _emit_sequence(value, indent, out, nested, key)
             else:
                 out.append(head + " []")
         else:
             out.append(f"{head} {_scalar_text(value)}")
 
 
-def dump_yaml(data: dict) -> str:
-    """``data`` (a dict) as block-style YAML text with sorted keys."""
+def _emit_sequence(items, indent: int, out: list, nested: bool, key=None):
+    """PyYAML's block sequence: ``- `` at ``indent``, a nested collection
+    starting on the dash's line."""
+    pad = " " * indent
+    for item in items:
+        if isinstance(item, (dict, list, tuple)):
+            if not nested:
+                raise TypeError(f"{key}: only lists of scalars are written")
+            if not item:
+                out.append(f"{pad}- {'{}' if isinstance(item, dict) else '[]'}")
+                continue
+            sub: list = []
+            if isinstance(item, dict):
+                _emit(item, indent + 2, sub, nested)
+            else:
+                _emit_sequence(item, indent + 2, sub, nested, key)
+            sub[0] = f"{pad}- {sub[0][indent + 2:]}"
+            out.extend(sub)
+        else:
+            out.append(f"{pad}- {_scalar_text(item)}")
+
+
+def dump_yaml(data, nested: bool = False) -> str:
+    """``data`` (a dict) as block-style YAML text with sorted keys. With
+    ``nested``, also lists of dicts and of lists, and a list at the top
+    level (an annotation file), in PyYAML's block layout."""
+    if isinstance(data, (list, tuple)) and nested:
+        if not data:
+            return "[]\n"
+        out: list = []
+        _emit_sequence(data, 0, out, nested)
+        return "\n".join(out) + "\n"
     if not isinstance(data, dict):
         raise TypeError("the top level of a YAML file is a dict")
     if not data:
         return "{}\n"
-    out: list = []
-    _emit(data, 0, out)
+    out = []
+    _emit(data, 0, out, nested)
     return "\n".join(out) + "\n"
 
 
@@ -464,10 +491,10 @@ def load_yaml(filename):
         return load_yaml_string(f.read())
 
 
-def save_yaml(data, filename):
-    """Write a dict as YAML with :func:`dump_yaml`, creating parent
-    directories as needed."""
+def save_yaml(data, filename, nested: bool = False):
+    """Write a dict (with ``nested``, any nesting, see :func:`dump_yaml`) as
+    YAML, creating parent directories as needed."""
     parent = os.path.dirname(os.path.abspath(filename))
     os.makedirs(parent, exist_ok=True)
     with open(filename, "w") as f:
-        f.write(dump_yaml(data))
+        f.write(dump_yaml(data, nested))

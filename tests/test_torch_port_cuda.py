@@ -827,3 +827,85 @@ def test_trained_tpu_journey_pck_on_the_card(cuda):
         print(f"tpu_journey on the card: PCK@{k} {pck:.4f} (bf16 summary "
               f"{bf16[f'pck@{k}px']}, margin {margin:.4f} + 0.05)")
         assert abs(pck - bf16[f"pck@{k}px"]) <= margin + 0.05
+
+
+# -- the apps: grasp stream, heatmap engine, export -------------------------------------------
+
+def _apps_setup(width=160, height=120):
+    """A ResNet-34-8s on the card, its twin on the CPU (same weights), and
+    a synthetic scene."""
+    import copy
+
+    from pdc_tpu_torch.data.synthetic import SyntheticScene
+    from pdc_tpu_torch.models.dcn import DenseCorrespondenceNetwork
+
+    cfg = {"descriptor_dimension": 3, "image_width": width, "image_height": height,
+           "backbone": {"model_class": "Resnet", "resnet_name": "Resnet34_8s"}}
+    dcn = DenseCorrespondenceNetwork.from_config(cfg, generator=torch.Generator().manual_seed(4))
+    cpu = DenseCorrespondenceNetwork(copy.deepcopy(dcn.module).cpu(), 3, width, height,
+                                     config=cfg, device="cpu")
+    scene = SyntheticScene(width=width, height=height, num_frames=4, object_radius=0.3)
+    return dcn, cpu, scene.render_all()
+
+
+def test_grasp_stream_on_the_card_equals_the_cpu(cuda):
+    """One K3 launch per frame; picks equal to the CPU stream's or float64
+    near-ties (1e-5 in squared distance) on the card's descriptor image,
+    distances within 1e-5 of float64."""
+    from pdc_tpu_torch.apps.live_heatmap_visualization import GraspPointStream
+
+    dcn, cpu, (rgb, _, mask, _) = _apps_setup()
+    res0 = dcn.forward_on_img(rgb[0])
+    obj = np.argwhere(mask[0] > 0)[::11][:16]
+    q = res0[torch.as_tensor(obj[:, 0]), torch.as_tensor(obj[:, 1])].cpu().numpy()
+    stream, cpu_stream = GraspPointStream(dcn, q), GraspPointStream(cpu, q)
+    for f in range(len(rgb)):
+        before = bm.launches
+        uv, dist = stream.process_frame(rgb[f])
+        assert bm.launches == before + 1
+        cuv, cdist = cpu_stream.process_frame(rgb[f])
+        res = dcn.forward_on_img(rgb[f]).permute(2, 0, 1).reshape(1, 3, -1).contiguous()
+        qt = torch.as_tensor(q, device=cuda)[None]
+        _check(res, qt, torch.as_tensor(uv[:, 1] * 160 + uv[:, 0], device=cuda)[None],
+               torch.as_tensor(dist, device=cuda)[None])
+        d2 = bm.squared_distances(res.double(), qt.double())[0].cpu().numpy()
+        pick, cpick = uv[:, 1] * 160 + uv[:, 0], cuv[:, 1] * 160 + cuv[:, 0]
+        rows = np.arange(len(q))
+        assert np.all(np.abs(d2[rows, pick] - d2[rows, cpick]) <= 1e-5)
+        assert np.abs(dist - np.sqrt(d2.min(1))).max() <= 1e-5
+        assert np.abs(dist - cdist).max() <= 1e-4
+        if f == 0:
+            assert dist.max() <= 1e-5
+
+
+def test_heatmap_engine_on_the_card_equals_float64(cuda):
+    from pdc_tpu_torch.apps.live_heatmap_visualization import HeatmapEngine
+
+    dcn, _, (rgb, _, _, _) = _apps_setup()
+    eng = HeatmapEngine([dcn], variance=0.25)
+    eng.set_images(rgb[0], rgb[2])
+    res_a = dcn.forward_on_img(rgb[0]).double().cpu().numpy()
+    res_b = dcn.forward_on_img(rgb[2]).double().cpu().numpy()
+    for u, v in ((10, 10), (80, 60), (159, 119)):
+        (uv, diff, heat), = eng.find_best_match(u, v)
+        nd = np.sqrt(((res_b - res_a[v, u]) ** 2).sum(-1))
+        assert heat.shape == (120, 160)
+        assert np.abs(heat - np.exp(-nd / 0.25)).max() <= 1e-6
+        assert nd[uv[1], uv[0]] ** 2 - nd.min() ** 2 <= 1e-5
+        assert abs(diff - nd[uv[1], uv[0]]) <= 1e-5
+
+
+def test_export_and_load_on_the_card(cuda, tmp_path):
+    from pdc_tpu_torch.apps.export_serving import export_inference, load_exported, save_exported
+
+    dcn, _, (rgb, _, _, _) = _apps_setup()
+    path = str(tmp_path / "net.pt2")
+    assert save_exported(export_inference(dcn, batch_size=4), path) > 1e6
+    x = torch.as_tensor(rgb, device=cuda)
+    with torch.inference_mode():
+        first = load_exported(path).module()(x)
+        second = load_exported(path).module()(x)
+    assert first.device.type == "cuda" and first.shape == (4, 120, 160, 3)
+    live = dcn.forward_on_images(rgb)
+    assert float((first - live).abs().max()) <= 1e-4 * float(live.abs().max())
+    assert float((second - first).abs().max()) <= 1e-6

@@ -798,7 +798,7 @@ def test_qualitative_suite_writes_its_panels(nets, datasets, tmp_path):
         qualitative.get_random_scenes_and_image_pairs(ds, 3)
 
 
-def test_utils_equal_jax():
+def test_utils_equal_jax(nets, datasets, tmp_path):
     cols = ["a", "b"]
     w, jw = eval_utils.PandaDataFrameWrapper(cols), jax_eval_utils.PandaDataFrameWrapper(cols)
     for x in (w, jw):
@@ -813,8 +813,20 @@ def test_utils_equal_jax():
     pd.testing.assert_frame_equal(eval_utils.convert_keypoint_annotations_to_dataframe(anns)
                                   .to_pandas(),
                                   jax_eval_utils.convert_keypoint_annotations_to_dataframe(anns))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        eval_utils.extract_descriptor_images_for_scene(None, None, "s", "out")
+    # the descriptor-image export writes the files pdc_tpu's writes
+    jdcn, dcn = nets
+    jds, ds = datasets
+    n = eval_utils.extract_descriptor_images_for_scene(dcn, ds, "scene_001",
+                                                       str(tmp_path / "port"), batch_size=3)
+    jn = jax_eval_utils.extract_descriptor_images_for_scene(jdcn, jds, "scene_001",
+                                                            str(tmp_path / "jax"), batch_size=3)
+    names = sorted(os.listdir(tmp_path / "port"))
+    assert n == jn == 4 and names == sorted(os.listdir(tmp_path / "jax")) == [
+        "%06d_descriptor.npy" % i for i in range(4)]
+    for name in names:
+        want = np.load(tmp_path / "jax" / name)
+        np.testing.assert_allclose(np.load(tmp_path / "port" / name), want, rtol=1e-4,
+                                   atol=1e-4 * float(np.abs(want).max()))
 
 
 def test_sift_baseline_equals_jax(datasets, tmp_path):

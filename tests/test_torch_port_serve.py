@@ -402,7 +402,7 @@ def test_cli_rejects_unported_options_and_commands(capsys):
         with pytest.raises(SystemExit):
             serve.main(["--model_folder", "x", flag])
         assert "not ported" in capsys.readouterr().err
-    assert cli.main(["export-serving"]) == 2
+    assert cli.main(["preprocess"]) == 2
     assert "not yet ported" in capsys.readouterr().err
     with pytest.raises(SystemExit):  # train is ported: it needs its --dataset_config
         cli.main(["train"])

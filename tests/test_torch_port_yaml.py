@@ -121,6 +121,23 @@ def test_emitter_refuses_what_it_does_not_write():
         yaml_io.dump_yaml([1, 2])
 
 
+
+@pytest.mark.parametrize("data", [
+    [{"image_a": {"scene_name": "scene_000", "image_idx": 0,
+                  "pixels": [{"u": 10, "v": 12}, {"u": 30, "v": 20}]},
+      "image_b": {"scene_name": "scene_001", "image_idx": 1, "pixels": []}}],
+    {"x": [[1, 2], [3]], "y": [{"a": [{"b": 1.5}]}], "z": [[], {}], "w": [[[1]]]},
+    [],
+    [1, "two", 3.0e-05, None, True],
+], ids=["annotations", "nested", "empty", "scalars"])
+def test_nested_emitter_writes_what_pyyaml_writes(data):
+    """``nested=True`` (annotation files) writes PyYAML's bytes, and both
+    readers read them back."""
+    text = yaml_io.dump_yaml(data, nested=True)
+    assert text == yaml.safe_dump(data, default_flow_style=False)
+    assert yaml.safe_load(text) == data
+    assert yaml_io.parse_yaml(text) == data
+
 # fault F7: what PyYAML writes in its other styles, nested any way
 F7_DATA = {
     "pose": {"quaternion": {"w": 0.8535533905932737, "x": -0.14644660940672624,
