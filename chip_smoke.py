@@ -134,7 +134,47 @@ Phases, each fatal on failure:
      normalisation, forward, K3 and fetch, a heatmap event, descriptor
      images per frame (forward and np.save), the export's seconds and the
      loaded program's B=8 forward against the live module's, and mesh
-     descriptors per frame.
+     descriptors per frame;
+ 13. model variants and int8, "model variants and int8" (run after phase 11,
+     on phase 8's folder and tree, and before the timings), at 640x480, D=3,
+     fp32, seeded random weights unless the folder's. It fails unless (a)
+     the ``torch._int_mm`` route of ``ops/int8_conv.py`` equals its float64
+     plain version bit for bit (int32) on every conv shape of ResNet-34-8s and
+     of the UNet, B=1 and B=8 (the stem's K=147 and the head's N=3 among
+     them), and on random shapes with M <= 16 and K, N not multiples of 8,
+     each counted as one launch of the route (its ms against cuDNN's fp32
+     convolution of the shape are printed); (b) ResNet-101-8s serves finite
+     descriptors through forward_on_img and forward_on_images at B=8 (its
+     forward ms beside ResNet-34-8s's and the UNet's), and dilated_s2b ResNet-101-8s equals
+     the dilated model on the same weights within 2e-5 of the output's scale
+     in eval mode, and after one train-mode forward its running statistics
+     within 1e-5 of theirs; (c) ``make_train_step`` with TRAINING_CONFIG's
+     values and ``resnet_name: Resnet101_8s`` takes 5 steps after a warm-up
+     (the UNet 2), with finite metrics, moving weights and K1 and K2 launched
+     twice each per step; the step's ms and its split are printed; (d)
+     ``dcn.quantized()`` and ``dcn.calibrate_quantization`` (on the first 16
+     frames of the first scene of the folder's dataset, as ``serve
+     --int8_static`` calibrates) leave the float network's forward
+     unchanged; every Int8Conv of the dynamic clone, fed the input that the
+     same clone's CPU forward (the float64 plain product) gives that layer,
+     gives the CPU's output bit for bit (whole-network cosines to fp32 on
+     the card and on the CPU are printed); the clones' descriptors have
+     cosine > 0.97 to the fp32 forward on 4 frames, and best matches of 16
+     object pixels that agree with fp32's in at least 10 queries (the fp32
+     pick or a near-tie, as tests/test_quantized.py counts them), while a
+     broken quantization (the dynamic clone truncating instead of rounding)
+     misses both bars (tools/torch_int8_witness.py sets them); fp32, int8
+     and int8-static forward ms at B=1 and B=8 are printed; (e) a
+     ``DescriptorServer`` on the static clone (max_batch 8) and one on the
+     dynamic clone (max_batch 1) answer 16 concurrent requests
+     each within 1e-4 of the clone's forward_on_img, with best matches the
+     float64 best match or a near-tie, and K3 launched once per dispatch with
+     queries; (f) ``python -m pdc_tpu_torch export-serving --int8_static
+     --batch_size 8`` writes a program that, loaded, gives the live static
+     clone's forward (scales from the same 16 random train frames, seed 7)
+     within 1e-4, its ms beside the clone's; (g) ``GraspPointStream`` on the
+     static clone launches K3 once per frame over 12 frames, picking the
+     float64 best match or a near-tie.
 
 The last lines are a JSON object with every kernel's numbers, the
 nvidia-smi line, and ``{"ok": true, "device": {...}}``. Without CUDA, or when the
@@ -151,7 +191,7 @@ import sys
 import threading
 import time
 
-WATCHDOG_S = 480
+WATCHDOG_S = 1000
 SEED = 0
 H, W, D = 480, 640, 3
 N_FRAMES = 8
@@ -1969,6 +2009,508 @@ def check_apps(torch, np, dev, bm, on_disk, tmp):
     return out
 
 
+# -- model variants and int8 -------------------------------------------------------
+
+# the int8 checks: every conv shape of these networks at 640x480, B=1 and B=8,
+# then random shapes with M <= 16 and K, N not multiples of 8 (B, C, H, W, O,
+# k, stride, padding, dilation)
+INT8_RANDOM_SHAPES = [(1, 5, 3, 4, 7, 3, 1, 1, 1), (1, 13, 2, 3, 3, 1, 1, 0, 1),
+                      (3, 9, 2, 2, 17, 3, 2, 1, 1), (1, 11, 5, 4, 5, 3, 1, 2, 2),
+                      (1, 3, 4, 4, 64, 7, 2, 3, 1), (2, 21, 3, 3, 19, 1, 1, 0, 1)]
+# dilated_s2b against the dilated model (tests/test_models.py:240-280's bars),
+# relative to the largest magnitude (the random ResNet-101-8s's outputs are
+# far from 1): outputs 2e-5, running statistics 1e-5
+S2B_OUT_TOL, S2B_STATS_TOL = 2e-5, 1e-5
+# int8 descriptors against fp32 on phase 8's folder (6 iterations from random
+# weights): the least cosine over 4 frames, and of 16 picks those that are the
+# fp32 pick or a near-tie of it under the fp32 distances (within 0.5% of the
+# squared spread of the descriptor image), as tests/test_quantized.py:41-75
+# counts them. tools/torch_int8_witness.py reads this folder's weights with
+# both packages: the int8 semantics give a cosine of about 0.98 and 13-16 of
+# 16 picks here, a quantizer that truncates 0.87 and 1-5; the bars lie between
+INT8_COS_MIN, INT8_NEAR_MIN = 0.97, 10
+INT8_NEAR_TIE = 5e-3
+VARIANT_STEPS = {"Resnet101_8s": (5, 3), "Unet": (2, 2)}  # (counted steps, timed steps)
+
+
+def conv_shapes(torch, module, x):
+    """Every distinct (C, H, W, O, k, stride, padding, dilation) of the
+    module's convolutions on ``x`` (one eval forward with hooks)."""
+    shapes, handles = {}, []
+    for m in module.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            def hook(mod, args):
+                _, c, h, w = args[0].shape
+                shapes[(c, h, w, mod.out_channels, mod.kernel_size[0], mod.stride[0],
+                        mod.padding[0], mod.dilation[0])] = None
+            handles.append(m.register_forward_pre_hook(hook))
+    try:
+        with torch.inference_mode():
+            module(x)
+    finally:
+        for h in handles:
+            h.remove()
+    return list(shapes)
+
+
+def check_int8_products(torch, np, dev):
+    """(a): the _int_mm route against the float64 plain version, and its
+    time against cuDNN's fp32 convolution of the same shape."""
+    from pdc_tpu_torch.models.resnet import ResNet34_8s
+    from pdc_tpu_torch.models.unet import UNet
+    from pdc_tpu_torch.ops import int8_conv as ic
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    x1 = torch.randn(1, 3, H, W, device=dev, generator=g)
+    cases = []
+    for name, module in (("ResNet-34-8s", ResNet34_8s(D)), ("UNet", UNet(D))):
+        module = module.to(dev).eval()
+        for shape in conv_shapes(torch, module, x1):
+            cases += [(name, B) + shape for B in (1, 8)]
+        del module
+    cases += [("random",) + s for s in INT8_RANDOM_SHAPES]
+    rows, bad = [], []
+    for name, B, C, h, w, O, k, s, p, d in cases:
+        x = torch.randint(-127, 128, (B, C, h, w), device=dev, dtype=torch.int8, generator=g)
+        wq = torch.randint(-127, 128, (O, C, k, k), device=dev, dtype=torch.int8, generator=g)
+        before = ic.launches
+        got = ic.int8_conv2d(x, wq, s, p, d)
+        want = ic.int8_conv2d_reference(x, wq, s, p, d)
+        if ic.launches != before + 1 or got.dtype != torch.int32 or not torch.equal(got, want):
+            bad.append((name, B, C, h, w, O, k, s, p, d))
+        row = {"net": name, "B": B, "C": C, "H": h, "W": w, "O": O, "k": k, "stride": s,
+               "dilation": d, "K": C * k * k, "M": int(got.shape[0] * got.shape[2] * got.shape[3])}
+        if name != "random":
+            xf, wf = x.float(), wq.float()
+            row["int8_ms"] = time_cuda(torch, lambda: ic.int8_conv2d(x, wq, s, p, d), iters=5)
+            row["fp32_ms"] = time_cuda(torch, lambda: torch.nn.functional.conv2d(
+                xf, wf, None, s, p, d), iters=5)
+            del xf, wf
+        rows.append(row)
+        del x, wq, got, want
+    torch.cuda.empty_cache()
+    log(f"variants (a): int8 conv, torch._int_mm route against the float64 plain version on "
+        f"{len(cases)} shapes (every conv of ResNet-34-8s and of the UNet at {W}x{H}, B=1 and "
+        f"B=8, and {len(INT8_RANDOM_SHAPES)} random ones with M <= 16 or K, N not multiples of "
+        f"8): int32 bit for bit on {len(cases) - len(bad)}, differing on {bad}")
+    if bad:
+        fail("the _int_mm route of the int8 convolution differs from its plain version")
+    for r in rows:
+        if "int8_ms" in r:
+            log(f"  int8 conv {r['net']} B={r['B']} C={r['C']} {r['H']}x{r['W']} -> O={r['O']} "
+                f"{r['k']}x{r['k']}/{r['stride']} dil {r['dilation']} (M={r['M']}, K={r['K']}): "
+                f"patches + _int_mm {r['int8_ms']:.3f} ms, cuDNN fp32 {r['fp32_ms']:.3f} ms, "
+                f"{r['int8_ms'] / r['fp32_ms']:.2f} x")
+
+
+def train_variant(torch, np, dev, ph, frames_t, backbone, steps, timed):
+    """(c) for one backbone: make_train_step with TRAINING_CONFIG's values,
+    one warm-up step, ``steps`` counted ones, ``timed`` ones between CUDA
+    events and their split as phase 6 splits it. Returns K1's and K2's
+    launches."""
+    import copy
+
+    from pdc_tpu_torch.data.assembler import AssemblerConfig
+    from pdc_tpu_torch.losses.pixelwise_contrastive import LossConfig
+    from pdc_tpu_torch.training.train import build_loss_fn, make_train_step, pick_assembly
+
+    tc = copy.deepcopy(TRAINING_CONFIG)
+    tc["dense_correspondence_network"]["backbone"] = backbone
+    loss_cfg = LossConfig.from_dict(tc["loss_function"])
+    asm_cfg = AssemblerConfig.from_training_config(tc)
+    Bt = tc["training"]["batch_size"]
+    state = new_train_state(torch, tc)
+    initial = {k: v.detach().clone() for k, v in state.module.named_parameters()}
+    step = make_train_step(tc, loss_cfg, asm_cfg, W)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rng = np.random.default_rng(SEED)
+
+    def batch():
+        return pair_batch(torch, frames_t, *draw_pairs(np, rng, Bt, N_FRAMES))
+
+    step(state, batch(), gen)
+    torch.cuda.synchronize()
+    ph.forward_launches = ph.backward_launches = 0
+    history = [{k: float(v) for k, v in step(state, batch(), gen).items()} for _ in range(steps)]
+    torch.cuda.synchronize()
+    launches = (ph.forward_launches, ph.backward_launches)
+    still = [k for k, v in state.module.named_parameters()
+             if v.dim() > 1 and torch.equal(v.detach(), initial[k])]
+    finite = all(np.isfinite(v) for m in history for v in m.values())
+    step_ms = []
+    for _ in range(timed):
+        e = _events(torch, 2)
+        b = batch()
+        e[0].record()
+        step(state, b, gen)
+        e[1].record()
+        torch.cuda.synchronize()
+        step_ms.append(e[0].elapsed_time(e[1]))
+    parts = {"assembly": [], "forward+backward": [], "optimizer": []}
+    loss_fn = build_loss_fn(state.module, loss_cfg, W, pick_assembly(asm_cfg)[1])
+    for _ in range(timed):
+        e = _events(torch, 4)
+        b = batch()
+        e[0].record()
+        assembled = step.assemble(state, b, gen)
+        e[1].record()
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, _ = loss_fn(*assembled)
+        loss.backward()
+        e[2].record()
+        state.optimizer.step()
+        e[3].record()
+        torch.cuda.synchronize()
+        for k, (a, c) in zip(parts, ((0, 1), (1, 2), (2, 3))):
+            parts[k].append(e[a].elapsed_time(e[c]))
+    name = backbone.get("resnet_name", backbone["model_class"])
+    mean = sum(step_ms) / len(step_ms)
+    split = {k: sum(v) / len(v) for k, v in parts.items()}
+    log(f"variants (c): {name} D={D} {W}x{H} B={Bt}, {steps} steps after 1 warm-up through "
+        f"make_train_step: losses [{', '.join(f'{m['loss']:.6g}' for m in history)}], all "
+        f"metrics finite: {finite}; weight tensors unchanged: {len(still)}; launches K1 "
+        f"{launches[0]}, K2 {launches[1]} (2 per step expected); step {mean:.3f} ms "
+        f"[{', '.join(f'{x:.3f}' for x in step_ms)}] (CUDA events, {timed} steps), "
+        f"{1e3 * Bt / mean:.2f} pairs/s; split (separate steps): " + ", ".join(
+            f"{k} {v:.3f} ms ({100 * v / sum(split.values()):.1f}%)" for k, v in split.items()))
+    if not finite or still or launches != (2 * steps, 2 * steps):
+        fail(f"{name} training: finite {finite}, unchanged {still[:3]}, launches {launches}")
+    del state, step, loss_fn, initial
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serve_clone(torch, np, dev, bm, clone, frames, max_batch, label):
+    """(e): a DescriptorServer on ``clone`` answering concurrent descriptors
+    and best_match requests; returns K3's launches and the worst errors."""
+    from pdc_tpu_torch.apps.serve import DescriptorClient, DescriptorServer
+
+    n_req = N_CLIENTS * REQUESTS_PER_CLIENT
+    with torch.inference_mode():
+        want = [clone.forward_on_img(f) for f in frames]
+    plan = []
+    for r in range(n_req):
+        f = r % len(frames)
+        if r % 2:
+            q = want[(f + 1) % len(frames)].reshape(-1, D)[
+                torch.as_tensor(np.random.default_rng(r).integers(0, H * W, SERVE_QUERIES),
+                                device=dev)]
+            plan.append((f, q.cpu().numpy()))
+        else:
+            plan.append((f, None))
+    server = DescriptorServer(clone, host="127.0.0.1", port=0, max_batch=max_batch,
+                              max_wait_ms=20.0)
+    results, errors = [None] * n_req, []
+    try:
+        server.warmup()
+        server.start()
+        host, port = server.address
+        barrier = threading.Barrier(N_CLIENTS)
+
+        def client(c):
+            try:
+                with DescriptorClient(host, port, timeout=60.0) as cl:
+                    barrier.wait(timeout=60.0)
+                    for r in range(c, n_req, N_CLIENTS):
+                        f, q = plan[r]
+                        results[r] = (cl.descriptors(frames[f]) if q is None
+                                      else cl.best_match(frames[f], q))
+            except Exception as e:
+                errors.append(f"client {c}: {type(e).__name__}: {e}")
+
+        threads = [threading.Thread(target=client, args=(c,), daemon=True)
+                   for c in range(N_CLIENTS)]
+        before = dict(server.stats)
+        bm.launches = 0
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120.0)
+        launches = bm.launches
+        delta = {k: server.stats[k] - before[k] for k in before}
+    finally:
+        server.shutdown()
+    if errors or any(r is None for r in results):
+        fail(f"{label} server: {errors or 'a request got no answer'}")
+    desc_err, bad_total, dist_err = 0.0, 0, 0.0
+    for r, (f, q) in enumerate(plan):
+        if q is None:
+            got = torch.from_numpy(np.array(results[r])).to(dev)
+            desc_err = max(desc_err, float((got - want[f]).abs().max()))
+            if not torch.allclose(got, want[f], atol=DESC_TOL, rtol=DESC_TOL):
+                fail(f"{label} server: request {r}'s descriptors differ from forward_on_img")
+        else:
+            uv, dist = results[r]
+            res = want[f].permute(2, 0, 1).reshape(1, D, H * W).contiguous()
+            idx = torch.from_numpy(uv[:, 1] * W + uv[:, 0]).to(dev)[None]
+            bad, err = check_matches(torch, bm, res, torch.from_numpy(q).to(dev)[None], idx,
+                                     torch.from_numpy(np.array(dist)).to(dev)[None])
+            bad_total, dist_err = bad_total + bad, max(dist_err, err)
+    log(f"variants (e): {label}: {n_req} requests from {N_CLIENTS} clients (max_batch "
+        f"{max_batch}), stats {delta}; descriptors max|diff| to the clone's forward_on_img "
+        f"{desc_err:.3g} (bar {DESC_TOL}); best_match bad_idx {bad_total}, dist_err "
+        f"{dist_err:.3g} vs float64 on that image; K3 launches {launches}")
+    if bad_total or not dist_err <= DIST_TOL or not launches > 0 \
+            or launches != delta["match_dispatches"]:
+        fail(f"{label} server: best matches wrong, or K3 launched {launches} times for "
+             f"{delta['match_dispatches']} dispatches with queries")
+    return launches, dist_err
+
+
+def check_variants_and_int8(torch, np, dev, bm, ph, frames_t, on_disk, tmp):
+    """The phase "model variants and int8": checks (a)-(g) of the module
+    docstring. Returns the numbers the kernels line reads."""
+    import contextlib
+    import copy
+    import io
+
+    from pdc_tpu_torch import __main__ as cli
+    from pdc_tpu_torch.apps import export_serving as exp
+    from pdc_tpu_torch.apps import first_frames
+    from pdc_tpu_torch.apps.live_heatmap_visualization import GraspPointStream
+    from pdc_tpu_torch.data.dataset import SpartanDataset
+    from pdc_tpu_torch.models.dcn import DenseCorrespondenceNetwork
+    from pdc_tpu_torch.models.resnet import int8_convs
+    from pdc_tpu_torch.ops import int8_conv as ic
+    from pdc_tpu_torch.utils.yaml_io import load_yaml
+
+    out = {}
+    # (a) the integer product
+    check_int8_products(torch, np, dev)
+
+    # (b) ResNet-101-8s serves; dilated_s2b equals the dilated model
+    cfg = {"descriptor_dimension": D, "image_width": W, "image_height": H,
+           "backbone": {"model_class": "Resnet", "resnet_name": "Resnet101_8s"}}
+    frames = np.random.default_rng(SEED + 13).integers(0, 256, (8, H, W, 3), dtype=np.uint8)
+    gen = torch.Generator().manual_seed(SEED)
+    r101 = DenseCorrespondenceNetwork.from_config(cfg, generator=gen, device=dev)
+    r34 = DenseCorrespondenceNetwork.from_config(dict(cfg, backbone=TRAINING_CONFIG[
+        "dense_correspondence_network"]["backbone"]), generator=gen, device=dev)
+    unet = DenseCorrespondenceNetwork.from_config(dict(cfg, backbone={"model_class": "Unet"}),
+                                                  generator=gen, device=dev)
+    fwd_ms = {}
+    with torch.inference_mode():
+        one = r101.forward_on_img(frames[0])
+        eight = r101.forward_on_images(frames)
+        ok = (one.shape == (H, W, D) and eight.shape == (8, H, W, D)
+              and bool(torch.isfinite(eight).all()))
+        for name, net in (("ResNet-101-8s", r101), ("ResNet-34-8s", r34), ("UNet", unet)):
+            for B in (1, 8):
+                xb = net.normalize_on_device(frames[:B]).permute(0, 3, 1, 2).contiguous()
+                fwd_ms[(name, B)] = time_cuda(torch, lambda: net.module(xb), iters=5)
+    log("variants (b): ResNet-101-8s forward_on_img and forward_on_images at B=8 finite, of "
+        f"shapes {tuple(one.shape)} and {tuple(eight.shape)}: {ok}; forward fp32 ms: " + ", ".join(
+            f"{n} B={B} {ms:.3f} ({1e3 * B / ms:.1f} images/s)" for (n, B), ms in fwd_ms.items()))
+    if not ok:
+        fail("ResNet-101-8s did not serve finite descriptors")
+    del r34, unet
+    s2b = DenseCorrespondenceNetwork.from_config(dict(cfg, dilated_s2b=True), device=dev)
+    s2b.module.load_state_dict(r101.module.state_dict())
+    x2 = r101.normalize_on_device(frames[:2]).permute(0, 3, 1, 2).contiguous()
+    with torch.no_grad():
+        a, b = r101.module.eval()(x2), s2b.module.eval()(x2)
+        eval_err = float((a - b).abs().max()) / float(a.abs().max())
+        r101.module.train()
+        s2b.module.train()
+        a, b = r101.module(x2), s2b.module(x2)
+        train_err = float((a - b).abs().max()) / float(a.abs().max())
+        stats_err = 0.0
+        for (name, ra), rb in zip(r101.module.named_buffers(), s2b.module.buffers()):
+            if "running" in name:
+                stats_err = max(stats_err, float((ra - rb).abs().max())
+                                / max(1.0, float(ra.abs().max())))
+        r101.module.eval()
+        s2b.module.eval()
+    log(f"variants (b): dilated_s2b ResNet-101-8s against the dilated model, same weights, "
+        f"{W}x{H} B=2: eval max|diff| {eval_err:.3g} of the output's scale (bar {S2B_OUT_TOL}); "
+        f"one train-mode forward: running statistics {stats_err:.3g} of their scale (bar "
+        f"{S2B_STATS_TOL}), its output {train_err:.3g} of the scale (not a check: train-mode "
+        f"BatchNorm's E[x^2] - E[x]^2 cancels in fp32)")
+    if not eval_err <= S2B_OUT_TOL or not stats_err <= S2B_STATS_TOL:
+        fail("dilated_s2b differs from the dilated model")
+    del r101, s2b, a, b, x2, one, eight
+    torch.cuda.empty_cache()
+
+    # (c) training steps of ResNet-101-8s and of the UNet
+    out["train"] = {}
+    for name, backbone in (("Resnet101_8s", {"model_class": "Resnet",
+                                             "resnet_name": "Resnet101_8s"}),
+                           ("Unet", {"model_class": "Unet"})):
+        steps, timed = VARIANT_STEPS[name]
+        out["train"][name] = train_variant(torch, np, dev, ph, frames_t, backbone, steps, timed)
+
+    # (d) int8 on phase 8's trained folder
+    folder = on_disk["folder"]
+    dcn = DenseCorrespondenceNetwork.from_model_folder(folder, device=dev)
+    calib = first_frames(dcn.load_training_dataset(), 16)
+    ds = SpartanDataset(config=load_yaml(on_disk["composite"]), data_dir=tmp,
+                        config_dir=os.path.dirname(on_disk["composite"]))
+    scene = ds.get_scene("scene_000")
+    rgb = scene.rgb
+    with torch.inference_mode():
+        before = torch.stack([dcn.forward_on_img(f) for f in rgb[:4]])
+    q_dyn = dcn.quantized()
+    q_static = dcn.calibrate_quantization(calib)
+    cos, exact, near, worst_gap = {}, {}, {}, {}
+    with torch.inference_mode():
+        after = torch.stack([dcn.forward_on_img(f) for f in rgb[:4]])
+        ref_a, ref_b = dcn.forward_on_img(rgb[0]).double(), dcn.forward_on_img(rgb[3]).double()
+        own = _spread(np, scene.mask[0], APPS_QUERIES)
+        iv, iu = torch.as_tensor(own[:, 0]), torch.as_tensor(own[:, 1])
+        spread = float((ref_b.reshape(-1, D).max(0).values - ref_b.reshape(-1, D).min(0).values)
+                       .max())
+        df = ((ref_b.reshape(1, -1, D) - ref_a[iv, iu][:, None]) ** 2).sum(-1)  # [Q, HW]
+        for label, clone in (("int8", q_dyn), ("int8 static", q_static),
+                             ("control (truncating)", q_dyn)):
+            rounding = torch.round
+            if label.startswith("control"):
+                torch.round = torch.trunc  # what Int8Conv's quantizer calls
+            try:
+                c = [torch.nn.functional.cosine_similarity(
+                    clone.forward_on_img(f).reshape(-1).double(),
+                    dcn.forward_on_img(f).reshape(-1).double(), dim=0) for f in rgb[:4]]
+                qa, qb = (clone.forward_on_img(rgb[0]).double(),
+                          clone.forward_on_img(rgb[3]).double())
+            finally:
+                torch.round = rounding
+            cos[label] = min(float(v) for v in c)
+            dq = ((qb.reshape(1, -1, D) - qa[iv, iu][:, None]) ** 2).sum(-1)
+            bf, bq = df.argmin(1), dq.argmin(1)
+            gap = df.gather(1, bq[:, None])[:, 0] - df.gather(1, bf[:, None])[:, 0]
+            exact[label] = int((bf == bq).sum())
+            worst_gap[label] = float(gap.max()) / spread ** 2
+            near[label] = int((gap <= INT8_NEAR_TIE * spread ** 2).sum())
+    unchanged = torch.equal(before, after)
+    # the dynamic clone on the CPU (the float64 plain product): each Int8Conv
+    # of the card's clone, fed the CPU forward's input of that layer, must
+    # give the CPU's output bit for bit (the same float32 operations and an
+    # exact integer product); whole-network outputs differ only where a
+    # layer's input differs by an ulp and flips a rounding
+    cpu, cpu_f = copy.deepcopy(q_dyn.module).cpu(), copy.deepcopy(dcn.module).cpu().eval()
+    inputs = {}
+    hooks = [c.register_forward_pre_hook(
+        lambda m, a, n=n: inputs.__setitem__(n, a[0].detach().clone()))
+        for n, c in int8_convs(cpu)]
+    x0 = q_dyn.normalize_on_device(rgb[:1]).permute(0, 3, 1, 2).contiguous()
+    with torch.inference_mode():
+        out_cpu = cpu(x0.cpu())
+        for h in hooks:
+            h.remove()
+        out_card = q_dyn.module(x0).cpu()
+        cos_f = [float(torch.nn.functional.cosine_similarity(
+            o.reshape(-1).double(), f.reshape(-1).double(), dim=0))
+            for o, f in ((out_card, dcn.module(x0).cpu()), (out_cpu, cpu_f(x0.cpu())))]
+        card_convs = dict(int8_convs(q_dyn.module))
+        layers_differ = [n for n, c in int8_convs(cpu)
+                         if not torch.equal(card_convs[n](inputs[n].to(dev)).cpu(),
+                                            c(inputs[n]))]
+    card_cpu_cos = float(torch.nn.functional.cosine_similarity(
+        out_card.reshape(-1).double(), out_cpu.reshape(-1).double(), dim=0))
+    log(f"variants (d): the dynamic int8 clone on the card against the same clone on the "
+        f"CPU (float64 plain product), frame 0: each of the {len(inputs)} Int8Conv layers fed "
+        f"the CPU's input gives the CPU's output bit for bit: {not layers_differ} (differing: "
+        f"{layers_differ}); whole network cosine {card_cpu_cos:.6f}, max|diff| "
+        f"{float((out_card - out_cpu).abs().max()):.3g}; cosine to the fp32 forward on the card "
+        f"{cos_f[0]:.6f}, on the CPU {cos_f[1]:.6f}")
+    if layers_differ:
+        fail("an int8 layer on the card differs from the same layer on the CPU")
+    del cpu, cpu_f, inputs
+    log(f"variants (d): int8 clones of {os.path.basename(folder)} (ResNet-34-8s, phase 8), "
+        f"static scales calibrated on the first {len(calib)} frames of its first scene: "
+        f"least cosine to fp32 over 4 frames " + ", ".join(f"{k} {v:.6f}" for k, v in cos.items())
+        + f" (bar > {INT8_COS_MIN}, the control below it); best matches of {APPS_QUERIES} "
+        f"object pixels of frame 0 in "
+        f"frame 3 that are the fp32 pick or a near-tie of it (within {INT8_NEAR_TIE} of the "
+        f"squared spread): " + ", ".join(f"{k} {v}" for k, v in near.items())
+        + f" (bar: at least {INT8_NEAR_MIN}, the control fewer), the very same pixel: "
+        + ", ".join(
+            f"{k} {v}" for k, v in exact.items()) + "; the worst pick's fp32 d2 gap over the "
+        "squared spread " + ", ".join(f"{k} {v:.3g}" for k, v in worst_gap.items())
+        + f"; the float network's forward unchanged: {unchanged}")
+    control = "control (truncating)"
+    served = [k for k in cos if k != control]
+    if (min(cos[k] for k in served) <= INT8_COS_MIN
+            or min(near[k] for k in served) < INT8_NEAR_MIN or not unchanged):
+        fail("the int8 clones disagree with fp32, or the float forward changed")
+    if cos[control] > INT8_COS_MIN or near[control] >= INT8_NEAR_MIN:
+        fail("a truncating quantizer passes the int8 bars: they catch no broken quantization")
+    int8_ms = {}
+    with torch.inference_mode():
+        for label, net in (("fp32", dcn), ("int8", q_dyn), ("int8 static", q_static)):
+            for B in (1, 8):
+                xb = net.normalize_on_device(rgb[:B]).permute(0, 3, 1, 2).contiguous()
+                int8_ms[(label, B)] = time_cuda(torch, lambda: net.module(xb), iters=10)
+    log("variants (d): ResNet-34-8s forward ms (CUDA events, 640x480): " + ", ".join(
+        f"{k} B={B} {ms:.3f} ({1e3 * B / ms:.1f} images/s)" for (k, B), ms in int8_ms.items()))
+
+    # (e) the server as serve --int8_static and serve --int8 start it
+    k3_static, err_static = serve_clone(torch, np, dev, bm, q_static, rgb[:8], 8,
+                                        "serve --int8_static")
+    k3_dyn, err_dyn = serve_clone(torch, np, dev, bm, q_dyn, rgb[:8], 1,
+                                  "serve --int8 (one-frame batches)")
+    out["k3_server"] = k3_static + k3_dyn
+
+    # (f) export-serving --int8_static at B=8
+    path = os.path.join(tmp, f"net_int8_static_b{APPS_EXPORT_B}.pt2")
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["export-serving", "--model_folder", folder, "--output", path,
+                       "--batch_size", str(APPS_EXPORT_B), "--platform", dev.type,
+                       "--int8_static"])
+    export_s = time.perf_counter() - t
+    train_ds = dcn.load_training_dataset("train")
+    train_ds.reset_seed(7)
+    live = dcn.calibrate_quantization([train_ds.get_random_rgbd_mask_pose()[0]
+                                       for _ in range(16)])
+    x = torch.as_tensor(rgb[:APPS_EXPORT_B], device=dev)
+    before_mm = ic.launches
+    with torch.inference_mode():
+        program = exp.load_exported(path).module()
+        got = program(x)
+        n_int_mm = ic.launches - before_mm
+        want = live.forward_on_images(x)
+        exp_err = float((got - want).abs().max())
+        xn = live.normalize_on_device(x).permute(0, 3, 1, 2).contiguous()
+        program_ms = time_cuda(torch, lambda: program(x), iters=5)
+        live_ms = time_cuda(torch, lambda: live.module(xn), iters=5)
+    log(f"variants (f): export-serving --int8_static -> {buf.getvalue().strip()!r}, rc {rc}, "
+        f"{export_s:.2f} s; the loaded program on {APPS_EXPORT_B} frames max|diff| to the live "
+        f"static clone's forward {exp_err:.3g} (bar {DESC_TOL}); _int_mm calls counted by the "
+        f"wrapper while running the program: {n_int_mm} (the program calls _int_mm itself); "
+        f"program {program_ms:.3f} ms against the live clone's {live_ms:.3f} ms")
+    if rc != 0 or got.shape != want.shape or not torch.allclose(got, want, atol=DESC_TOL,
+                                                                rtol=DESC_TOL):
+        fail("the exported int8 program disagrees with the live static clone")
+    del program, got, want
+
+    # (g) the grasp stream on a quantized network
+    with torch.inference_mode():
+        res0 = q_static.forward_on_img(rgb[0])
+        qd = res0[iv.to(dev), iu.to(dev)].contiguous()
+    stream = GraspPointStream(q_static, qd.cpu().numpy())
+    bm.launches = 0
+    picks = [stream.process_frame(f) for f in rgb]
+    k3_stream = bm.launches
+    stream_err = 0.0
+    with torch.inference_mode():
+        for f, (uv, dist) in zip(rgb, picks):
+            res = q_static.forward_on_img(f).permute(2, 0, 1).reshape(1, D, -1).contiguous()
+            idx = torch.as_tensor(uv[:, 1] * W + uv[:, 0], device=dev)[None]
+            bad, err = check_matches(torch, bm, res, qd[None], idx,
+                                     torch.from_numpy(dist).to(dev)[None])
+            stream_err = max(stream_err, err)
+            if bad:
+                fail("the int8 grasp stream's picks are not the best matches")
+    log(f"variants (g): GraspPointStream on the static int8 clone, {APPS_QUERIES} descriptors, "
+        f"{len(rgb)} frames: K3 launches {k3_stream} (1 per frame); picks the float64 best "
+        f"match or a near-tie, distances within {stream_err:.3g}")
+    if k3_stream != len(rgb) or not stream_err <= DIST_TOL:
+        fail("the int8 grasp stream did not launch K3 once per frame")
+    out.update(k3_stream=k3_stream, k3_err=max(err_static, err_dyn, stream_err))
+    return out
+
+
 def flatten(tree, prefix=""):
     """{'a/b': leaf} of a nested dict."""
     out = {}
@@ -2311,6 +2853,12 @@ def main():
         apps["phase_s"] = time.perf_counter() - t0
         torch.cuda.empty_cache()
         phase("apps", t0)
+
+        # 13. model variants and int8 (on phase 8's folder, so before the timings)
+        t0 = time.perf_counter()
+        variants = check_variants_and_int8(torch, np, dev, bm, ph, frames_t, on_disk, tree)
+        torch.cuda.empty_cache()
+        phase("model variants and int8", t0)
     finally:
         shutil.rmtree(tree, ignore_errors=True)
 
@@ -2358,10 +2906,12 @@ def main():
                      "launches": launches,
                      "launches_by_path": {"serving": launches,
                                           "evaluation": evaluation["launches"],
-                                          "grasp stream": apps["launches"]},
+                                          "grasp stream": apps["launches"],
+                                          "int8 server": variants["k3_server"],
+                                          "int8 grasp stream": variants["k3_stream"]},
                      "max_abs_err": max(max_abs_err, driver["k3_err"], on_disk["k3_err"],
                                         evaluation["k3_err"], pair_smo["k3_err"],
-                                        apps["k3_err"]),
+                                        apps["k3_err"], variants["k3_err"]),
                      "ms": k_ms, "device_ms": k_ms, "wrapper_ms": w_ms, "plain_ms": p_ms,
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
                      "empty_launch_ms": empty_ms,
@@ -2587,7 +3137,9 @@ def main():
                 "replaces": "pdc_tpu/ops/pallas_loss.py:42", "launches": k1_launches,
                 "launches_by_path": {"training": k1_launches, "training driver": driver["k1"],
                                      "on-disk training": on_disk["k1"],
-                                     "smo matrix": pair_smo["smo"]["launches"][0]},
+                                     "smo matrix": pair_smo["smo"]["launches"][0],
+                                     "ResNet-101-8s step": variants["train"]["Resnet101_8s"][0],
+                                     "UNet step": variants["train"]["Unet"][0]},
                 "max_abs_err": k1_err, "ms": k1_ms, "device_ms": k1_ms,
                 "wrapper_ms": k1_wrapper, "plain_ms": p1_ms, "bound_ms": b1_ms,
                 "bound_by": b1_by, "library_ms": None}
@@ -2596,7 +3148,9 @@ def main():
                 "replaces": "pdc_tpu/ops/pallas_loss.py:77", "launches": k2_launches,
                 "launches_by_path": {"training": k2_launches, "training driver": driver["k2"],
                                      "on-disk training": on_disk["k2"],
-                                     "smo matrix": pair_smo["smo"]["launches"][1]},
+                                     "smo matrix": pair_smo["smo"]["launches"][1],
+                                     "ResNet-101-8s step": variants["train"]["Resnet101_8s"][1],
+                                     "UNet step": variants["train"]["Unet"][1]},
                 "max_abs_err": k2_err, "ms": k2_ms, "device_ms": k2_ms,
                 "wrapper_ms": k2_wrapper, "plain_ms": p2_ms, "bound_ms": b2_ms,
                 "bound_by": b2_by, "library_ms": None}

@@ -21,7 +21,7 @@ import time
 import numpy as np
 import torch
 
-from pdc_tpu_torch.apps import INT8_NOT_PORTED, add_unported_flags, reject_unported_flags
+from pdc_tpu_torch.apps import add_int8_flags, first_frames, quantize_arg, serving_clone
 
 
 def compute_descriptor_images_for_scene(dcn, scene, out_dir: str, batch_size: int = 8,
@@ -52,14 +52,16 @@ def compute_descriptor_images_for_scene(dcn, scene, out_dir: str, batch_size: in
 
 
 def run(model_folder: str, dataset, network_name: str = None, batch_size: int = 8,
-        device="cuda"):
+        quantize=False, device="cuda"):
     """Descriptor images of every scene of ``dataset`` under
     ``descriptor_images_out/<scene>/descriptor_images/<network>/``;
-    ``network`` defaults to the model folder's name. Returns the number of
-    frames."""
+    ``network`` defaults to the model folder's name. ``quantize`` True
+    serves ``dcn.quantized()``, "static" a clone calibrated on the first 16
+    frames of the dataset's first scene. Returns the number of frames."""
     from pdc_tpu_torch.models.dcn import DenseCorrespondenceNetwork
 
     dcn = DenseCorrespondenceNetwork.from_model_folder(model_folder, device=device)
+    dcn = serving_clone(dcn, quantize, lambda: first_frames(dataset), batch_size)
     network_name = network_name or os.path.basename(os.path.normpath(model_folder))
     total = 0
     for name, scene in dataset.scenes.items():
@@ -78,9 +80,8 @@ def main(argv=None):
     p.add_argument("--data_dir", default=os.environ.get("DC_DATA_DIR", "."))
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    add_unported_flags(p, INT8_NOT_PORTED)
+    add_int8_flags(p)
     args = p.parse_args(argv)
-    reject_unported_flags(p, args, INT8_NOT_PORTED)
 
     from pdc_tpu_torch.data.dataset import SpartanDataset
     from pdc_tpu_torch.utils.device import resolve_device
@@ -92,7 +93,8 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     ds = SpartanDataset(config=load_yaml(args.config), data_dir=args.data_dir,
                         config_dir=os.path.dirname(os.path.abspath(args.config)))
-    n = run(args.model_folder, ds, batch_size=args.batch_size, device=device)
+    n = run(args.model_folder, ds, batch_size=args.batch_size, quantize=quantize_arg(args),
+            device=device)
     print(f"wrote descriptor images for {n} frames")
 
 

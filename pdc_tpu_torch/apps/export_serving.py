@@ -28,7 +28,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from pdc_tpu_torch.apps import INT8_NOT_PORTED, add_unported_flags, reject_unported_flags
+from pdc_tpu_torch.apps import add_int8_flags, quantize_arg, serving_clone
 
 PLATFORMS = ("cuda", "cpu")
 
@@ -78,13 +78,28 @@ def load_exported(path: str):
 
 
 def export_model_folder(model_folder: str, output: str, batch_size: int = 1,
-                        device="cuda", iteration: Optional[int] = None) -> int:
+                        device="cuda", iteration: Optional[int] = None, quantize=False,
+                        calibration_frames: int = 16) -> int:
     """Export a model folder's latest checkpoint (or ``iteration``) for
-    ``device``; returns the artifact's bytes."""
+    ``device``; returns the artifact's bytes.
+
+    ``quantize=True`` exports the int8 serving program (``dcn.quantized()``:
+    the per-call abs-max, the rounding and the s8 x s8 -> s32 products are
+    in the program); ``quantize="static"`` calibrates static scales on
+    ``calibration_frames`` random train-split frames of the folder's dataset
+    (seed 7, as ``pdc_tpu/apps/export_serving.py:87-92``) and freezes them
+    into the program."""
     from pdc_tpu_torch.models.dcn import DenseCorrespondenceNetwork
 
     dcn = DenseCorrespondenceNetwork.from_model_folder(model_folder, iteration=iteration,
                                                        device=device)
+
+    def random_train_frames():
+        dataset = dcn.load_training_dataset("train")
+        dataset.reset_seed(7)
+        return [dataset.get_random_rgbd_mask_pose()[0] for _ in range(calibration_frames)]
+
+    dcn = serving_clone(dcn, quantize, random_train_frames)
     return save_exported(export_inference(dcn, batch_size=batch_size), output)
 
 
@@ -99,9 +114,8 @@ def main(argv=None):
     p.add_argument("--platform", "--device", dest="platform", default="cuda",
                    help="device the program runs on: cuda (default) or cpu")
     p.add_argument("--iteration", type=int, default=None)
-    add_unported_flags(p, INT8_NOT_PORTED)
+    add_int8_flags(p)
     args = p.parse_args(argv)
-    reject_unported_flags(p, args, INT8_NOT_PORTED)
     if args.platform not in PLATFORMS:
         p.error(f"--platform {args.platform!r}: a torch.export program runs on "
                 f"{' or '.join(PLATFORMS)} (there is no TPU lowering in pdc_tpu_torch)")
@@ -110,7 +124,8 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     n = export_model_folder(args.model_folder, args.output, batch_size=args.batch_size,
-                            device=args.platform, iteration=args.iteration)
+                            device=args.platform, iteration=args.iteration,
+                            quantize=quantize_arg(args))
     print(f"wrote {args.output} ({n} bytes, {n / 1e6:.1f} MB)")
 
 

@@ -22,7 +22,7 @@ from typing import List
 import numpy as np
 import torch
 
-from pdc_tpu_torch.apps import INT8_NOT_PORTED
+from pdc_tpu_torch.apps import serving_clone
 from pdc_tpu_torch.ops.matching import (
     best_match_for_descriptor,
     best_matches_batch,
@@ -97,12 +97,10 @@ class HeatmapVisualization:
                  quantize: bool = False, device="cuda"):
         from pdc_tpu_torch.models.dcn import DenseCorrespondenceNetwork
 
-        if quantize:
-            raise NotImplementedError("quantize_int8 is not ported to pdc_tpu_torch yet: "
-                                      + INT8_NOT_PORTED["int8"])
         self._dataset = dataset
         self._dcns = [DenseCorrespondenceNetwork.from_model_folder(f, device=device)
                       for f in model_folders]
+        self._dcns = [serving_clone(d, quantize) for d in self._dcns]
         self._engine = HeatmapEngine(self._dcns, variance)
         self._rgb_a = self._rgb_b = None
 
@@ -111,8 +109,8 @@ class HeatmapVisualization:
         """Build from a heatmap_vis config (``configs/heatmap_vis.yaml``, a
         dict or its path, read with the port's reader; the reference's
         heatmap.yaml schema: a ``networks`` name list and
-        ``kernel_variance``). ``quantize_int8: true`` raises until int8
-        serving is ported."""
+        ``kernel_variance``); ``quantize_int8: true`` serves the int8
+        clones (``dcn.quantized()``)."""
         if isinstance(config, str):
             from pdc_tpu_torch.utils.yaml_io import load_yaml
 

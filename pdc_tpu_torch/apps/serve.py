@@ -16,8 +16,14 @@ of clients over TCP, with cross-request microbatching.
 - Like the JAX server, the served descriptors skip the network's
   ``normalize`` option (``pdc_tpu/apps/serve.py:239-242``).
 
+- int8 serving plugs in unchanged: ``--int8`` serves ``dcn.quantized()``
+  (dynamic scales: a frame's descriptors vary slightly with the rest of its
+  batch), ``--int8_static`` a clone calibrated on the first 16 frames of
+  the first scene of the folder's training dataset (deterministic per
+  frame; ``pdc_tpu/apps/serve.py:28-34`` recommends it for a daemon).
+
 Not ported yet: ``mesh``/``--data_parallel``/``--model_parallel`` (parallel
-slice) and ``--int8``/``--int8_static`` (int8 slice); the CLI rejects them.
+slice); the CLI rejects them.
 
 Wire protocol (one TCP connection serves many requests), unchanged:
   request  = JSON header line ending in ``\\n``, then the payload bytes.
@@ -45,7 +51,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from pdc_tpu_torch.apps import INT8_NOT_PORTED, add_unported_flags, reject_unported_flags
+from pdc_tpu_torch.apps import (
+    add_int8_flags,
+    add_unported_flags,
+    first_frames,
+    quantize_arg,
+    reject_unported_flags,
+    serving_clone,
+)
 from pdc_tpu_torch.ops.best_match import best_match
 
 _JOIN_TIMEOUT_S = 10.0
@@ -580,7 +593,6 @@ class DescriptorClient:
 
 
 _NOT_PORTED = {
-    **INT8_NOT_PORTED,
     "data_parallel": "multi-card serving waits for the parallel slice",
     "model_parallel": "multi-card serving waits for the parallel slice",
 }
@@ -603,6 +615,7 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on (default cuda; cpu must be "
                         "asked for)")
+    add_int8_flags(p)
     add_unported_flags(p, _NOT_PORTED)
     args = p.parse_args(argv)
     reject_unported_flags(p, args, _NOT_PORTED)
@@ -614,6 +627,8 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     dcn = DenseCorrespondenceNetwork.from_model_folder(
         args.model_folder, iteration=args.iteration, device=args.device)
+    dcn = serving_clone(dcn, quantize_arg(args),
+                        lambda: first_frames(dcn.load_training_dataset()))
     server = DescriptorServer(dcn, host=args.host, port=args.port,
                               max_batch=args.max_batch,
                               max_wait_ms=args.max_wait_ms,

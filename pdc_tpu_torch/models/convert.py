@@ -1,15 +1,20 @@
 """Weight and optimizer-state bridge between the JAX package's flax trees and
 the port's ``state_dict`` and ``torch.optim.Adam``.
 
-The port's modules carry the flax module names (``stem_conv``, ``stem_bn``,
-``stage{s}_block{b}/{conv1,bn1,conv2,bn2,proj_conv,proj_bn}``, ``head``), so
-the mapping is per leaf only:
+The port's modules carry the flax module names (the ResNets' ``stem_conv``,
+``stem_bn``, ``stage{s}_block{b}/{conv1,bn1,conv2,bn2,conv3,bn3,proj_conv,
+proj_bn}``, ``head``; the UNet's ``down{l}``, ``bottleneck``, ``up_proj{l}``,
+``up{l}`` with ``conv{i}``/``bn{i}``, ``head``), so the mapping is per leaf
+only:
 
   * conv ``kernel`` HWIO <-> ``weight`` OIHW, conv ``bias`` <-> ``bias``
   * BatchNorm params ``scale``/``bias`` <-> ``weight``/``bias`` and
     ``batch_stats`` ``mean``/``var`` <-> ``running_mean``/``running_var``
     (torch's ``num_batches_tracked`` has no flax counterpart: 0 on the way
     in, dropped on the way out)
+  * the ``quant_scales`` collection's ``act_scale`` (a static int8 clone's
+    calibrated activation scales) <-> the convolutions' ``act_scale``
+    buffers
 
 The optimizer state of a ``%06d.ckpt.opt`` file is optax's chain state for
 ``add_decayed_weights``, ``scale_by_adam`` and ``scale_by_learning_rate``
@@ -105,9 +110,30 @@ def torch_params_to_flax(named: Mapping, bn_modules: Iterable[str]) -> dict:
     return params
 
 
+def quant_scales_to_torch(scales: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax ``quant_scales`` tree -> ``{'<conv>.act_scale': 0-d tensor}``."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(prefix, node):
+        for name, child in node.items():
+            if isinstance(child, Mapping):
+                walk(prefix + name + ".", child)
+            elif name == "act_scale":
+                out[prefix + name] = _tensor(child)
+            else:
+                raise ValueError(f"unexpected quant_scales leaf {prefix + name}")
+
+    walk("", scales)
+    return out
+
+
 def flax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """``{'params': ..., 'batch_stats': ...}`` (numpy or array-like leaves)
-    -> ``state_dict`` of CPU tensors for the port's module."""
+    """``{'params': ..., 'batch_stats': ..., ['quant_scales': ...]}`` (numpy
+    or array-like leaves) -> ``state_dict`` of CPU tensors for the port's
+    module."""
+    unknown = set(variables) - {"params", "batch_stats", "quant_scales"}
+    if unknown:
+        raise ValueError(f"unexpected flax collections {sorted(unknown)}")
     sd, bn = flax_params_to_torch(variables["params"])
     stats = variables.get("batch_stats", {})
     for module in sorted(bn):
@@ -117,17 +143,24 @@ def flax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
         sd[module + ".running_mean"] = _tensor(node["mean"])
         sd[module + ".running_var"] = _tensor(node["var"])
         sd[module + ".num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+    sd.update(quant_scales_to_torch(variables.get("quant_scales", {})))
     return sd
 
 
 def state_dict_to_flax(state_dict: Mapping) -> Dict[str, dict]:
     """The port's ``state_dict`` -> ``{'params': ..., 'batch_stats': ...}``
-    of numpy arrays, nested and ordered as flax's ``module.init`` builds it."""
+    of numpy arrays, nested and ordered as flax's ``module.init`` builds it,
+    plus ``quant_scales`` where the module holds calibrated scales."""
     is_bn = {k.rsplit(".", 1)[0] for k in state_dict if k.endswith(".running_mean")}
-    named, stats = {}, {}
+    named, stats, scales = {}, {}, {}
     for key, value in state_dict.items():
         module, leaf = key.rsplit(".", 1)
-        if module in is_bn and leaf in ("running_mean", "running_var"):
+        if leaf == "act_scale":
+            node = scales
+            for name in module.split("."):
+                node = node.setdefault(name, {})
+            node[leaf] = np.array(_numpy(value), copy=True)
+        elif module in is_bn and leaf in ("running_mean", "running_var"):
             node = stats
             for name in module.split("."):
                 node = node.setdefault(name, {})
@@ -136,7 +169,10 @@ def state_dict_to_flax(state_dict: Mapping) -> Dict[str, dict]:
             raise ValueError(f"unexpected batch-norm entry {key}")
         elif leaf != "num_batches_tracked":
             named[key] = value
-    return {"params": torch_params_to_flax(named, is_bn), "batch_stats": stats}
+    out = {"params": torch_params_to_flax(named, is_bn), "batch_stats": stats}
+    if scales:
+        out["quant_scales"] = scales
+    return out
 
 
 # -- Adam state ---------------------------------------------------------------

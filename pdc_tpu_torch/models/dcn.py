@@ -29,7 +29,17 @@ import torch
 
 from pdc_tpu_torch.models.checkpoint import read_checkpoint, write_checkpoint
 from pdc_tpu_torch.models.convert import flax_to_state_dict, state_dict_to_flax
-from pdc_tpu_torch.models.resnet import ResNet18_8s, ResNet34_8s, init_weights_
+from pdc_tpu_torch.models.resnet import (
+    ResNet18_8s,
+    ResNet34_8s,
+    ResNet50_8s,
+    ResNet101_8s,
+    init_weights_,
+    int8_convs,
+    quantized_copy,
+    set_quantization,
+)
+from pdc_tpu_torch.models.unet import UNet
 from pdc_tpu_torch.ops.matching import (
     best_match_for_descriptor,
     best_matches_batch,
@@ -43,34 +53,39 @@ from pdc_tpu_torch.utils.constants import (
 from pdc_tpu_torch.utils.device import resolve_device
 from pdc_tpu_torch.utils.yaml_io import load_yaml
 
-_FACTORIES = {"Resnet18_8s": ResNet18_8s, "Resnet34_8s": ResNet34_8s}
+_FACTORIES = {"Resnet18_8s": ResNet18_8s, "Resnet34_8s": ResNet34_8s,
+              "Resnet50_8s": ResNet50_8s, "Resnet101_8s": ResNet101_8s}
 
 
 def build_backbone(config: dict):
-    """The FCN for a ``dense_correspondence_network`` config block.
-
-    Ported: ResNet-18/34-8s in float32. Options the JAX package offers
-    beyond that (other backbones, ``compute_dtype: bfloat16``,
-    ``dilated_s2b``, ``quant_int8``) raise ``NotImplementedError`` until
-    their slice lands; ``remat`` only changes the training backward and has
-    no effect on inference.
+    """The FCN for a ``dense_correspondence_network`` config block
+    (``pdc_tpu/models/dcn.py:51-86``): ``backbone.model_class`` ``Resnet``
+    (``resnet_name`` Resnet18/34/50/101_8s, with ``dilated_s2b``) or
+    ``Unet``, and ``quant_int8`` (the int8 serving convolutions; training
+    runs the float ones). ``compute_dtype`` other than float32 raises
+    ``NotImplementedError``: bfloat16 is the remainder of the model-variants
+    slice (ROADMAP queue 1 item 6). ``remat`` only changes the training
+    backward in the JAX package and has no effect here.
     """
     backbone = config.get("backbone", {"model_class": "Resnet", "resnet_name": "Resnet34_8s"})
-    if backbone["model_class"] != "Resnet":
-        raise NotImplementedError(
-            f"backbone {backbone['model_class']!r} is not ported yet (UNet waits "
-            "for the model-variants slice)")
-    name = backbone.get("resnet_name", "Resnet34_8s")
-    if name not in _FACTORIES:
-        raise NotImplementedError(
-            f"resnet_name {name!r} is not ported yet (ported: {sorted(_FACTORIES)}; "
-            "ResNet-50/101-8s wait for the model-variants slice)")
     if config.get("compute_dtype", "float32") != "float32":
-        raise NotImplementedError("only compute_dtype float32 is ported")
-    for key in ("dilated_s2b", "quant_int8"):
-        if config.get(key, False):
-            raise NotImplementedError(f"{key} is not ported yet")
-    return _FACTORIES[name](config["descriptor_dimension"])
+        raise NotImplementedError(
+            f"compute_dtype {config['compute_dtype']!r} is not ported yet: only float32 runs; "
+            "bfloat16 waits for the remainder of the model-variants slice (ROADMAP queue 1 "
+            "item 6)")
+    d = config["descriptor_dimension"]
+    if backbone["model_class"] == "Resnet":
+        name = backbone.get("resnet_name", "Resnet34_8s")
+        if name not in _FACTORIES:
+            raise ValueError(f"unsupported resnet_name: {name}")
+        fcn = _FACTORIES[name](d, dilated_s2b=bool(config.get("dilated_s2b", False)))
+    elif backbone["model_class"] == "Unet":
+        fcn = UNet(d)
+    else:
+        raise ValueError(f"unknown backbone model_class: {backbone['model_class']}")
+    if config.get("quant_int8", False):
+        set_quantization(fcn, True)
+    return fcn
 
 
 class DenseCorrespondenceNetwork:
@@ -335,6 +350,97 @@ class DenseCorrespondenceNetwork:
         load_reference_checkpoint(dcn, model_param_file)
         dcn.model_folder = model_folder
         return dcn
+
+    # -- int8 serving ------------------------------------------------------------
+
+    def quantized(self, static: bool = False, variables=None) -> "DenseCorrespondenceNetwork":
+        """A serving clone whose convolutions run the int8 path
+        (:class:`~pdc_tpu_torch.models.resnet.Int8Conv`). It shares this
+        network's parameters and BatchNorm statistics (the same tensors);
+        this network's own forward is left as it was. Inference only.
+
+        ``static=True`` uses calibrated per-layer activation scales instead
+        of the per-call abs-max: from ``variables`` (flax's layout with a
+        ``quant_scales`` collection, or ``'<conv>.act_scale'`` entries of a
+        ``state_dict``), else from this network if it is a static clone
+        itself. :meth:`calibrate_quantization` makes the clone directly.
+
+        :raises ValueError: the backbone has no int8 path, or ``static``
+            without calibrated scales for every convolution
+        """
+        from pdc_tpu_torch.models.convert import quant_scales_to_torch
+
+        if not hasattr(self.module, "quant_int8"):
+            raise ValueError(f"{type(self.module).__name__} has no int8 serving path")
+        scales = None
+        if variables is not None:
+            scales = (quant_scales_to_torch(variables["quant_scales"])
+                      if "quant_scales" in variables else dict(variables))
+        elif getattr(self.module, "quant_static", False):
+            scales = {f"{n}.act_scale": c.act_scale for n, c in int8_convs(self.module)}
+        module = quantized_copy(self.module, static)
+        if static:
+            need = {f"{n}.act_scale" for n, _ in int8_convs(module)}
+            if not scales or set(scales) != need:
+                raise ValueError("static int8 serving needs calibrated scales for every "
+                                 "convolution: use dcn.calibrate_quantization(images)")
+            with torch.no_grad():
+                for name, conv in int8_convs(module):
+                    conv.act_scale.copy_(torch.as_tensor(scales[f"{name}.act_scale"]))
+        clone = DenseCorrespondenceNetwork(
+            module, self._descriptor_dimension, self._image_width, self._image_height,
+            normalize=self._normalize, config={**self.config, "quant_int8": True},
+            device=self.device)
+        clone.image_mean = self.image_mean
+        clone.image_std_dev = self.image_std_dev
+        clone.model_folder = self.model_folder
+        clone._descriptor_image_stats = self._descriptor_image_stats
+        return clone
+
+    def calibrate_quantization(self, images, batch_size: int = 8,
+                               headroom: float = 1.0) -> "DenseCorrespondenceNetwork":
+        """Calibrate static int8 activation scales and return the serving
+        clone (``quantized(static=True)``), as
+        ``pdc_tpu/models/dcn.py:375-427`` does.
+
+        ``images`` is an iterable of ``[H, W, 3]`` uint8 RGB frames (such as
+        training frames), normalised with this network's mean and std and
+        run in batches of ``batch_size`` through the clone's int8 forward,
+        each :class:`Int8Conv` max-accumulating ``max|x| / 127`` of its
+        input across all batches in its own ``act_scale``. ``headroom``
+        then multiplies every scale (> 1 leaves room for activations
+        outside the calibration frames; beyond it they saturate at +-127).
+        """
+        if not hasattr(self.module, "quant_static"):
+            raise ValueError(f"{type(self.module).__name__} has no static int8 path")
+        module = quantized_copy(self.module, static=True)
+        convs = [c for _, c in int8_convs(module)]
+        module.eval()
+        batch, seen = [], 0
+
+        def flush():
+            x = self.normalize_on_device(np.stack(batch)).permute(0, 3, 1, 2).contiguous()
+            module(x)
+            batch.clear()
+
+        for conv in convs:
+            conv.calibrating = True
+        try:
+            with torch.no_grad():
+                for img in images:
+                    batch.append(np.asarray(img, np.uint8))
+                    seen += 1
+                    if len(batch) == batch_size:
+                        flush()
+                if batch:
+                    flush()
+        finally:
+            for conv in convs:
+                conv.calibrating = False
+        if not seen:
+            raise ValueError("calibrate_quantization needs at least one frame")
+        scales = {f"{n}.act_scale": c.act_scale * headroom for n, c in int8_convs(module)}
+        return self.quantized(static=True, variables=scales)
 
     # -- persistence -----------------------------------------------------------
 

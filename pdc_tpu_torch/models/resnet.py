@@ -1,9 +1,11 @@
-"""Dilated ResNet FCN (ResNet-18/34-8s) in PyTorch.
+"""Dilated ResNet FCNs (ResNet-18/34/50/101-8s) and the int8 serving
+convolution, in PyTorch.
 
-Port of :mod:`pdc_tpu.models.resnet` (``BasicBlock`` :110-155, ``ResNetFCN``
-:226-328, ``ResNet18_8s``/``ResNet34_8s`` :336-349): a ResNet whose last
-stages trade stride for dilation, a 1x1 descriptor head with bias, and a
-bilinear upsample back to the input size.
+Port of :mod:`pdc_tpu.models.resnet` (``Int8Conv`` :64-107, ``BasicBlock``
+:110-155, ``BottleneckBlock`` :157-204, ``space_to_batch`` /
+``batch_to_space`` :207-223, ``ResNetFCN`` :226-328, the factories
+:336-364): a ResNet whose last stages trade stride for dilation, a 1x1
+descriptor head with bias, and a bilinear upsample back to the input size.
 
 NCHW inside, as PyTorch convolutions expect; the flax module names are kept
 as attribute names so :mod:`pdc_tpu_torch.models.convert` maps weights per
@@ -20,17 +22,22 @@ leaf. What must equal flax:
 
 The mode is torch's: ``module.train()`` normalises with the statistics of
 the batch in hand and updates the running ones, ``module.eval()`` (the
-default after construction) uses the running ones.
+default after construction) uses the running ones. Every convolution is an
+:class:`Int8Conv`; its int8 path runs only in eval mode, as the JAX package
+applies it only with ``train=False``.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from pdc_tpu_torch.ops.int8_conv import int8_conv2d
 
 
 class FlaxBatchNorm2d(nn.BatchNorm2d):
@@ -63,23 +70,128 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
             + self.bias[None, :, None, None]
 
 
+# "/ 127" as the JAX package computes it: XLA compiles a division by a
+# constant into a multiplication by its float32 reciprocal, so every "x / 127"
+# of pdc_tpu/models/resnet.py:64-107 is "x * fl(1/127)" in its jitted forward
+INV_127 = 1.0 / 127.0  # rounds to fl(1/127) where it meets a float32 tensor
+
+
+class Int8Conv(nn.Conv2d):
+    """``nn.Conv2d`` with the int8 post-training-quantized serving path.
+
+    Built on the float path; :func:`set_quantization` switches it. On the
+    float path (``quant_int8`` False), and always in train mode, it IS
+    ``nn.Conv2d``: the same parameters, and gradients of the float path.
+    Otherwise, as ``pdc_tpu/models/resnet.py:64-107`` computes it:
+
+      * activation scale: dynamic ``s_x = max(max|x|, 1e-8) / 127`` over the
+        whole tensor, batch included (so a frame's descriptors depend on the
+        rest of its batch); ``/ 127`` here and below is the multiplication
+        by ``fl(1/127)`` that XLA makes of it (:data:`INV_127`); static
+        (``quant_static``) ``s_x = max(act_scale, 1e-8)`` from the
+        calibrated ``act_scale`` buffer (flax's ``quant_scales``
+        collection, initial value 0);
+      * weights: per output channel ``s_w = max(max|w| over (in, kh, kw),
+        1e-8) / 127``;
+      * ``q = clamp(round(v / s), -127, 127)`` as int8 (a division, and
+        round half to even, as ``jnp.round``);
+      * the s8 x s8 -> s32 product (:func:`~pdc_tpu_torch.ops.int8_conv.int8_conv2d`),
+        then ``y * (s_x * s_w) + bias`` in float32.
+
+    While ``calibrating`` (a static clone during
+    ``DCN.calibrate_quantization``) the layer first raises ``act_scale`` to
+    ``max|x| / 127`` of the input in hand, then quantizes with the updated
+    scale, so later layers observe activations that already went through
+    int8. ``act_scale`` is part of the ``state_dict`` only in a static layer.
+    """
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.calibrating = False
+        self.register_buffer("act_scale", torch.zeros((), dtype=torch.float32))
+        self.set_quantization(False, False)
+
+    def set_quantization(self, quant_int8: bool, quant_static: bool):
+        self.quant_int8, self.quant_static = bool(quant_int8), bool(quant_static)
+        # re-registering keeps the value and sets whether the state_dict holds it
+        self.register_buffer("act_scale", self.act_scale,
+                             persistent=self.quant_int8 and self.quant_static)
+
+    def forward(self, x):
+        if not self.quant_int8 or self.training:
+            return super().forward(x)
+        if self.groups != 1:
+            raise ValueError("the int8 path has no grouped convolutions")
+        xf = x.to(torch.float32)
+        if self.quant_static:
+            if self.calibrating:
+                with torch.no_grad():
+                    self.act_scale.copy_(torch.maximum(self.act_scale, xf.abs().amax() * INV_127))
+            s_x = torch.clamp(self.act_scale, min=1e-8)
+        else:
+            s_x = torch.clamp(xf.abs().amax(), min=1e-8) * INV_127
+        xq = torch.clamp(torch.round(xf / s_x), -127, 127).to(torch.int8)
+        w = self.weight.to(torch.float32)
+        s_w = torch.clamp(w.abs().amax(dim=(1, 2, 3)), min=1e-8) * INV_127
+        wq = torch.clamp(torch.round(w / s_w[:, None, None, None]), -127, 127).to(torch.int8)
+        y = int8_conv2d(xq, wq, self.stride, self.padding, self.dilation)
+        # contiguous NCHW, as F.conv2d's output (the _int_mm route's is a
+        # channels-last view, which consumers of the module's output do not take)
+        out = y.to(torch.float32, memory_format=torch.contiguous_format) \
+            * (s_x * s_w)[None, :, None, None]
+        if self.bias is not None:
+            out = out + self.bias.to(torch.float32)[None, :, None, None]
+        return out
+
+
+def int8_convs(module: nn.Module):
+    """``[(name, Int8Conv)]`` of ``module``, in registration order."""
+    return [(n, m) for n, m in module.named_modules() if isinstance(m, Int8Conv)]
+
+
+def set_quantization(module: nn.Module, quant_int8: bool, quant_static: bool = False):
+    """Switch every :class:`Int8Conv` of ``module`` (and the module's own
+    ``quant_int8``/``quant_static`` fields) to the given path."""
+    for _, conv in int8_convs(module):
+        conv.set_quantization(quant_int8, quant_static)
+    module.quant_int8, module.quant_static = bool(quant_int8), bool(quant_static)
+    return module
+
+
+def quantized_copy(module: nn.Module, static: bool = False) -> nn.Module:
+    """A copy of ``module`` that SHARES its parameters and BatchNorm
+    statistics (the same tensors) and runs the int8 path, with its own
+    ``act_scale`` buffers at 0. ``module`` itself is left as it was."""
+    memo = {id(t): t for t in module.parameters()}
+    memo.update({id(b): b for n, b in module.named_buffers() if not n.endswith("act_scale")})
+    clone = copy.deepcopy(module, memo)
+    for _, conv in int8_convs(clone):
+        conv.act_scale = torch.zeros_like(conv.act_scale)
+        conv.calibrating = False
+    return set_quantization(clone, True, static)
+
+
+def _conv(in_f, out_f, k, stride=1, padding=0, dilation=1, bias=False):
+    return Int8Conv(in_f, out_f, k, stride=stride, padding=padding, dilation=dilation,
+                    bias=bias)
+
+
 class BasicBlock(nn.Module):
     """ResNet v1 basic block with optional dilation (stages 3/4 of -8s)."""
+
+    expansion = 1
 
     def __init__(self, in_features: int, features: int, stride: int = 1,
                  dilation: int = 1):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_features, features, 3, stride=stride,
-                               padding=dilation, dilation=dilation, bias=False)
+        self.conv1 = _conv(in_features, features, 3, stride, dilation, dilation)
         self.bn1 = FlaxBatchNorm2d(features)
-        self.conv2 = nn.Conv2d(features, features, 3, padding=dilation,
-                               dilation=dilation, bias=False)
+        self.conv2 = _conv(features, features, 3, 1, dilation, dilation)
         self.bn2 = FlaxBatchNorm2d(features)
         self.proj_conv: Optional[nn.Conv2d] = None
         self.proj_bn: Optional[FlaxBatchNorm2d] = None
         if in_features != features or stride != 1:
-            self.proj_conv = nn.Conv2d(in_features, features, 1, stride=stride,
-                                       bias=False)
+            self.proj_conv = _conv(in_features, features, 1, stride)
             self.proj_bn = FlaxBatchNorm2d(features)
 
     def forward(self, x):
@@ -89,57 +201,142 @@ class BasicBlock(nn.Module):
         return F.relu(y + residual)
 
 
+class BottleneckBlock(nn.Module):
+    """ResNet v1.5 bottleneck: 1x1 reduce, then the 3x3 carries the stride
+    and the dilation, then 1x1 expand x4 (torchvision's ``Bottleneck``)."""
+
+    expansion = 4
+
+    def __init__(self, in_features: int, features: int, stride: int = 1,
+                 dilation: int = 1):
+        super().__init__()
+        out_features = 4 * features
+        self.conv1 = _conv(in_features, features, 1)
+        self.bn1 = FlaxBatchNorm2d(features)
+        self.conv2 = _conv(features, features, 3, stride, dilation, dilation)
+        self.bn2 = FlaxBatchNorm2d(features)
+        self.conv3 = _conv(features, out_features, 1)
+        self.bn3 = FlaxBatchNorm2d(out_features)
+        self.proj_conv: Optional[nn.Conv2d] = None
+        self.proj_bn: Optional[FlaxBatchNorm2d] = None
+        if in_features != out_features or stride != 1:
+            self.proj_conv = _conv(in_features, out_features, 1, stride)
+            self.proj_bn = FlaxBatchNorm2d(out_features)
+
+    def forward(self, x):
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = F.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        residual = x if self.proj_conv is None else self.proj_bn(self.proj_conv(x))
+        return F.relu(y + residual)
+
+
+def space_to_batch(x: torch.Tensor, d: int) -> torch.Tensor:
+    """``[B, C, H, W]`` -> ``[d*d*B, C, H/d, W/d]``: pixels split by their
+    residue mod ``d``, residues outermost. A 3x3 conv with dilation ``d``
+    and padding ``d`` equals a dense 3x3 conv with padding 1 on every
+    subgrid, zero padding included."""
+    b, c, h, w = x.shape
+    x = x.reshape(b, c, h // d, d, w // d, d).permute(3, 5, 0, 1, 2, 4)
+    return x.reshape(d * d * b, c, h // d, w // d)
+
+
+def batch_to_space(x: torch.Tensor, d: int, b: int) -> torch.Tensor:
+    """Inverse of :func:`space_to_batch` for a batch of ``b``."""
+    _, c, h, w = x.shape
+    x = x.reshape(d, d, b, c, h, w).permute(2, 3, 4, 0, 5, 1)
+    return x.reshape(b, c, h * d, w * d)
+
+
 class ResNetFCN(nn.Module):
     """Dilated ResNet FCN; ``output_stride`` 8 dilates stages 3 and 4.
 
-    ``stage_sizes=(3, 4, 6, 3)`` is ResNet-34, ``(2, 2, 2, 2)`` ResNet-18.
-    Input ``[B, 3, H, W]`` float32, output ``[B, num_classes, H, W]``.
+    ``stage_sizes=(3, 4, 6, 3)`` is ResNet-34 (or ResNet-50 with
+    ``bottleneck=True``), ``(2, 2, 2, 2)`` ResNet-18, ``(3, 4, 23, 3)`` with
+    ``bottleneck=True`` ResNet-101. Input ``[B, 3, H, W]`` float32, output
+    ``[B, num_classes, H, W]``.
+
+    ``dilated_s2b`` (output stride 8 only) runs stages 3 and 4 as dense 3x3
+    convs in space-to-batch layout: one 2x split on entering each, both
+    undone (inner split first) before the head's upsample. The same
+    parameters give the dilated model's output; BatchNorm's statistics are
+    taken over the same pixels. ``H/8`` and ``W/8`` must be divisible by 4.
+    Every convolution is an :class:`Int8Conv` on the float path;
+    :func:`set_quantization` switches them all.
     """
+
+    quant_int8 = quant_static = False  # set by set_quantization
 
     _LAYOUTS = {8: ((1, 2, 1, 1), (1, 1, 2, 4)),
                 16: ((1, 2, 2, 1), (1, 1, 1, 2)),
                 32: ((1, 2, 2, 2), (1, 1, 1, 1))}
 
     def __init__(self, num_classes: int, stage_sizes: Sequence[int] = (3, 4, 6, 3),
-                 output_stride: int = 8):
+                 output_stride: int = 8, bottleneck: bool = False, dilated_s2b: bool = False):
         super().__init__()
         if output_stride not in self._LAYOUTS:
             raise ValueError(f"output_stride must be 8, 16 or 32, got {output_stride}")
         strides, dilations = self._LAYOUTS[output_stride]
-        self.stem_conv = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.use_s2b = bool(dilated_s2b) and output_stride == 8
+        if self.use_s2b:
+            dilations = (1, 1, 1, 1)  # dense convs in space-to-batch layout
+        block_cls = BottleneckBlock if bottleneck else BasicBlock
+        self.stem_conv = _conv(3, 64, 7, 2, 3)
         self.stem_bn = FlaxBatchNorm2d(64)
-        self.block_names = []
+        self.stage_blocks = []
         in_features = 64
         for stage, (blocks, feats) in enumerate(zip(stage_sizes, (64, 128, 256, 512))):
+            names = []
             for block in range(blocks):
                 name = f"stage{stage + 1}_block{block}"
-                self.add_module(name, BasicBlock(
+                self.add_module(name, block_cls(
                     in_features, feats,
                     stride=strides[stage] if block == 0 else 1,
                     dilation=dilations[stage]))
-                self.block_names.append(name)
-                in_features = feats
-        self.head = nn.Conv2d(in_features, num_classes, 1, bias=True)
+                names.append(name)
+                in_features = feats * block_cls.expansion
+            self.stage_blocks.append(names)
+        self.head = _conv(in_features, num_classes, 1, bias=True)
         self.eval()
 
     def forward(self, x):
-        in_h, in_w = x.shape[-2:]
+        batch, in_h, in_w = x.shape[0], x.shape[-2], x.shape[-1]
+        if self.use_s2b and ((in_h // 8) % 4 or (in_w // 8) % 4):
+            raise ValueError(f"dilated_s2b needs H/8 and W/8 divisible by 4, got "
+                             f"input {in_h}x{in_w}")
         x = F.relu(self.stem_bn(self.stem_conv(x)))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
-        for name in self.block_names:
-            x = getattr(self, name)(x)
+        for stage, names in enumerate(self.stage_blocks):
+            if self.use_s2b and stage >= 2:
+                x = space_to_batch(x, 2)
+            for name in names:
+                x = getattr(self, name)(x)
         x = self.head(x)
-        return F.interpolate(x, size=(in_h, in_w), mode="bilinear",
-                             align_corners=False)
+        if self.use_s2b:
+            x = batch_to_space(batch_to_space(x, 2, 4 * batch), 2, batch)
+        return F.interpolate(x, size=(in_h, in_w), mode="bilinear", align_corners=False)
 
 
-def ResNet34_8s(num_classes: int) -> ResNetFCN:
+def ResNet34_8s(num_classes: int, dilated_s2b: bool = False) -> ResNetFCN:
     """The CoRL-2018 default backbone."""
-    return ResNetFCN(num_classes, stage_sizes=(3, 4, 6, 3), output_stride=8)
+    return ResNetFCN(num_classes, stage_sizes=(3, 4, 6, 3), output_stride=8,
+                     dilated_s2b=dilated_s2b)
 
 
-def ResNet18_8s(num_classes: int) -> ResNetFCN:
-    return ResNetFCN(num_classes, stage_sizes=(2, 2, 2, 2), output_stride=8)
+def ResNet18_8s(num_classes: int, dilated_s2b: bool = False) -> ResNetFCN:
+    return ResNetFCN(num_classes, stage_sizes=(2, 2, 2, 2), output_stride=8,
+                     dilated_s2b=dilated_s2b)
+
+
+def ResNet50_8s(num_classes: int, dilated_s2b: bool = False) -> ResNetFCN:
+    return ResNetFCN(num_classes, stage_sizes=(3, 4, 6, 3), output_stride=8,
+                     bottleneck=True, dilated_s2b=dilated_s2b)
+
+
+def ResNet101_8s(num_classes: int, dilated_s2b: bool = False) -> ResNetFCN:
+    """The deeper variant of the paper's backbone ablation."""
+    return ResNetFCN(num_classes, stage_sizes=(3, 4, 23, 3), output_stride=8,
+                     bottleneck=True, dilated_s2b=dilated_s2b)
 
 
 def _truncated_normal_(t: torch.Tensor, std: float, generator: torch.Generator):

@@ -610,6 +610,8 @@ def test_debug_batch_panels_without_matplotlib_raises_naming_it(datasets, tmp_pa
 
 
 def test_heatmap_visualization_reads_its_config_and_refuses_int8(datasets, folder, tmp_path):
+    """``quantize_int8: true`` was refused until int8 serving was ported;
+    now it builds engines on ``dcn.quantized()`` clones."""
     _, ds = datasets
     cfg = load_yaml(os.path.join(ROOT, "configs", "heatmap_vis.yaml"))
     assert cfg == yaml.safe_load(open(os.path.join(ROOT, "configs", "heatmap_vis.yaml")))
@@ -621,8 +623,13 @@ def test_heatmap_visualization_reads_its_config_and_refuses_int8(datasets, folde
     assert heat.shape == (H, W) and 0 <= uv[0] < W and 0 <= uv[1] < H
     path = str(tmp_path / "vis.yaml")
     save_yaml({**cfg, "networks": [name], "quantize_int8": True}, path)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        live.HeatmapVisualization.from_config(ds, path, networks_root=root, device="cpu")
+    qvis = live.HeatmapVisualization.from_config(ds, path, networks_root=root, device="cpu")
+    (qdcn,) = qvis._dcns
+    assert qdcn.module.quant_int8 and not qdcn.module.quant_static
+    assert not vis._dcns[0].module.quant_int8
+    qvis._get_new_images()
+    (uv, _, heat), = qvis._engine.find_best_match(3, 4)
+    assert heat.shape == (H, W) and 0 <= uv[0] < W and 0 <= uv[1] < H
 
 
 def _cli_argv(cmd, folder, tree, tmp_path):
@@ -673,8 +680,27 @@ def test_cli_needs_cuda_unless_cpu_is_asked(cmd, folder, tree, tmp_path, monkeyp
 
 
 @pytest.mark.parametrize("flag", ["--int8", "--int8_static"])
-def test_cli_descriptor_images_refuses_int8(flag, folder, tree, tmp_path, capsys):
-    with pytest.raises(SystemExit) as e:
-        cli.main(_cli_argv("descriptor-images", folder, tree, tmp_path) + [flag])
-    assert e.value.code == 2
-    assert "item 6" in capsys.readouterr().err
+def test_cli_descriptor_images_refuses_int8(flag, folder, tree, tmp_path, monkeypatch, capsys):
+    """The int8 flags were refused (exit 2) until int8 serving was ported;
+    now they write the int8 clone's descriptor images: ``--int8`` the
+    dynamic clone's, ``--int8_static`` those of a clone calibrated on the
+    first scene's first 16 frames. Same frames in the same batches of 3 on
+    the CPU: equal within 1e-6 of the scale (float32 operations repeated)."""
+    monkeypatch.chdir(tmp_path)
+    assert cli.main(_cli_argv("descriptor-images", folder, tree, tmp_path)
+                    + [flag, "--device", "cpu"]) == 0
+    assert "wrote descriptor images for 8 frames" in capsys.readouterr().out
+    ds = SpartanDataset(config=load_yaml(tree["composite"]), data_dir=tree["root"],
+                        config_dir=os.path.dirname(tree["composite"]))
+    dcn = DenseCorrespondenceNetwork.from_model_folder(folder, device="cpu")
+    first = next(iter(ds.scenes.values()))
+    q = (dcn.calibrate_quantization(list(first.rgb[:16]), batch_size=3)
+         if flag == "--int8_static" else dcn.quantized())
+    for name, scene in ds.scenes.items():
+        out = tmp_path / "descriptor_images_out" / name / "descriptor_images" / "net"
+        for start in range(0, scene.num_frames, 3):
+            want = q.forward_on_images(scene.rgb[start:start + 3]).numpy()
+            for j in range(want.shape[0]):
+                got = np.load(out / ("%06d_descriptor.npy" % scene.frame_id(start + j)))
+                np.testing.assert_allclose(got, want[j], rtol=1e-6,
+                                           atol=1e-6 * float(np.abs(want).max()))

@@ -909,3 +909,72 @@ def test_export_and_load_on_the_card(cuda, tmp_path):
     live = dcn.forward_on_images(rgb)
     assert float((first - live).abs().max()) <= 1e-4 * float(live.abs().max())
     assert float((second - first).abs().max()) <= 1e-6
+
+
+# -- int8 serving: the integer product and the trained model's PCK ---------------------------
+
+
+@pytest.mark.parametrize("B,C,h,w,O,k,s,p,d", [
+    (2, 3, 48, 64, 64, 7, 2, 3, 1), (1, 128, 30, 40, 256, 3, 1, 2, 2),
+    (2, 64, 30, 40, 128, 1, 2, 0, 1), (1, 512, 30, 40, 3, 1, 1, 0, 1),
+    (1, 1024, 8, 10, 512, 3, 1, 1, 1), (1, 5, 3, 4, 7, 3, 1, 1, 1),
+    (3, 9, 2, 2, 17, 3, 2, 1, 1), (1, 13, 2, 3, 3, 1, 1, 0, 1)])
+def test_int8_conv_int_mm_equals_plain_on_the_card(cuda, B, C, h, w, O, k, s, p, d):
+    """The torch._int_mm route against the float64 plain version, int32 bit
+    for bit, one counted launch per call (the stem's K=147, a dilated 3x3,
+    a strided 1x1, the head's N=3, the UNet's up3 K=9216, M <= 16 and K, N
+    not multiples of 8)."""
+    from pdc_tpu_torch.ops import int8_conv as ic
+
+    g = torch.Generator(device=cuda).manual_seed(B + C + O + k)
+    x = torch.randint(-127, 128, (B, C, h, w), device=cuda, dtype=torch.int8, generator=g)
+    wq = torch.randint(-127, 128, (O, C, k, k), device=cuda, dtype=torch.int8, generator=g)
+    before = ic.launches
+    got = ic.int8_conv2d(x, wq, s, p, d)
+    assert ic.launches == before + 1
+    assert torch.equal(got, ic.int8_conv2d_reference(x, wq, s, p, d))
+    assert torch.equal(got.cpu(), ic.int8_conv2d_reference(x.cpu(), wq.cpu(), s, p, d))
+
+
+def test_trained_tpu_journey_int8_pck_on_the_card(cuda):
+    """trained_models/tpu_journey on its test split at 50 pairs x 100
+    matches, seed 1, with the int8 and int8-static clones on the card
+    (static scales from 16 train frames, seed 7, batches of 8): PCK@5 and
+    PCK@10 within the band of the committed int8 / int8_static rows of
+    trained_models/quantized_serving/summary.json (3 standard deviations of
+    the PCK over the pairs, plus 0.05), as
+    test_trained_tpu_journey_pck_on_the_card holds the fp32 run."""
+    import json
+
+    from pdc_tpu_torch.evaluation import evaluate as ev
+    from pdc_tpu_torch.evaluation.plotting import cdf_at_threshold
+    from pdc_tpu_torch.models.dcn import DenseCorrespondenceNetwork
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    folder = os.path.join(root, "trained_models", "tpu_journey")
+    summary = os.path.join(root, "trained_models", "quantized_serving", "summary.json")
+    if not (os.path.exists(os.path.join(folder, "003500.ckpt")) and os.path.exists(summary)):
+        pytest.skip("trained_models/tpu_journey/003500.ckpt is not in this copy of the tree")
+    dcn = DenseCorrespondenceNetwork.from_model_folder(folder)
+    train = dcn.load_training_dataset("train")
+    train.reset_seed(7)
+    calib = [train.get_random_rgbd_mask_pose()[0] for _ in range(16)]
+    clones = {"int8": dcn.quantized(), "int8_static": dcn.calibrate_quantization(calib, 8)}
+    ds = ev.DenseCorrespondenceEvaluation.load_dataset_from_model_folder(folder)
+    ds.set_test_mode()
+    with open(summary) as f:
+        rows = json.load(f)["results"]
+    for label, clone in clones.items():
+        t = ev.DenseCorrespondenceEvaluation.evaluate_network_quantitative(
+            clone, ds, num_image_pairs=50, num_matches_per_image_pair=100, seed=1)
+        px = t["pixel_match_error_l2"]
+        keys = [f"{s}/{a}/{b}" for s, a, b in zip(t["scene_name"], t["img_a_idx"],
+                                                  t["img_b_idx"])]
+        for k in (5, 10):
+            per_pair = [float(np.mean(px[[x == key for x in keys]] <= k)) for key in
+                        dict.fromkeys(keys)]
+            margin = 3 * float(np.std(per_pair, ddof=1)) / np.sqrt(len(per_pair))
+            pck = cdf_at_threshold(px, k)
+            print(f"tpu_journey {label} on the card: PCK@{k} {pck:.4f} (summary "
+                  f"{rows[label][f'pck@{k}px']}, margin {margin:.4f} + 0.05)")
+            assert abs(pck - rows[label][f"pck@{k}px"]) <= margin + 0.05

@@ -193,7 +193,13 @@ def test_seeded_init_is_device_independent_and_reproducible():
     {"backbone": {"model_class": "Resnet", "resnet_name": "Resnet34_8s", "pretrained": True}},
 ])
 def test_unported_options_raise(change, tmp_path, monkeypatch):
+    """The options the JAX package offers: the UNet, ResNet-50-8s,
+    dilated_s2b and quant_int8 are ported now and build and run (their
+    numbers are held against pdc_tpu in tests/test_torch_port_variants.py
+    and tests/test_torch_port_int8.py); bfloat16 compute still raises."""
     cfg = {**_cfg(), **change}
+    if change.get("dilated_s2b"):
+        cfg.update(image_width=96, image_height=64)  # H/8 and W/8 divisible by 4
     if "pretrained" in str(change):
         # ported: the ImageNet backbone comes from a local file, and without
         # one from_config raises instead of downloading
@@ -202,10 +208,18 @@ def test_unported_options_raise(change, tmp_path, monkeypatch):
         with pytest.raises(FileNotFoundError):
             DenseCorrespondenceNetwork.from_config(cfg, device="cpu")
         return
-    with pytest.raises(NotImplementedError):
-        DenseCorrespondenceNetwork.from_config(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        build_backbone(cfg)
+    if "compute_dtype" in change:
+        with pytest.raises(NotImplementedError, match="item 6"):
+            DenseCorrespondenceNetwork.from_config(cfg, device="cpu")
+        with pytest.raises(NotImplementedError, match="item 6"):
+            build_backbone(cfg)
+        return
+    dcn = DenseCorrespondenceNetwork.from_config(cfg, device="cpu")
+    h, w = cfg["image_height"], cfg["image_width"]
+    out = dcn.forward_on_img(_frame(3, h=h, w=w))
+    assert out.shape == (h, w, D) and torch.isfinite(out).all()
+    assert type(build_backbone(cfg)) is type(dcn.module)
+    assert dcn.module.quant_int8 == bool(change.get("quant_int8"))
 
 
 @pytest.mark.slow

@@ -398,7 +398,12 @@ def test_shutdown_leaves_no_thread_and_fails_queued(dcn):
 
 
 def test_cli_rejects_unported_options_and_commands(capsys):
-    for flag in ("--int8", "--int8_static", "--data_parallel", "--model_parallel"):
+    # the int8 flags are ported: they parse, and the missing folder is the error
+    for flag in ("--int8", "--int8_static"):
+        with pytest.raises(FileNotFoundError):
+            serve.main(["--model_folder", "x", flag, "--device", "cpu"])
+        assert "not ported" not in capsys.readouterr().err
+    for flag in ("--data_parallel", "--model_parallel"):
         with pytest.raises(SystemExit):
             serve.main(["--model_folder", "x", flag])
         assert "not ported" in capsys.readouterr().err
