@@ -176,6 +176,39 @@ Phases, each fatal on failure:
      static clone launches K3 once per frame over 12 frames, picking the
      float64 best match or a near-tie.
 
+14. compute dtype, remat and preprocessing, "compute dtype, remat and
+     preprocessing" (run after phase 13, before the timings), at 640x480, D=3.
+     It fails unless (a) ResNet-34-8s built with dtype=bfloat16 and the fp32
+     one on the same seeded weights give, at B=1 and B=8 on the synthetic
+     frames, a bfloat16 output within relative RMS 0.03 (and at least 1e-3)
+     and 0.06 of the largest value of the fp32 one (the CPU reads 0.011-0.012
+     and 0.018-0.022); both forward times are printed; (b) ``make_train_step``
+     with TRAINING_CONFIG's values and ``compute_dtype: bfloat16`` takes 5
+     steps with finite metrics, moving weights, fp32 parameters, buffers and
+     Adam state, and K1 and K2 launched twice each per step; one bf16 step
+     and one fp32 step on the same batch and weights agree (loss rtol 0.05,
+     gradient cosine at least 0.6, relative L2 at most 1.0; the CPU reads
+     0.009, 0.84, 0.59); the bf16 step's split against fp32's is printed;
+     (c) ``DenseCorrespondenceTraining`` with ``compute_dtype: bfloat16`` runs
+     3 iterations (K1 and K2 2 per step) and writes fp32 checkpoint and Adam
+     files; ``from_model_folder`` on the folder builds fp32 by default and
+     bf16 on request, their descriptors within relative RMS 0.03; (d)
+     ResNet-101-8s, B=4: one step with ``remat: true`` and one without, on
+     the same batch and weights, agree as phase 6's kernel and plain steps
+     must (loss 1e-5, gradients 1e-4 by relative L2: the backward's atomics,
+     ROADMAP F4), running statistics within 1e-5 and ``num_batches_tracked``
+     1 in both, and remat's peak memory above the step's start is lower
+     (both and the step times are printed); (e) a synthetic 640x480 scene of
+     60 frames with a fusion mesh of 392,064 faces (``write_scene``, then
+     ``write_fusion_mesh(plane_step=0.004, object_step=0.002)``) goes
+     through ``python -m pdc_tpu_torch preprocess`` in this process: every
+     frame's mask, depth and cropped depth PNG is written; on 4 poses the
+     CPU route renders the same masks and millimetres bit for bit; the
+     sorted route equals the binned one on the card bit for bit; the masks'
+     IoU with the scene's own masks is at least 0.8 on every frame (the CPU
+     reads 0.850-0.862); seconds per scene and ms per pose split into host
+     prep, device render, fetch and PNG encode are printed.
+
 The last lines are a JSON object with every kernel's numbers, the
 nvidia-smi line, and ``{"ok": true, "device": {...}}``. Without CUDA, or when the
 package is not beside this script, it exits non-zero and prints no result.
@@ -2511,6 +2544,424 @@ def check_variants_and_int8(torch, np, dev, bm, ph, frames_t, on_disk, tmp):
     return out
 
 
+# -- 14. compute dtype, remat and preprocessing ----------------------------------------------
+
+# (a) ResNet-34-8s bf16 against fp32 on the same weights, relative to the fp32
+# output's RMS and largest value; the port's CPU reading at 96x128 and 240x320
+# (seeded weights, synthetic frames) is RMS 0.011-0.012, max 0.018-0.022
+BF16_FWD_RMS, BF16_FWD_MAX, BF16_FWD_MIN_RMS = 0.03, 0.06, 1e-3
+# (b) one bf16 step against one fp32 step, same batch and weights; the CPU reading
+# (ResNet-34-8s, 96x128, B=2) is a loss 0.9% apart, gradient cosine 0.84 and
+# relative L2 0.59 (bf16's own effect: the backward's roundings compound towards
+# the stem)
+BF16_STEP_LOSS_RTOL, BF16_STEP_GRAD_COS, BF16_STEP_GRAD_REL = 0.05, 0.6, 1.0
+BF16_STEPS, BF16_TIMED_STEPS, BF16_DRIVER_ITERATIONS = 5, 3, 3
+REMAT_TIMED_STEPS = 2
+# (e) a TSDF-scale fusion mesh: 392,064 faces at the default object radius
+PREP_FRAMES, PREP_CPU_POSES = 60, 4
+PREP_MESH = {"plane_step": 0.004, "object_step": 0.002}
+PREP_FACES = (350_000, 450_000)
+# the preprocess masks' IoU with the scene's own (analytic) masks; the CPU
+# reads 0.850-0.862 at 120x160 (4 and 60 poses) and 240x320 (4 poses)
+PREP_IOU_MIN = 0.8
+
+
+def _step_split(torch, state, step, loss_fn, batch, gen, timed):
+    """Mean CUDA-event ms of ``timed`` whole steps, then of their parts
+    (assembly, forward+backward, Adam) over ``timed`` separate steps."""
+    step_ms = []
+    for _ in range(timed):
+        e, b = _events(torch, 2), batch()
+        e[0].record()
+        step(state, b, gen)
+        e[1].record()
+        torch.cuda.synchronize()
+        step_ms.append(e[0].elapsed_time(e[1]))
+    parts = {"assembly": [], "forward+backward": [], "optimizer": []}
+    for _ in range(timed):
+        e, b = _events(torch, 4), batch()
+        e[0].record()
+        assembled = step.assemble(state, b, gen)
+        e[1].record()
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, _ = loss_fn(*assembled)
+        loss.backward()
+        e[2].record()
+        state.optimizer.step()
+        e[3].record()
+        torch.cuda.synchronize()
+        for k, (a, c) in zip(parts, ((0, 1), (1, 2), (2, 3))):
+            parts[k].append(e[a].elapsed_time(e[c]))
+    return sum(step_ms) / len(step_ms), {k: sum(v) / len(v) for k, v in parts.items()}
+
+
+def _step_text(mean, split):
+    return f"{mean:.3f} ms (" + ", ".join(f"{k} {v:.3f}" for k, v in split.items()) + ")"
+
+
+def _grad_distance(torch, a, b):
+    """(cosine, relative L2) of module ``a``'s gradients against ``b``'s."""
+    ga = torch.cat([p.grad.flatten() for p in a.parameters()])
+    gb = torch.cat([p.grad.flatten() for p in b.parameters()])
+    cos = float(torch.nn.functional.cosine_similarity(ga, gb, dim=0))
+    return cos, float((ga - gb).norm() / gb.norm())
+
+
+def check_bf16_forward(torch, np, dev, frames_t):
+    """(a): bf16 and fp32 ResNet-34-8s on the same seeded weights."""
+    from pdc_tpu_torch.models.dcn import DenseCorrespondenceNetwork
+
+    cfg = {"descriptor_dimension": D, "image_width": W, "image_height": H,
+           "backbone": TRAINING_CONFIG["dense_correspondence_network"]["backbone"]}
+    nets = {dt: DenseCorrespondenceNetwork.from_config(
+        cfg, generator=torch.Generator().manual_seed(SEED), device=dev, dtype=dt)
+        for dt in (torch.float32, torch.bfloat16)}
+    sd32, sd16 = (n.module.state_dict() for n in nets.values())
+    if not all(torch.equal(sd32[k], sd16[k]) for k in sd32):
+        fail("the bf16 and fp32 networks do not share their seeded weights")
+    out = {}
+    with torch.inference_mode():
+        for B in (1, 8):
+            x = nets[torch.float32].normalize_on_device(frames_t["rgb"][:B])
+            x = x.permute(0, 3, 1, 2).contiguous()
+            a = nets[torch.float32].module(x)
+            b = nets[torch.bfloat16].module(x)
+            d = b.float() - a
+            rms = float(d.square().mean().sqrt() / a.square().mean().sqrt())
+            mx = float(d.abs().max() / a.abs().max())
+            ms = {str(dt).split(".")[1]: time_cuda(torch, lambda: n.module(x), iters=10)
+                  for dt, n in nets.items()}
+            out[B] = ms
+            log(f"dtype (a): ResNet-34-8s {W}x{H} B={B}, bf16 output {b.dtype}, against fp32 "
+                f"on the same weights: relative RMS {rms:.4g} (bar {BF16_FWD_RMS}, at least "
+                f"{BF16_FWD_MIN_RMS}), max {mx:.4g} of the scale (bar {BF16_FWD_MAX}); forward "
+                f"fp32 {ms['float32']:.3f} ms, bf16 {ms['bfloat16']:.3f} ms "
+                f"({ms['float32'] / ms['bfloat16']:.2f} x)")
+            if b.dtype != torch.bfloat16 or not (BF16_FWD_MIN_RMS <= rms <= BF16_FWD_RMS) \
+                    or not mx <= BF16_FWD_MAX:
+                fail("the bf16 forward is not bf16 or disagrees with fp32")
+    del nets
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_bf16_training(torch, np, dev, ph, frames_t):
+    """(b): make_train_step with compute_dtype bfloat16."""
+    import copy
+
+    from pdc_tpu_torch.data.assembler import AssemblerConfig
+    from pdc_tpu_torch.losses.pixelwise_contrastive import LossConfig
+    from pdc_tpu_torch.training.train import build_loss_fn, make_train_step, pick_assembly
+
+    tc16 = copy.deepcopy(TRAINING_CONFIG)
+    tc16["dense_correspondence_network"]["compute_dtype"] = "bfloat16"
+    loss_cfg = LossConfig.from_dict(tc16["loss_function"])
+    asm_cfg = AssemblerConfig.from_training_config(tc16)
+    Bt = tc16["training"]["batch_size"]
+    rng = np.random.default_rng(SEED + 14)
+
+    def batch():
+        return pair_batch(torch, frames_t, *draw_pairs(np, rng, Bt, N_FRAMES))
+
+    state = new_train_state(torch, tc16)
+    if state.module.dtype != torch.bfloat16:
+        fail("compute_dtype bfloat16 did not build a bf16 network")
+    initial = {k: v.detach().clone() for k, v in state.module.named_parameters()}
+    step = make_train_step(tc16, loss_cfg, asm_cfg, W)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    batches = [batch() for _ in range(BF16_STEPS)]
+    ph.forward_launches = ph.backward_launches = 0
+    history = [{k: float(v) for k, v in step(state, b, gen).items()} for b in batches]
+    torch.cuda.synchronize()
+    launches = (ph.forward_launches, ph.backward_launches)
+    finite = all(np.isfinite(v) for m in history for v in m.values())
+    still = [k for k, v in state.module.named_parameters()
+             if v.dim() > 1 and torch.equal(v.detach(), initial[k])]
+    fp32 = all(p.dtype == torch.float32 for p in state.module.parameters()) and all(
+        t.dtype == torch.float32 for s in state.optimizer.state.values()
+        for t in (s["exp_avg"], s["exp_avg_sq"])) and all(
+        b.dtype != torch.bfloat16 for b in state.module.buffers())
+    log(f"dtype (b): ResNet-34-8s bf16 {W}x{H} B={Bt}, {BF16_STEPS} steps through "
+        f"make_train_step: losses [{', '.join(f'{m['loss']:.6g}' for m in history)}], all "
+        f"metrics finite {finite}; weight tensors unchanged {len(still)}; parameters, "
+        f"buffers and Adam state fp32: {fp32}; launches K1 {launches[0]}, K2 {launches[1]} "
+        f"(2 per step expected)")
+    if not finite or still or not fp32 or launches != (2 * BF16_STEPS, 2 * BF16_STEPS):
+        fail("the bf16 train step failed its checks")
+
+    # one bf16 step and one fp32 step on the same batch and weights
+    s16, s32 = new_train_state(torch, tc16), new_train_state(torch, TRAINING_CONFIG)
+    assembled = step.assemble(s16, batch(), torch.Generator(device=dev).manual_seed(SEED + 3))
+    m16 = step.update(s16, *assembled)
+    m32 = make_train_step(TRAINING_CONFIG, loss_cfg, asm_cfg, W).update(s32, *assembled)
+    l16, l32 = float(m16["loss"]), float(m32["loss"])
+    cos, rel = _grad_distance(torch, s16.module, s32.module)
+    log(f"dtype (b): one bf16 step against one fp32 step, same batch and weights: loss "
+        f"{l16:.6g} vs {l32:.6g} (rtol {BF16_STEP_LOSS_RTOL}), gradient cosine {cos:.4f} (at "
+        f"least {BF16_STEP_GRAD_COS}), relative L2 {rel:.4f} (at most {BF16_STEP_GRAD_REL})")
+    if abs(l16 - l32) > BF16_STEP_LOSS_RTOL * abs(l32) or cos < BF16_STEP_GRAD_COS \
+            or rel > BF16_STEP_GRAD_REL:
+        fail("the bf16 step disagrees with the fp32 step")
+    del s16, s32, assembled
+    # the split of a step, bf16 against fp32, in this call
+    timings = {}
+    for name, st, tc in (("bf16", state, tc16),
+                         ("fp32", new_train_state(torch, TRAINING_CONFIG), TRAINING_CONFIG)):
+        stp = make_train_step(tc, loss_cfg, asm_cfg, W)
+        stp(st, batch(), gen)  # warm-up
+        loss_fn = build_loss_fn(st.module, loss_cfg, W, pick_assembly(asm_cfg)[1])
+        timings[name] = _step_split(torch, st, stp, loss_fn, batch, gen, BF16_TIMED_STEPS)
+        del st, stp, loss_fn
+        torch.cuda.empty_cache()
+    log(f"dtype (b): train step ResNet-34-8s {W}x{H} B={Bt} (CUDA events, "
+        f"{BF16_TIMED_STEPS} steps after a warm-up): bf16 {_step_text(*timings['bf16'])}; "
+        f"fp32 {_step_text(*timings['fp32'])}; bf16 {timings['fp32'][0] / timings['bf16'][0]:.2f}"
+        f" x faster; {1e3 * Bt / timings['bf16'][0]:.2f} pairs/s")
+    return {"launches": launches, "timings": timings}
+
+
+def check_bf16_driver(torch, np, dev, ph, tmp):
+    """(c): DenseCorrespondenceTraining with compute_dtype bfloat16, then the
+    folder through from_model_folder in fp32 and in bf16."""
+    from pdc_tpu_torch.data.dataset import SpartanDataset
+    from pdc_tpu_torch.models.checkpoint import read_checkpoint
+    from pdc_tpu_torch.models.dcn import DenseCorrespondenceNetwork
+    from pdc_tpu_torch.training.train import DenseCorrespondenceTraining
+
+    cfg = driver_config(tmp, "bf16_driver", num_iterations=BF16_DRIVER_ITERATIONS,
+                        save_rate=BF16_DRIVER_ITERATIONS, logging_rate=BF16_DRIVER_ITERATIONS,
+                        compute_test_loss=False)
+    cfg["dense_correspondence_network"]["compute_dtype"] = "bfloat16"
+    ds = SpartanDataset.from_dataset_config(DATASET_RECORD, mode="train")
+    trainer = DenseCorrespondenceTraining(cfg, ds, device=dev)
+    ph.forward_launches = ph.backward_launches = 0
+    t = time.perf_counter()
+    folder = trainer.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t
+    launches = (ph.forward_launches, ph.backward_launches)
+    losses = trainer._logging_dict["train"]["loss"]
+    tag = "%06d" % BF16_DRIVER_ITERATIONS
+    leaves = flatten(read_checkpoint(os.path.join(folder, tag + ".ckpt")))
+    leaves.update(flatten(read_checkpoint(os.path.join(folder, tag + ".ckpt.opt"))))
+    floats = [np.asarray(v) for v in leaves.values() if np.asarray(v).dtype.kind == "f"]
+    ckpt_fp32 = bool(floats) and all(v.dtype == np.float32 for v in floats)
+    d32 = DenseCorrespondenceNetwork.from_model_folder(folder, device=dev)
+    d16 = DenseCorrespondenceNetwork.from_model_folder(folder, device=dev,
+                                                       dtype=torch.bfloat16)
+    rgb = ds.get_random_rgbd_mask_pose()[0]
+    with torch.inference_mode():
+        r32, r16 = d32.forward_on_img(rgb), d16.forward_on_img(rgb)
+        rms = float((r16.float() - r32).square().mean().sqrt() / r32.square().mean().sqrt())
+    log(f"dtype (c): DenseCorrespondenceTraining, compute_dtype bfloat16, route "
+        f"{trainer.route!r}, {BF16_DRIVER_ITERATIONS} iterations in {run_s:.2f} s: losses "
+        f"{[round(float(x), 6) for x in losses]}; K1/K2 launches {launches}; checkpoint and "
+        f"Adam state fp32: {ckpt_fp32}; from_model_folder builds {d32.module.dtype} by "
+        f"default and {d16.module.dtype} on request, their descriptors {rms:.4g} apart "
+        f"(relative RMS, bar {BF16_FWD_RMS})")
+    if (not ckpt_fp32 or d32.module.dtype != torch.float32 or d16.module.dtype != torch.bfloat16
+            or r16.dtype != torch.bfloat16 or not rms <= BF16_FWD_RMS
+            or not all(np.isfinite(float(x)) for x in losses)
+            or launches != (2 * BF16_DRIVER_ITERATIONS, 2 * BF16_DRIVER_ITERATIONS)):
+        fail("the bf16 training driver failed its checks")
+    return {"launches": launches, "run_s": run_s}
+
+
+def check_remat(torch, np, dev, frames_t):
+    """(d): ResNet-101-8s, one step with remat and one without."""
+    import copy
+
+    from pdc_tpu_torch.data.assembler import AssemblerConfig
+    from pdc_tpu_torch.losses.pixelwise_contrastive import LossConfig
+    from pdc_tpu_torch.training.train import make_train_step
+
+    tc = copy.deepcopy(TRAINING_CONFIG)
+    tc["dense_correspondence_network"]["backbone"] = {"model_class": "Resnet",
+                                                      "resnet_name": "Resnet101_8s"}
+    loss_cfg = LossConfig.from_dict(tc["loss_function"])
+    asm_cfg = AssemblerConfig.from_training_config(tc)
+    Bt = tc["training"]["batch_size"]
+    rng = np.random.default_rng(SEED + 15)
+    step = make_train_step(tc, loss_cfg, asm_cfg, W)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    runs, assembled = {}, None
+    for remat in (False, True):
+        state = new_train_state(torch, dict(tc, dense_correspondence_network=dict(
+            tc["dense_correspondence_network"], remat=remat)))
+        if assembled is None:
+            assembled = step.assemble(state, pair_batch(torch, frames_t, *draw_pairs(
+                np, rng, Bt, N_FRAMES)), torch.Generator(device=dev).manual_seed(SEED + 5))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        e = _events(torch, 2)
+        e[0].record()
+        metrics = step.update(state, *assembled)
+        e[1].record()
+        torch.cuda.synchronize()
+        runs[remat] = {"state": state, "loss": float(metrics["loss"]),
+                       "peak": torch.cuda.max_memory_allocated(),
+                       "above": torch.cuda.max_memory_allocated() - base,
+                       "ms": [e[0].elapsed_time(e[1])]}
+    a, b = runs[False], runs[True]
+    _, rel = _grad_distance(torch, b["state"].module, a["state"].module)
+    stats_err, tracked = 0.0, set()
+    for (n, x), y in zip(a["state"].module.state_dict().items(),
+                         b["state"].module.state_dict().values()):
+        if "running" in n:
+            stats_err = max(stats_err, float((x - y).abs().max()) / max(1.0, float(x.abs().max())))
+        elif n.endswith("num_batches_tracked"):
+            tracked |= {int(x), int(y)}
+    for r in runs.values():
+        for _ in range(REMAT_TIMED_STEPS):
+            e = _events(torch, 2)
+            bt = pair_batch(torch, frames_t, *draw_pairs(np, rng, Bt, N_FRAMES))
+            e[0].record()
+            step(r["state"], bt, gen)
+            e[1].record()
+            torch.cuda.synchronize()
+            r["ms"].append(e[0].elapsed_time(e[1]))
+    log(nvidia_smi_line())
+    log(f"remat (d): ResNet-101-8s fp32 {W}x{H} B={Bt}, one step with remat and one without, "
+        f"same batch and weights: loss {b['loss']:.8g} vs {a['loss']:.8g}, gradients relative "
+        f"L2 {rel:.3g} (bar {STEP_GRAD_RTOL}), running statistics {stats_err:.3g} of their "
+        f"scale (bar {STEP_LOSS_RTOL}), num_batches_tracked {sorted(tracked)} (1 expected); "
+        f"peak memory (torch.cuda.max_memory_allocated) above the step's start: remat "
+        f"{b['above'] / 2**30:.3f} GiB against {a['above'] / 2**30:.3f} GiB without (peaks "
+        f"{b['peak'] / 2**30:.3f} and {a['peak'] / 2**30:.3f} GiB, the first state still held "
+        f"in the second); step ms (CUDA events, the compared step then {REMAT_TIMED_STEPS} "
+        f"more) remat [{', '.join(f'{x:.3f}' for x in b['ms'])}] against "
+        f"[{', '.join(f'{x:.3f}' for x in a['ms'])}]")
+    if (abs(a["loss"] - b["loss"]) > STEP_LOSS_RTOL * abs(a["loss"]) or rel > STEP_GRAD_RTOL
+            or stats_err > STEP_LOSS_RTOL or tracked != {1} or not b["above"] < a["above"]):
+        fail("remat disagrees with the step without it, or does not save memory")
+    out = {k: {"peak": r["peak"], "above": r["above"], "ms": r["ms"]} for k, r in runs.items()}
+    del runs, a, b, assembled
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_preprocess(torch, np, dev, tmp):
+    """(e): python -m pdc_tpu_torch preprocess on a 640x480 scene of
+    PREP_FRAMES frames with a TSDF-scale fusion mesh."""
+    import contextlib
+    import io
+    import shutil
+
+    from pdc_tpu_torch import __main__ as cli
+    from pdc_tpu_torch.data import native_loader as nl
+    from pdc_tpu_torch.data.synthetic import SyntheticScene
+    from pdc_tpu_torch.pipeline import change_detection as cdm
+    from pdc_tpu_torch.pipeline import renderer as pr
+    from pdc_tpu_torch.utils.yaml_io import load_yaml
+
+    root = os.path.join(tmp, "preprocess", "logs_proto")
+    scene = SyntheticScene(width=W, height=H, num_frames=PREP_FRAMES)
+    t = time.perf_counter()
+    processed = scene.write_scene(os.path.join(root, "scene_000"))
+    scene.write_fusion_mesh(processed, **PREP_MESH)
+    write_s = time.perf_counter() - t
+    own = np.zeros((PREP_FRAMES, H, W), np.uint8)
+    nl.decode_batch([(os.path.join(processed, "image_masks", "%06d_mask.png" % i),
+                      nl.KIND_MASK8, own[i]) for i in range(PREP_FRAMES)], H, W)
+    for d in ("image_masks", "rendered_images"):
+        shutil.rmtree(os.path.join(processed, d))
+
+    totals = {}
+    restore = [_timer(torch, pr, "prepare_sorted_render", totals, "host prep"),
+               _timer(torch, pr, "_render_prepared", totals, "device render"),
+               _timer(torch, pr, "_packed", totals, "device render"),
+               _timer(torch, pr, "unpack_scene_products", totals, "fetch and unpack"),
+               _timer(torch, nl, "encode_batch", totals, "PNG encode"),
+               _timer(torch, pr, "read_ply_mesh", totals, "mesh read")]
+    try:
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as said:
+            cli.main(["preprocess", "--data_dir", root])
+        cmd_s = time.perf_counter() - t
+    finally:
+        for r in restore:
+            r()
+    masks_dir, depth_dir = (os.path.join(processed, d) for d in ("image_masks", "rendered_images"))
+    missing = [p for i in range(PREP_FRAMES) for p in (
+        os.path.join(masks_dir, "%06d_mask.png" % i),
+        os.path.join(depth_dir, "%06d_depth.png" % i),
+        os.path.join(depth_dir, "%06d_depth_cropped.png" % i)) if not os.path.isfile(p)]
+    mask = np.zeros((PREP_FRAMES, H, W), np.uint8)
+    crop = np.zeros((PREP_FRAMES, H, W), np.uint16)
+    full = np.zeros((PREP_FRAMES, H, W), np.uint16)
+    if not missing:
+        nl.decode_batch([(os.path.join(masks_dir, "%06d_mask.png" % i), nl.KIND_MASK8, mask[i])
+                         for i in range(PREP_FRAMES)]
+                        + [(os.path.join(depth_dir, "%06d_depth_cropped.png" % i),
+                            nl.KIND_GRAY16, crop[i]) for i in range(PREP_FRAMES)]
+                        + [(os.path.join(depth_dir, "%06d_depth.png" % i), nl.KIND_GRAY16,
+                            full[i]) for i in range(PREP_FRAMES)], H, W)
+    verts, faces = pr.read_ply_mesh(os.path.join(processed, "fusion_mesh.ply"))
+    per_pose = {k: 1e3 * v / PREP_FRAMES for k, v in totals.items()}
+    log(nvidia_smi_line())
+    log(f"preprocess (e): a {W}x{H} scene of {PREP_FRAMES} frames, fusion mesh of {len(faces)} "
+        f"faces and {len(verts)} vertices (written in {write_s:.2f} s); python -m "
+        f"pdc_tpu_torch preprocess said {said.getvalue().strip()!r} in {cmd_s:.3f} s = "
+        f"{1e3 * cmd_s / PREP_FRAMES:.3f} ms per pose; per pose: " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in per_pose.items())
+        + "; files missing: " + str(len(missing)))
+    if missing or not PREP_FACES[0] <= len(faces) <= PREP_FACES[1]:
+        fail(f"preprocess: {len(missing)} files missing, or the mesh has {len(faces)} faces")
+
+    # 4 poses on the CPU route, held to the card's PNGs bit for bit
+    c, structure = cdm.ChangeDetection.from_data_folder(processed, device="cpu")
+    c.set_crop_box(cdm.OrientedCropBox.from_station_config(
+        load_yaml(os.path.join(processed, "crop_box.yaml"))))
+    poses = structure.load_pose_data()
+    sel = np.linspace(0, PREP_FRAMES - 1, PREP_CPU_POSES).astype(int)
+    stack = np.stack([poses[int(i)] for i in sel])
+    t = time.perf_counter()
+    m_cpu, crop_cpu, full_cpu = pr.render_scene_products(
+        c.points, c._fg_faces, c.faces, stack, c.K, H, W, 1000.0, device="cpu")
+    cpu_s = time.perf_counter() - t
+    differ = {"mask": int((m_cpu != (mask[sel] > 0)).sum()),
+              "depth_cropped": int((crop_cpu != crop[sel]).sum()),
+              "depth": int((full_cpu != full[sel]).sum())}
+    # the sorted route against the binned one, on the card
+    t = time.perf_counter()
+    d_sorted = pr.render_depth_from_mesh_sorted_many(verts, faces, stack, c.K, H, W, device=dev)
+    torch.cuda.synchronize()
+    sorted_ms = 1e3 * (time.perf_counter() - t) / len(sel)
+    t = time.perf_counter()
+    d_binned = pr.render_depth_from_mesh_binned_many(verts, faces, stack, c.K, H, W,
+                                                     device=dev)
+    torch.cuda.synchronize()
+    binned_ms = 1e3 * (time.perf_counter() - t) / len(sel)
+    routes_equal = torch.equal(d_sorted, d_binned)
+    inter = ((mask > 0) & (own > 0)).sum(axis=(1, 2))
+    union = ((mask > 0) | (own > 0)).sum(axis=(1, 2))
+    iou = inter / np.maximum(union, 1)
+    log(f"preprocess (e): poses {sel.tolist()} on the CPU route ({cpu_s:.2f} s) against the "
+        f"card's PNGs, differing pixels {differ} (0 expected); render_depth_from_mesh_sorted_"
+        f"many equals the binned route on the card bit for bit: {routes_equal} ({sorted_ms:.3f}"
+        f" against {binned_ms:.3f} ms per pose, host prep included); mask IoU with the "
+        f"scene's own masks: min {iou.min():.4f}, mean {iou.mean():.4f} (bar {PREP_IOU_MIN})")
+    if any(differ.values()) or not routes_equal or iou.min() < PREP_IOU_MIN:
+        fail("preprocess: the card's renders disagree with the CPU route or the scene")
+    return {"seconds": cmd_s, "per_pose": per_pose, "faces": len(faces),
+            "iou": (float(iou.min()), float(iou.mean()))}
+
+
+def check_compute_dtype_and_preprocess(torch, np, dev, ph, frames_t, tmp):
+    """The phase "compute dtype, remat and preprocessing": (a)-(e) of the
+    module docstring. Returns what the kernels line and timings read."""
+    out = {"forward": check_bf16_forward(torch, np, dev, frames_t)}
+    out["train"] = check_bf16_training(torch, np, dev, ph, frames_t)
+    torch.cuda.empty_cache()
+    out["driver"] = check_bf16_driver(torch, np, dev, ph, tmp)
+    torch.cuda.empty_cache()
+    out["remat"] = check_remat(torch, np, dev, frames_t)
+    out["preprocess"] = check_preprocess(torch, np, dev, tmp)
+    torch.cuda.empty_cache()
+    return out
+
+
 def flatten(tree, prefix=""):
     """{'a/b': leaf} of a nested dict."""
     out = {}
@@ -2859,6 +3310,12 @@ def main():
         variants = check_variants_and_int8(torch, np, dev, bm, ph, frames_t, on_disk, tree)
         torch.cuda.empty_cache()
         phase("model variants and int8", t0)
+
+        # 14. compute dtype, remat and preprocessing ------------------------------------
+        t0 = time.perf_counter()
+        dtype14 = check_compute_dtype_and_preprocess(torch, np, dev, ph, frames_t, tree)
+        dtype14["phase_s"] = time.perf_counter() - t0
+        phase("compute dtype, remat and preprocessing", t0)
     finally:
         shutil.rmtree(tree, ignore_errors=True)
 
@@ -3139,7 +3596,9 @@ def main():
                                      "on-disk training": on_disk["k1"],
                                      "smo matrix": pair_smo["smo"]["launches"][0],
                                      "ResNet-101-8s step": variants["train"]["Resnet101_8s"][0],
-                                     "UNet step": variants["train"]["Unet"][0]},
+                                     "UNet step": variants["train"]["Unet"][0],
+                                     "bf16 step": dtype14["train"]["launches"][0],
+                                     "bf16 driver": dtype14["driver"]["launches"][0]},
                 "max_abs_err": k1_err, "ms": k1_ms, "device_ms": k1_ms,
                 "wrapper_ms": k1_wrapper, "plain_ms": p1_ms, "bound_ms": b1_ms,
                 "bound_by": b1_by, "library_ms": None}
@@ -3150,7 +3609,9 @@ def main():
                                      "on-disk training": on_disk["k2"],
                                      "smo matrix": pair_smo["smo"]["launches"][1],
                                      "ResNet-101-8s step": variants["train"]["Resnet101_8s"][1],
-                                     "UNet step": variants["train"]["Unet"][1]},
+                                     "UNet step": variants["train"]["Unet"][1],
+                                     "bf16 step": dtype14["train"]["launches"][1],
+                                     "bf16 driver": dtype14["driver"]["launches"][1]},
                 "max_abs_err": k2_err, "ms": k2_ms, "device_ms": k2_ms,
                 "wrapper_ms": k2_wrapper, "plain_ms": p2_ms, "bound_ms": b2_ms,
                 "bound_by": b2_by, "library_ms": None}

@@ -10,12 +10,19 @@ Ported commands:
     python -m pdc_tpu_torch descriptor-images --model_folder <folder> --config <composite.yaml>
     python -m pdc_tpu_torch descriptor-video --model_folder <folder> --config <composite.yaml>
     python -m pdc_tpu_torch debug-vis view|debug --config <composite.yaml>
+    python -m pdc_tpu_torch preprocess --data_dir <root>/logs_proto
 
 Each runs on the CUDA card unless ``--device cpu`` is given (``--platform
 cpu`` for export-serving), and raises without CUDA otherwise. ``python -m
 pdc_tpu_torch <command> --help`` lists a command's options. The other
-``python -m pdc_tpu`` commands (preprocess, config-gen, experiment, ...) are
-still to be ported (see ROADMAP.md).
+``python -m pdc_tpu`` commands (config-gen, experiment, ...) are still to be
+ported (see ROADMAP.md).
+
+``preprocess`` renders every scene's object masks and depth images
+(``image_masks/%06d_mask.png``, ``rendered_images/%06d_depth.png`` and
+``_depth_cropped.png``) from its ``fusion_mesh.ply``, skipping scenes that
+have them unless ``--redo``; ``--config_file`` takes a station crop box,
+else one is fitted per scene, and ``--no_depth`` skips the full depth.
 
 ``evaluate`` writes ``descriptor_statistics.yaml`` into the model folder and
 the train and test sweeps' ``data.csv`` and ``stats.yaml`` (PCK at 5-100
@@ -65,7 +72,8 @@ DELEGATED = {"serve": "pdc_tpu_torch.apps.serve",
              "export-serving": "pdc_tpu_torch.apps.export_serving",
              "descriptor-images": "pdc_tpu_torch.apps.compute_descriptor_images",
              "descriptor-video": "pdc_tpu_torch.apps.make_descriptor_video",
-             "debug-vis": "pdc_tpu_torch.apps.debug_visualization"}
+             "debug-vis": "pdc_tpu_torch.apps.debug_visualization",
+             "preprocess": "pdc_tpu_torch.pipeline.preprocessing"}
 PARALLEL_FLAGS = ("data_parallel", "fsdp", "tensor_parallel", "pipeline")
 
 

@@ -7,7 +7,8 @@ float32 descriptor images, ``%06d_descriptor.npy`` named by each frame's
 on-disk file index. Frames go through the network in batches: uint8 to the
 device, normalised there, one eval-mode forward per batch. The JAX package
 pads the last batch to keep one compiled shape; the port runs it as it is,
-which gives the same numbers.
+which gives the same numbers. A bfloat16 network's descriptor images are
+saved upcast to float32 (numpy has no bfloat16; the values are the same).
 
     python -m pdc_tpu_torch descriptor-images --model_folder <folder> \\
         --config <composite.yaml> --data_dir <root> [--device cpu]
@@ -39,7 +40,7 @@ def compute_descriptor_images_for_scene(dcn, scene, out_dir: str, batch_size: in
     for start in range(0, n, batch_size):
         stop = min(start + batch_size, n)
         t0 = time.perf_counter()
-        res = dcn.forward_on_images(scene.rgb[start:stop]).cpu().numpy()
+        res = dcn.forward_on_images(scene.rgb[start:stop]).to(torch.float32).cpu().numpy()
         t1 = time.perf_counter()
         for j, pos in enumerate(range(start, stop)):
             # named by the frame's on-disk %06d index (reference

@@ -57,7 +57,7 @@ def make_descriptor_images(dcn, scene, save_images_dir: str, batch_size: int = 8
     n = scene.num_frames
     for start in range(0, n, batch_size):
         stop = min(start + batch_size, n)
-        res = dcn.forward_on_images(scene.rgb[start:stop]).cpu().numpy()
+        res = dcn.forward_on_images(scene.rgb[start:stop]).to(torch.float32).cpu().numpy()
         for j, idx in enumerate(range(start, stop)):
             write_png(os.path.join(save_images_dir, "%06d_rgb.png" % idx), scene.rgb[idx])
             res_u8 = descriptor_rgb(res[j], stats)

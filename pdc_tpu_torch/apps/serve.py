@@ -232,7 +232,8 @@ class DescriptorServer:
         dist [n, Q] or None), all on the device."""
         x = torch.from_numpy(frames).to(self._device).to(torch.float32)
         x = (x / 255.0 - self._mean) / self._std
-        out = self._module(x.permute(0, 3, 1, 2).contiguous())
+        # float32 whatever the compute dtype, as pdc_tpu's server returns it
+        out = self._module(x.permute(0, 3, 1, 2).contiguous()).to(torch.float32)
         if queries is None:
             return out, None, None
         q = torch.from_numpy(queries).to(self._device)

@@ -13,7 +13,8 @@ Where the JAX package vmaps one pair at a time, everything here carries a
 leading batch axis ``B``: the pooled hinge of all pairs is one K1 launch
 forward and one K2 launch backward per pool kind
 (:mod:`pdc_tpu_torch.ops.pooled_hinge`). Descriptor rows are gathered with
-``index_select`` from the ``[B*HW, D]`` table of predictions.
+``take_rows`` from the ``[B*HW, D]`` table of predictions and upcast to
+float32, so K1 and K2 take float32 rows under a bfloat16 network too.
 """
 
 from __future__ import annotations

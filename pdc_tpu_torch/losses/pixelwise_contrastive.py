@@ -10,11 +10,10 @@ images ``[..., H*W, D]`` (n = v*W + u), indices ``[..., N]`` with a
 validity mask ``[..., N]``; invalid rows contribute exactly zero and counts
 are mask sums.
 
-Rows are gathered with ``index_select`` from the ``[B*HW, D]`` table, whose
-backward is an ``index_add``: the function that the JAX package's
-``take_rows`` computes with one-hot matmuls on the TPU (its bf16 rounding
-of the cotangent under bf16 predictions is not reproduced; the port's
-predictions are float32).
+Rows are gathered from the ``[B*HW, D]`` table with
+:func:`~pdc_tpu_torch.ops.scatter_free.take_rows` (an ``index_select``
+whose backward is a float32 ``index_add``, with the JAX package's bfloat16
+rounding of the cotangent under bfloat16 predictions) and upcast to float32.
 """
 
 from __future__ import annotations
@@ -22,6 +21,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from pdc_tpu_torch.ops.scatter_free import take_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,7 +49,11 @@ class LossConfig:
 def gather_rows(image_pred, indices, valid):
     """Rows of ``image_pred [..., HW, D]`` at flat ``indices [..., N]``, as
     float32 ``[..., N, D]``; invalid rows read pixel 0 (their terms are
-    masked out downstream)."""
+    masked out downstream). The gather is
+    :func:`~pdc_tpu_torch.ops.scatter_free.take_rows`, as in
+    ``pdc_tpu/losses/pixelwise_contrastive.py:46-60``: the rows are upcast
+    after it, so the loss is float32 whatever the network's compute dtype,
+    and a bfloat16 prediction's gradient is summed in float32."""
     lead, (HW, D) = image_pred.shape[:-2], image_pred.shape[-2:]
     N = indices.shape[-1]
     n = 1
@@ -56,7 +61,7 @@ def gather_rows(image_pred, indices, valid):
         n *= x
     idx = torch.where(valid, indices.to(torch.int64), 0).reshape(n, N)
     idx = idx + torch.arange(n, device=idx.device)[:, None] * HW
-    rows = image_pred.reshape(n * HW, D).index_select(0, idx.reshape(-1))
+    rows = take_rows(image_pred.reshape(n * HW, D), idx.reshape(-1))
     return rows.reshape(lead + (N, D)).to(torch.float32)
 
 

@@ -57,30 +57,33 @@ _FACTORIES = {"Resnet18_8s": ResNet18_8s, "Resnet34_8s": ResNet34_8s,
               "Resnet50_8s": ResNet50_8s, "Resnet101_8s": ResNet101_8s}
 
 
-def build_backbone(config: dict):
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def build_backbone(config: dict, dtype=None):
     """The FCN for a ``dense_correspondence_network`` config block
     (``pdc_tpu/models/dcn.py:51-86``): ``backbone.model_class`` ``Resnet``
-    (``resnet_name`` Resnet18/34/50/101_8s, with ``dilated_s2b``) or
-    ``Unet``, and ``quant_int8`` (the int8 serving convolutions; training
-    runs the float ones). ``compute_dtype`` other than float32 raises
-    ``NotImplementedError``: bfloat16 is the remainder of the model-variants
-    slice (ROADMAP queue 1 item 6). ``remat`` only changes the training
-    backward in the JAX package and has no effect here.
+    (``resnet_name`` Resnet18/34/50/101_8s, with ``dilated_s2b`` and
+    ``remat``) or ``Unet``, and ``quant_int8`` (the int8 serving
+    convolutions; training runs the float ones). The compute dtype is
+    ``dtype`` when given, else the config's ``compute_dtype`` (``float32``
+    or ``bfloat16``); the parameters are float32 either way.
     """
     backbone = config.get("backbone", {"model_class": "Resnet", "resnet_name": "Resnet34_8s"})
-    if config.get("compute_dtype", "float32") != "float32":
-        raise NotImplementedError(
-            f"compute_dtype {config['compute_dtype']!r} is not ported yet: only float32 runs; "
-            "bfloat16 waits for the remainder of the model-variants slice (ROADMAP queue 1 "
-            "item 6)")
+    if dtype is None:
+        name = config.get("compute_dtype", "float32")
+        if name not in _DTYPES:
+            raise ValueError(f"unsupported compute_dtype {name!r}: float32 or bfloat16")
+        dtype = _DTYPES[name]
     d = config["descriptor_dimension"]
     if backbone["model_class"] == "Resnet":
         name = backbone.get("resnet_name", "Resnet34_8s")
         if name not in _FACTORIES:
             raise ValueError(f"unsupported resnet_name: {name}")
-        fcn = _FACTORIES[name](d, dilated_s2b=bool(config.get("dilated_s2b", False)))
+        fcn = _FACTORIES[name](d, dilated_s2b=bool(config.get("dilated_s2b", False)),
+                               dtype=dtype, remat=bool(config.get("remat", False)))
     elif backbone["model_class"] == "Unet":
-        fcn = UNet(d)
+        fcn = UNet(d, dtype=dtype)
     else:
         raise ValueError(f"unknown backbone model_class: {backbone['model_class']}")
     if config.get("quant_int8", False):
@@ -179,7 +182,9 @@ class DenseCorrespondenceNetwork:
         whatever the module's mode (restored afterwards, also on an error).
 
         :param img_tensor: [B, H, W, 3] float32 (NHWC, as in ``pdc_tpu``)
-        :return: [B, H, W, D] float32 descriptor images on ``self.device``
+        :return: [B, H, W, D] descriptor images on ``self.device``, in the
+            module's output dtype (bfloat16 from a bfloat16 ResNet, as in
+            ``pdc_tpu``; consumers upcast where they accumulate)
         """
         x = torch.as_tensor(img_tensor, dtype=torch.float32, device=self.device)
         modes = [(m, m.training) for m in self.module.modules()]
@@ -279,9 +284,13 @@ class DenseCorrespondenceNetwork:
     @staticmethod
     def from_config(config: dict, generator: Optional[torch.Generator] = None,
                     load_stored_params: bool = False,
-                    model_param_file: Optional[str] = None, device="cuda"):
+                    model_param_file: Optional[str] = None, device="cuda",
+                    dtype=torch.float32):
         """Build (and optionally load) a network from a
-        ``dense_correspondence_network`` config block.
+        ``dense_correspondence_network`` config block, computing in
+        ``dtype`` (float32 unless asked: ``pdc_tpu``'s default, which a
+        config's ``compute_dtype`` does not change here; ``None`` takes the
+        config's).
 
         Weights are drawn on the CPU from ``generator`` (default: seed 0), so
         they are the same on every device. ``backbone.pretrained`` without
@@ -290,7 +299,7 @@ class DenseCorrespondenceNetwork:
         ``FileNotFoundError`` when there is none, never a download).
         """
         device = resolve_device(device)
-        module = build_backbone(config)
+        module = build_backbone(config, dtype=dtype)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         init_weights_(module, generator)
@@ -315,9 +324,13 @@ class DenseCorrespondenceNetwork:
 
     @staticmethod
     def from_model_folder(model_folder: str, model_param_file: Optional[str] = None,
-                          iteration: Optional[int] = None, device="cuda"):
+                          iteration: Optional[int] = None, device="cuda",
+                          dtype=torch.float32):
         """Reconstruct a network from a training output folder holding
-        ``training.yaml`` and ``%06d.ckpt`` files."""
+        ``training.yaml`` and ``%06d.ckpt`` files. It computes in ``dtype``,
+        float32 by default, as in ``pdc_tpu``: a folder trained with
+        ``compute_dtype: bfloat16`` serves in float32 unless
+        ``dtype=torch.bfloat16`` is asked for."""
         device = resolve_device(device)
         training_config = load_yaml(os.path.join(model_folder, "training.yaml"))
         config = dict(training_config["dense_correspondence_network"])
@@ -327,13 +340,14 @@ class DenseCorrespondenceNetwork:
         config["model_param_filename_tail"] = os.path.basename(model_param_file)
         dcn = DenseCorrespondenceNetwork.from_config(
             config, load_stored_params=True, model_param_file=model_param_file,
-            device=device)
+            device=device, dtype=dtype)
         dcn.model_folder = model_folder
         return dcn
 
     @staticmethod
     def from_reference_model_folder(model_folder: str, model_param_file: Optional[str] = None,
-                                    iteration: Optional[int] = None, device="cuda"):
+                                    iteration: Optional[int] = None, device="cuda",
+                                    dtype=torch.float32):
         """Reconstruct a network from a model folder written by the reference
         framework: ``training.yaml`` and torch ``%06d.pth`` checkpoints
         (:func:`~pdc_tpu_torch.models.torch_import.load_reference_checkpoint`)."""
@@ -346,7 +360,7 @@ class DenseCorrespondenceNetwork:
         if model_param_file is None:
             model_param_file = find_latest_checkpoint(model_folder, iteration, suffix=".pth")
         config["model_param_filename_tail"] = os.path.basename(model_param_file)
-        dcn = DenseCorrespondenceNetwork.from_config(config, device=device)
+        dcn = DenseCorrespondenceNetwork.from_config(config, device=device, dtype=dtype)
         load_reference_checkpoint(dcn, model_param_file)
         dcn.model_folder = model_folder
         return dcn

@@ -18,26 +18,72 @@ leaf. What must equal flax:
   * max-pool 3x3/2 with padding 1 (padded with -inf in both);
   * upsample ``F.interpolate(mode="bilinear", align_corners=False)``, which
     matches ``jax.image.resize(..., "linear")`` to ~2e-5
-    (``tests/test_torch_import_numerics.py:95-134``).
+    (``tests/test_torch_import_numerics.py:95-134``); in bfloat16,
+    :func:`resize_bilinear` computes it as XLA does.
 
 The mode is torch's: ``module.train()`` normalises with the statistics of
 the batch in hand and updates the running ones, ``module.eval()`` (the
 default after construction) uses the running ones. Every convolution is an
 :class:`Int8Conv`; its int8 path runs only in eval mode, as the JAX package
 applies it only with ``train=False``.
+
+``dtype=torch.bfloat16`` is flax's mixed precision (``dtype=jnp.bfloat16``):
+the parameters and BatchNorm's running statistics stay float32, the input
+is cast to bfloat16 at entry, every convolution casts its kernel to
+bfloat16 and returns bfloat16 (a bias is added after the rounding, in
+bfloat16, as flax adds it), BatchNorm computes its statistics and the
+normalisation in float32 and rounds its output once (flax's
+``force_float32_reductions``), and the bilinear upsample returns bfloat16
+(:func:`resize_bilinear`), so the descriptor image is bfloat16 as in JAX.
+
+``remat=True`` recomputes each residual block in the backward
+(``torch.utils.checkpoint``, flax's ``nn.remat``), in train mode with
+gradients only; the recomputation leaves BatchNorm's running statistics
+alone, so they move once per forward (:func:`remat_block`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import math
+import threading
 from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from pdc_tpu_torch.ops.int8_conv import int8_conv2d
+
+
+# set while torch.utils.checkpoint recomputes a block (remat_block); per
+# thread, since the backward may run on an autograd worker thread
+_recompute = threading.local()
+
+
+@contextlib.contextmanager
+def _recomputing():
+    before = getattr(_recompute, "active", False)
+    _recompute.active = True
+    try:
+        yield
+    finally:
+        _recompute.active = before
+
+
+def _remat_contexts():
+    return contextlib.nullcontext(), _recomputing()
+
+
+def remat_block(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``block(x)``, its activations recomputed in the backward instead of
+    kept (flax's ``nn.remat``). The recomputation runs under a marker that
+    :class:`FlaxBatchNorm2d` reads, so the running statistics are updated by
+    the forward alone, as flax discards the recomputed update."""
+    return torch.utils.checkpoint.checkpoint(block, x, use_reentrant=False,
+                                             context_fn=_remat_contexts)
 
 
 class FlaxBatchNorm2d(nn.BatchNorm2d):
@@ -46,28 +92,42 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     biased variance of the batch, and update the running statistics as
     ``ra = 0.9 * ra + 0.1 * batch_stat`` with that same biased variance.
     Torch's own update uses the unbiased variance, so ``F.batch_norm`` is
-    only used in eval mode."""
+    only used in eval mode on float32 input.
+
+    A bfloat16 input is normalised in float32, statistics included, and the
+    output rounded to bfloat16 once (flax's ``force_float32_reductions``),
+    in both modes. Inside a remat recomputation (:func:`remat_block`) the
+    running statistics are not updated again."""
 
     MOMENTUM = 0.9
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5)
 
-    def forward(self, x):
-        if not self.training:
-            return super().forward(x)
-        # flax's fast variance: E[x^2] - E[x]^2, clipped at 0
-        mean = x.mean(dim=(0, 2, 3))
-        var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
-        with torch.no_grad():
-            m = self.MOMENTUM
-            self.running_mean.mul_(m).add_((1.0 - m) * mean)
-            self.running_var.mul_(m).add_((1.0 - m) * var)
-            self.num_batches_tracked.add_(1)
+    def _normalize(self, x, mean, var):
         # flax's order: (x - mean) * (rsqrt(var + eps) * scale) + bias
         mul = torch.rsqrt(var + self.eps) * self.weight
         return (x - mean[None, :, None, None]) * mul[None, :, None, None] \
             + self.bias[None, :, None, None]
+
+    def forward(self, x):
+        dtype = x.dtype
+        if not self.training:
+            if dtype == torch.float32:
+                return super().forward(x)
+            return self._normalize(x.to(torch.float32), self.running_mean,
+                                   self.running_var).to(dtype)
+        xf = x.to(torch.float32)
+        # flax's fast variance: E[x^2] - E[x]^2, clipped at 0
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        if not getattr(_recompute, "active", False):
+            with torch.no_grad():
+                m = self.MOMENTUM
+                self.running_mean.mul_(m).add_((1.0 - m) * mean)
+                self.running_var.mul_(m).add_((1.0 - m) * var)
+                self.num_batches_tracked.add_(1)
+        return self._normalize(xf, mean, var).to(dtype)
 
 
 # "/ 127" as the JAX package computes it: XLA compiles a division by a
@@ -96,7 +156,8 @@ class Int8Conv(nn.Conv2d):
       * ``q = clamp(round(v / s), -127, 127)`` as int8 (a division, and
         round half to even, as ``jnp.round``);
       * the s8 x s8 -> s32 product (:func:`~pdc_tpu_torch.ops.int8_conv.int8_conv2d`),
-        then ``y * (s_x * s_w) + bias`` in float32.
+        then ``y * (s_x * s_w) + bias`` in float32, returned in the input's
+        dtype (bfloat16 in a bfloat16 network).
 
     While ``calibrating`` (a static clone during
     ``DCN.calibrate_quantization``) the layer first raises ``act_scale`` to
@@ -119,7 +180,12 @@ class Int8Conv(nn.Conv2d):
 
     def forward(self, x):
         if not self.quant_int8 or self.training:
-            return super().forward(x)
+            if x.dtype == self.weight.dtype:
+                return super().forward(x)
+            # flax's mixed precision: the kernel cast to the input's compute
+            # dtype, the product rounded to it, then the bias added in it
+            y = self._conv_forward(x, self.weight.to(x.dtype), None)
+            return y if self.bias is None else y + self.bias.to(x.dtype)[None, :, None, None]
         if self.groups != 1:
             raise ValueError("the int8 path has no grouped convolutions")
         xf = x.to(torch.float32)
@@ -141,7 +207,7 @@ class Int8Conv(nn.Conv2d):
             * (s_x * s_w)[None, :, None, None]
         if self.bias is not None:
             out = out + self.bias.to(torch.float32)[None, :, None, None]
-        return out
+        return out.to(x.dtype)  # flax: out.astype(self.dtype or x.dtype)
 
 
 def int8_convs(module: nn.Module):
@@ -177,13 +243,16 @@ def _conv(in_f, out_f, k, stride=1, padding=0, dilation=1, bias=False):
 
 
 class BasicBlock(nn.Module):
-    """ResNet v1 basic block with optional dilation (stages 3/4 of -8s)."""
+    """ResNet v1 basic block with optional dilation (stages 3/4 of -8s).
+    The input is taken in ``dtype``, the compute dtype (a no-op inside
+    :class:`ResNetFCN`, whose input is cast at entry)."""
 
     expansion = 1
 
     def __init__(self, in_features: int, features: int, stride: int = 1,
-                 dilation: int = 1):
+                 dilation: int = 1, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.conv1 = _conv(in_features, features, 3, stride, dilation, dilation)
         self.bn1 = FlaxBatchNorm2d(features)
         self.conv2 = _conv(features, features, 3, 1, dilation, dilation)
@@ -195,6 +264,7 @@ class BasicBlock(nn.Module):
             self.proj_bn = FlaxBatchNorm2d(features)
 
     def forward(self, x):
+        x = x.to(self.dtype)
         y = F.relu(self.bn1(self.conv1(x)))
         y = self.bn2(self.conv2(y))
         residual = x if self.proj_conv is None else self.proj_bn(self.proj_conv(x))
@@ -208,8 +278,9 @@ class BottleneckBlock(nn.Module):
     expansion = 4
 
     def __init__(self, in_features: int, features: int, stride: int = 1,
-                 dilation: int = 1):
+                 dilation: int = 1, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         out_features = 4 * features
         self.conv1 = _conv(in_features, features, 1)
         self.bn1 = FlaxBatchNorm2d(features)
@@ -224,11 +295,42 @@ class BottleneckBlock(nn.Module):
             self.proj_bn = FlaxBatchNorm2d(out_features)
 
     def forward(self, x):
+        x = x.to(self.dtype)
         y = F.relu(self.bn1(self.conv1(x)))
         y = F.relu(self.bn2(self.conv2(y)))
         y = self.bn3(self.conv3(y))
         residual = x if self.proj_conv is None else self.proj_bn(self.proj_conv(x))
         return F.relu(y + residual)
+
+
+def _resize_weights(n_in: int, n_out: int, device) -> torch.Tensor:
+    """``[n_in, n_out]`` float32 weights of ``jax.image.resize``'s linear
+    kernel along one axis (``compute_weight_mat``, upsampling, no
+    translation): each output sample ``(j + 0.5) * n_in/n_out - 0.5`` takes
+    the tent ``max(0, 1 - |s - i|)`` of the inputs, normalised per output."""
+    scale = torch.tensor(n_out / n_in, dtype=torch.float32)
+    s = (torch.arange(n_out, dtype=torch.float32) + 0.5) * (1.0 / scale) - 0.5
+    w = torch.clamp(1.0 - (s[None, :] - torch.arange(n_in, dtype=torch.float32)[:, None]).abs(),
+                    min=0.0)
+    return (w / w.sum(dim=0, keepdim=True)).to(device)
+
+
+def resize_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Bilinear resize of ``[B, C, h0, w0]`` to ``[B, C, h, w]``
+    (``align_corners=False``), in ``x``'s dtype.
+
+    float32: ``F.interpolate``, within ~2e-5 of ``jax.image.resize``.
+    bfloat16: ``jax.image.resize``'s own computation, which is separable:
+    the weights rounded to bfloat16, the width contracted first and the
+    result rounded to bfloat16, then the height (two bfloat16 matmuls, each
+    output the sum of two exact products). This gives XLA's bits;
+    ``F.interpolate`` on bfloat16 rounds once and differs from it in a
+    bfloat16 ulp on about a quarter of the outputs."""
+    if x.dtype == torch.float32:
+        return F.interpolate(x, size=(h, w), mode="bilinear", align_corners=False)
+    ww = _resize_weights(x.shape[-1], w, x.device).to(x.dtype)
+    wh = _resize_weights(x.shape[-2], h, x.device).to(x.dtype)
+    return torch.matmul(wh.t(), torch.matmul(x, ww))
 
 
 def space_to_batch(x: torch.Tensor, d: int) -> torch.Tensor:
@@ -263,6 +365,11 @@ class ResNetFCN(nn.Module):
     taken over the same pixels. ``H/8`` and ``W/8`` must be divisible by 4.
     Every convolution is an :class:`Int8Conv` on the float path;
     :func:`set_quantization` switches them all.
+
+    ``dtype`` is the compute dtype (float32 or bfloat16, flax's ``dtype``;
+    the parameters stay float32) and the output's. ``remat`` recomputes each
+    residual block in the backward (:func:`remat_block`) when the module is
+    in train mode and gradients are on.
     """
 
     quant_int8 = quant_static = False  # set by set_quantization
@@ -272,8 +379,10 @@ class ResNetFCN(nn.Module):
                 32: ((1, 2, 2, 2), (1, 1, 1, 1))}
 
     def __init__(self, num_classes: int, stage_sizes: Sequence[int] = (3, 4, 6, 3),
-                 output_stride: int = 8, bottleneck: bool = False, dilated_s2b: bool = False):
+                 output_stride: int = 8, bottleneck: bool = False, dilated_s2b: bool = False,
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
+        self.dtype, self.remat = dtype, bool(remat)
         if output_stride not in self._LAYOUTS:
             raise ValueError(f"output_stride must be 8, 16 or 32, got {output_stride}")
         strides, dilations = self._LAYOUTS[output_stride]
@@ -292,7 +401,7 @@ class ResNetFCN(nn.Module):
                 self.add_module(name, block_cls(
                     in_features, feats,
                     stride=strides[stage] if block == 0 else 1,
-                    dilation=dilations[stage]))
+                    dilation=dilations[stage], dtype=dtype))
                 names.append(name)
                 in_features = feats * block_cls.expansion
             self.stage_blocks.append(names)
@@ -304,39 +413,47 @@ class ResNetFCN(nn.Module):
         if self.use_s2b and ((in_h // 8) % 4 or (in_w // 8) % 4):
             raise ValueError(f"dilated_s2b needs H/8 and W/8 divisible by 4, got "
                              f"input {in_h}x{in_w}")
+        x = x.to(self.dtype)
         x = F.relu(self.stem_bn(self.stem_conv(x)))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for stage, names in enumerate(self.stage_blocks):
             if self.use_s2b and stage >= 2:
                 x = space_to_batch(x, 2)
             for name in names:
-                x = getattr(self, name)(x)
+                block = getattr(self, name)
+                x = remat_block(block, x) if remat else block(x)
         x = self.head(x)
         if self.use_s2b:
             x = batch_to_space(batch_to_space(x, 2, 4 * batch), 2, batch)
-        return F.interpolate(x, size=(in_h, in_w), mode="bilinear", align_corners=False)
+        # in the compute dtype, as the JAX package returns it
+        return resize_bilinear(x, in_h, in_w)
 
 
-def ResNet34_8s(num_classes: int, dilated_s2b: bool = False) -> ResNetFCN:
+def ResNet34_8s(num_classes: int, dilated_s2b: bool = False,
+                dtype: torch.dtype = torch.float32, remat: bool = False) -> ResNetFCN:
     """The CoRL-2018 default backbone."""
     return ResNetFCN(num_classes, stage_sizes=(3, 4, 6, 3), output_stride=8,
-                     dilated_s2b=dilated_s2b)
+                     dilated_s2b=dilated_s2b, dtype=dtype, remat=remat)
 
 
-def ResNet18_8s(num_classes: int, dilated_s2b: bool = False) -> ResNetFCN:
+def ResNet18_8s(num_classes: int, dilated_s2b: bool = False,
+                dtype: torch.dtype = torch.float32, remat: bool = False) -> ResNetFCN:
     return ResNetFCN(num_classes, stage_sizes=(2, 2, 2, 2), output_stride=8,
-                     dilated_s2b=dilated_s2b)
+                     dilated_s2b=dilated_s2b, dtype=dtype, remat=remat)
 
 
-def ResNet50_8s(num_classes: int, dilated_s2b: bool = False) -> ResNetFCN:
+def ResNet50_8s(num_classes: int, dilated_s2b: bool = False,
+                dtype: torch.dtype = torch.float32, remat: bool = False) -> ResNetFCN:
     return ResNetFCN(num_classes, stage_sizes=(3, 4, 6, 3), output_stride=8,
-                     bottleneck=True, dilated_s2b=dilated_s2b)
+                     bottleneck=True, dilated_s2b=dilated_s2b, dtype=dtype, remat=remat)
 
 
-def ResNet101_8s(num_classes: int, dilated_s2b: bool = False) -> ResNetFCN:
+def ResNet101_8s(num_classes: int, dilated_s2b: bool = False,
+                 dtype: torch.dtype = torch.float32, remat: bool = False) -> ResNetFCN:
     """The deeper variant of the paper's backbone ablation."""
     return ResNetFCN(num_classes, stage_sizes=(3, 4, 23, 3), output_stride=8,
-                     bottleneck=True, dilated_s2b=dilated_s2b)
+                     bottleneck=True, dilated_s2b=dilated_s2b, dtype=dtype, remat=remat)
 
 
 def _truncated_normal_(t: torch.Tensor, std: float, generator: torch.Generator):

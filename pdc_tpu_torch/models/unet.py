@@ -14,7 +14,12 @@ leaf.
     (``F.interpolate(align_corners=False)`` against
     ``jax.image.resize(..., "linear")``), a 1x1 ``up_proj{l}`` with bias,
     ``cat([skip, x])`` in that order, then ``up{l}``;
-  * head: a 1x1 conv with bias; float32 out.
+  * head: a 1x1 conv with bias; float32 out, also in bfloat16.
+
+``dtype`` is the compute dtype, as in
+:class:`~pdc_tpu_torch.models.resnet.ResNetFCN`: the input is cast to it at
+entry, the parameters stay float32, and the output is float32 whatever it
+is (``pdc_tpu/models/unet.py:46,71``). The JAX UNet has no ``remat``.
 
 Every convolution is an :class:`~pdc_tpu_torch.models.resnet.Int8Conv` on
 the float path; :func:`~pdc_tpu_torch.models.resnet.set_quantization`
@@ -28,39 +33,45 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from pdc_tpu_torch.models.resnet import FlaxBatchNorm2d, Int8Conv
+from pdc_tpu_torch.models.resnet import FlaxBatchNorm2d, Int8Conv, resize_bilinear
 
 
 class DoubleConv(nn.Module):
-    def __init__(self, in_features: int, features: int):
+    """Input taken in ``dtype``, the compute dtype (a no-op inside
+    :class:`UNet`, whose input is cast at entry)."""
+
+    def __init__(self, in_features: int, features: int, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         for i, n_in in enumerate((in_features, features)):
             self.add_module(f"conv{i}", Int8Conv(n_in, features, 3, padding=1, bias=False))
             self.add_module(f"bn{i}", FlaxBatchNorm2d(features))
 
     def forward(self, x):
-        x = F.relu(self.bn0(self.conv0(x)))
+        x = F.relu(self.bn0(self.conv0(x.to(self.dtype))))
         return F.relu(self.bn1(self.conv1(x)))
 
 
 class UNet(nn.Module):
-    """Input ``[B, 3, H, W]`` float32, output ``[B, num_classes, H, W]``."""
+    """Input ``[B, 3, H, W]``, output ``[B, num_classes, H, W]`` float32."""
 
     quant_int8 = quant_static = False  # set by set_quantization
 
-    def __init__(self, num_classes: int, base_features: int = 64):
+    def __init__(self, num_classes: int, base_features: int = 64,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         f = base_features
         in_features = 3
         for level in range(4):
-            self.add_module(f"down{level}", DoubleConv(in_features, f * 2 ** level))
+            self.add_module(f"down{level}", DoubleConv(in_features, f * 2 ** level, dtype))
             in_features = f * 2 ** level
-        self.bottleneck = DoubleConv(in_features, f * 16)
+        self.bottleneck = DoubleConv(in_features, f * 16, dtype)
         in_features = f * 16
         for level in reversed(range(4)):
             feats = f * 2 ** level
             self.add_module(f"up_proj{level}", Int8Conv(in_features, feats, 1, bias=True))
-            self.add_module(f"up{level}", DoubleConv(2 * feats, feats))
+            self.add_module(f"up{level}", DoubleConv(2 * feats, feats, dtype))
             in_features = feats
         self.head = Int8Conv(in_features, num_classes, 1, bias=True)
         self.eval()
@@ -69,6 +80,7 @@ class UNet(nn.Module):
         h, w = x.shape[-2:]
         if h % 16 or w % 16:
             raise ValueError(f"the UNet needs H and W divisible by 16, got input {h}x{w}")
+        x = x.to(self.dtype)
         skips = []
         for level in range(4):
             x = getattr(self, f"down{level}")(x)
@@ -76,8 +88,7 @@ class UNet(nn.Module):
             x = F.max_pool2d(x, 2, stride=2)
         x = self.bottleneck(x)
         for level in reversed(range(4)):
-            x = F.interpolate(x, size=(2 * x.shape[-2], 2 * x.shape[-1]), mode="bilinear",
-                              align_corners=False)
+            x = resize_bilinear(x, 2 * x.shape[-2], 2 * x.shape[-1])
             x = getattr(self, f"up_proj{level}")(x)
             x = torch.cat([skips[level], x], dim=1)
             x = getattr(self, f"up{level}")(x)

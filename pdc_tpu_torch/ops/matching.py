@@ -2,7 +2,10 @@
 
 Port of :mod:`pdc_tpu.ops.matching` (:23-99) with the same contracts:
 descriptor images ``[H, W, D]``, ``uv`` as ``[Q, 2]`` int32 ``(u, v)``, flat
-pixel index ``n = v*W + u``. The computation runs on the device of ``res``.
+pixel index ``n = v*W + u``. The computation runs on the device of ``res``,
+in float32: a bfloat16 descriptor image (a bfloat16 network's) is upcast
+first, as ``pdc_tpu/ops/matching.py:73-74`` upcasts it, so the best-match
+kernel always gets the float32 planes it requires.
 
 The unmasked batched search goes through :func:`pdc_tpu_torch.ops.best_match.best_match`
 — the streaming CUDA kernel on a CUDA tensor, its plain version on a CPU

@@ -404,7 +404,10 @@ class DenseCorrespondenceTraining:
         save_yaml({"id": uuid.uuid4().hex}, os.path.join(self._logging_dir, "identifier.yaml"))
 
     def build_network(self):
-        """The backbone of the config, initialised from seed 0."""
+        """The backbone of the config, initialised from seed 0. It follows
+        the config's ``compute_dtype`` and ``remat``; its parameters are
+        float32 either way, so the Adam state and the checkpoints keep the
+        JAX package's float32 layout."""
         cfg = self._config["dense_correspondence_network"]
         return init_weights_(build_backbone(cfg), torch.Generator().manual_seed(0)), cfg
 

@@ -829,6 +829,38 @@ def test_trained_tpu_journey_pck_on_the_card(cuda):
         assert abs(pck - bf16[f"pck@{k}px"]) <= margin + 0.05
 
 
+
+# the fp32 anchor of trained_models/tpu_journey on the card and the CPU (PR 11):
+# PCK@5 and PCK@10 at 50 pairs x 100 matches, seed 1, and their margins (3
+# standard deviations of the per-pair PCK over sqrt(pairs))
+TPU_JOURNEY_FP32 = {5: (0.3484, 0.072), 10: (0.6364, 0.081)}
+
+
+def test_trained_tpu_journey_bf16_pck_on_the_card(cuda):
+    """trained_models/tpu_journey served in bfloat16
+    (``from_model_folder(dtype=torch.bfloat16)``) on its test split at 50
+    pairs x 100 matches, seed 1: PCK@5 and PCK@10 within the fp32 anchor's
+    margins of its values."""
+    from pdc_tpu_torch.evaluation import evaluate as ev
+    from pdc_tpu_torch.evaluation.plotting import cdf_at_threshold
+    from pdc_tpu_torch.models.dcn import DenseCorrespondenceNetwork
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    folder = os.path.join(root, "trained_models", "tpu_journey")
+    if not os.path.exists(os.path.join(folder, "003500.ckpt")):
+        pytest.skip("trained_models/tpu_journey/003500.ckpt is not in this copy of the tree")
+    dcn = DenseCorrespondenceNetwork.from_model_folder(folder, dtype=torch.bfloat16)
+    assert dcn.forward_on_img(np.zeros((480, 640, 3), np.uint8)).dtype == torch.bfloat16
+    ds = ev.DenseCorrespondenceEvaluation.load_dataset_from_model_folder(folder)
+    ds.set_test_mode()
+    t = ev.DenseCorrespondenceEvaluation.evaluate_network_quantitative(
+        dcn, ds, num_image_pairs=50, num_matches_per_image_pair=100, seed=1)
+    for k, (anchor, margin) in TPU_JOURNEY_FP32.items():
+        pck = cdf_at_threshold(t["pixel_match_error_l2"], k)
+        print(f"tpu_journey bf16 on the card: PCK@{k} {pck:.4f} (fp32 anchor {anchor}, "
+              f"margin {margin})")
+        assert abs(pck - anchor) <= margin
+
 # -- the apps: grasp stream, heatmap engine, export -------------------------------------------
 
 def _apps_setup(width=160, height=120):

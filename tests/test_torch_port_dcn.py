@@ -194,9 +194,12 @@ def test_seeded_init_is_device_independent_and_reproducible():
 ])
 def test_unported_options_raise(change, tmp_path, monkeypatch):
     """The options the JAX package offers: the UNet, ResNet-50-8s,
-    dilated_s2b and quant_int8 are ported now and build and run (their
-    numbers are held against pdc_tpu in tests/test_torch_port_variants.py
-    and tests/test_torch_port_int8.py); bfloat16 compute still raises."""
+    dilated_s2b, quant_int8 and bfloat16 compute are ported now and build
+    and run (their numbers are held against pdc_tpu in
+    tests/test_torch_port_variants.py, tests/test_torch_port_int8.py and
+    tests/test_torch_port_compute_dtype.py). from_config computes in
+    float32 unless asked (pdc_tpu's rule); build_backbone follows the
+    config's compute_dtype."""
     cfg = {**_cfg(), **change}
     if change.get("dilated_s2b"):
         cfg.update(image_width=96, image_height=64)  # H/8 and W/8 divisible by 4
@@ -209,10 +212,14 @@ def test_unported_options_raise(change, tmp_path, monkeypatch):
             DenseCorrespondenceNetwork.from_config(cfg, device="cpu")
         return
     if "compute_dtype" in change:
-        with pytest.raises(NotImplementedError, match="item 6"):
-            DenseCorrespondenceNetwork.from_config(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 6"):
-            build_backbone(cfg)
+        assert build_backbone(cfg).dtype == torch.bfloat16
+        dcn = DenseCorrespondenceNetwork.from_config(cfg, device="cpu", dtype=None)
+        out = dcn.forward_on_img(_frame(3))
+        assert out.dtype == torch.bfloat16 and out.shape == (cfg["image_height"],
+                                                             cfg["image_width"], D)
+        assert torch.isfinite(out.float()).all()
+        assert DenseCorrespondenceNetwork.from_config(cfg, device="cpu").module.dtype == \
+            torch.float32
         return
     dcn = DenseCorrespondenceNetwork.from_config(cfg, device="cpu")
     h, w = cfg["image_height"], cfg["image_width"]

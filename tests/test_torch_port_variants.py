@@ -288,9 +288,16 @@ def test_build_backbone_builds_every_variant(backbone, extra, kind):
 
 
 def test_bf16_still_raises_naming_its_slice():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        build_backbone(_cfg({"model_class": "Resnet", "resnet_name": "Resnet50_8s"},
-                            compute_dtype="bfloat16"))
+    """bfloat16 compute is ported: it builds every backbone (float32
+    parameters, bfloat16 compute; tests/test_torch_port_compute_dtype.py
+    holds the numbers), and unknown backbones still raise."""
+    for backbone in ({"model_class": "Resnet", "resnet_name": n}
+                     for n in ("Resnet18_8s", "Resnet34_8s", "Resnet50_8s", "Resnet101_8s")):
+        m = build_backbone(_cfg(backbone, compute_dtype="bfloat16"))
+        assert m.dtype == torch.bfloat16
+        assert all(p.dtype == torch.float32 for p in m.parameters())
+    unet = build_backbone(_cfg({"model_class": "Unet"}, compute_dtype="bfloat16"))
+    assert isinstance(unet, UNet) and unet.dtype == torch.bfloat16
     with pytest.raises(ValueError, match="unsupported resnet_name"):
         build_backbone(_cfg({"model_class": "Resnet", "resnet_name": "Resnet152_8s"}))
     with pytest.raises(ValueError, match="unknown backbone"):
