@@ -159,9 +159,11 @@ Phases, each fatal on failure:
      same clone's CPU forward (the float64 plain product) gives that layer,
      gives the CPU's output bit for bit (whole-network cosines to fp32 on
      the card and on the CPU are printed); the clones' descriptors have
-     cosine > 0.97 to the fp32 forward on 4 frames, and best matches of 16
-     object pixels that agree with fp32's in at least 10 queries (the fp32
-     pick or a near-tie, as tests/test_quantized.py counts them), while a
+     cosine > 0.97 to the fp32 forward on 4 frames, and best matches of 256
+     object pixels that agree with fp32's in at least 10/16 of the queries
+     (the fp32 pick or a near-tie, as tests/test_quantized.py counts them;
+     over 256 the share does not hang on the few picks that phase 8's
+     not bit-reproducible training moves), while a
      broken quantization (the dynamic clone truncating instead of rounding)
      misses both bars (tools/torch_int8_witness.py sets them); fp32, int8
      and int8-static forward ms at B=1 and B=8 are printed; (e) a
@@ -208,6 +210,32 @@ Phases, each fatal on failure:
      IoU with the scene's own masks is at least 0.8 on every frame (the CPU
      reads 0.850-0.862); seconds per scene and ms per pose split into host
      prep, device render, fetch and PNG encode are printed.
+
+15. dataset tooling and experiments, "dataset tooling and experiments" (run
+     after phase 14, on phase 8's scene tree). It fails unless (a) ``python -m
+     pdc_tpu_torch config-gen --published`` in this process writes one YAML
+     per manifest entry in single_object/, multi_object/ and composite/, each
+     reading back equal to its entry through load_yaml and through the
+     port's own parse_yaml (the reader where PyYAML is missing); (b) ``config-gen --data_dir <tree> --name caterpillar_only`` finds
+     exactly phase 8's scenes, and the dataset of the generated composite has
+     phase 8's scene names, frame ids and poses; (c) ``migrate`` gives back a
+     copy of scene_000 flattened into the old layout (a top-level
+     fusion_mesh.ply) file for file and byte for byte, and ``download
+     --dry_run`` on the published caterpillar_only lists its scene URLs and
+     fetches nothing; (d) ``experiment caterpillar`` at Scale.full() (640x480,
+     ResNet-34-8s, D=3, B=4) on the synthetic stand-in, 6 steps, checkpoints
+     every 3, 8 test pairs of 100 matches a network: its 2 runs launch K1 and
+     K2 twice per step, K3 once per sweep chunk, have finite metrics and moved
+     weights, 000003.ckpt and 000006.ckpt, and result.json has pdc_tpu's keys
+     with test PCKs in [0, 1] and a finite area; comparison_test.yaml exists;
+     on 4 test pairs of one network the fused sweep (K3) agrees with the
+     per-pair route run with the plain best match (as phase 9 (c)); the same
+     command again retrains nothing and writes the same statistics; (e)
+     ``experiment caterpillar --data_dir <tree> --dataset_dir <(b)'s
+     composite/> --run_filter 0.500 --steps 3`` trains 1 run from disk with
+     the same K1/K2/K3 checks; (f) it prints each command's seconds, (d)'s
+     train step by CUDA events and scoring seconds per network, beside the
+     card's name and power limit.
 
 The last lines are a JSON object with every kernel's numbers, the
 nvidia-smi line, and ``{"ok": true, "device": {...}}``. Without CUDA, or when the
@@ -2055,14 +2083,16 @@ INT8_RANDOM_SHAPES = [(1, 5, 3, 4, 7, 3, 1, 1, 1), (1, 13, 2, 3, 3, 1, 1, 0, 1),
 # far from 1): outputs 2e-5, running statistics 1e-5
 S2B_OUT_TOL, S2B_STATS_TOL = 2e-5, 1e-5
 # int8 descriptors against fp32 on phase 8's folder (6 iterations from random
-# weights): the least cosine over 4 frames, and of 16 picks those that are the
+# weights): the least cosine over 4 frames, and the share of picks that are the
 # fp32 pick or a near-tie of it under the fp32 distances (within 0.5% of the
 # squared spread of the descriptor image), as tests/test_quantized.py:41-75
 # counts them. tools/torch_int8_witness.py reads this folder's weights with
 # both packages: the int8 semantics give a cosine of about 0.98 and 13-16 of
-# 16 picks here, a quantizer that truncates 0.87 and 1-5; the bars lie between
-INT8_COS_MIN, INT8_NEAR_MIN = 0.97, 10
-INT8_NEAR_TIE = 5e-3
+# 16 picks here, a quantizer that truncates 0.87 and 1-5; the bars lie between.
+# Phase 8's training is not bit-reproducible on the card, so the share is read
+# over INT8_QUERIES object pixels: over 16 it ranged 11-15 and fell below 10
+INT8_COS_MIN, INT8_NEAR_MIN = 0.97, 10 / 16
+INT8_NEAR_TIE, INT8_QUERIES = 5e-3, 256
 VARIANT_STEPS = {"Resnet101_8s": (5, 3), "Unet": (2, 2)}  # (counted steps, timed steps)
 
 
@@ -2388,11 +2418,16 @@ def check_variants_and_int8(torch, np, dev, bm, ph, frames_t, on_disk, tmp):
     with torch.inference_mode():
         after = torch.stack([dcn.forward_on_img(f) for f in rgb[:4]])
         ref_a, ref_b = dcn.forward_on_img(rgb[0]).double(), dcn.forward_on_img(rgb[3]).double()
-        own = _spread(np, scene.mask[0], APPS_QUERIES)
+        own = _spread(np, scene.mask[0], INT8_QUERIES)
         iv, iu = torch.as_tensor(own[:, 0]), torch.as_tensor(own[:, 1])
         spread = float((ref_b.reshape(-1, D).max(0).values - ref_b.reshape(-1, D).min(0).values)
                        .max())
-        df = ((ref_b.reshape(1, -1, D) - ref_a[iv, iu][:, None]) ** 2).sum(-1)  # [Q, HW]
+
+        def d2(img_a, img_b):  # [Q, HW], 64 queries at a time
+            return torch.cat([((img_b.reshape(1, -1, D) - img_a[iv[s], iu[s]][:, None]) ** 2)
+                              .sum(-1) for s in torch.arange(INT8_QUERIES).split(64)])
+
+        df = d2(ref_a, ref_b)
         for label, clone in (("int8", q_dyn), ("int8 static", q_static),
                              ("control (truncating)", q_dyn)):
             rounding = torch.round
@@ -2407,12 +2442,12 @@ def check_variants_and_int8(torch, np, dev, bm, ph, frames_t, on_disk, tmp):
             finally:
                 torch.round = rounding
             cos[label] = min(float(v) for v in c)
-            dq = ((qb.reshape(1, -1, D) - qa[iv, iu][:, None]) ** 2).sum(-1)
+            dq = d2(qa, qb)
             bf, bq = df.argmin(1), dq.argmin(1)
             gap = df.gather(1, bq[:, None])[:, 0] - df.gather(1, bf[:, None])[:, 0]
             exact[label] = int((bf == bq).sum())
             worst_gap[label] = float(gap.max()) / spread ** 2
-            near[label] = int((gap <= INT8_NEAR_TIE * spread ** 2).sum())
+            near[label] = float((gap <= INT8_NEAR_TIE * spread ** 2).double().mean())
     unchanged = torch.equal(before, after)
     # the dynamic clone on the CPU (the float64 plain product): each Int8Conv
     # of the card's clone, fed the CPU forward's input of that layer, must
@@ -2451,11 +2486,11 @@ def check_variants_and_int8(torch, np, dev, bm, ph, frames_t, on_disk, tmp):
     log(f"variants (d): int8 clones of {os.path.basename(folder)} (ResNet-34-8s, phase 8), "
         f"static scales calibrated on the first {len(calib)} frames of its first scene: "
         f"least cosine to fp32 over 4 frames " + ", ".join(f"{k} {v:.6f}" for k, v in cos.items())
-        + f" (bar > {INT8_COS_MIN}, the control below it); best matches of {APPS_QUERIES} "
-        f"object pixels of frame 0 in "
+        + f" (bar > {INT8_COS_MIN}, the control below it); share of the best matches of "
+        f"{INT8_QUERIES} object pixels of frame 0 in "
         f"frame 3 that are the fp32 pick or a near-tie of it (within {INT8_NEAR_TIE} of the "
-        f"squared spread): " + ", ".join(f"{k} {v}" for k, v in near.items())
-        + f" (bar: at least {INT8_NEAR_MIN}, the control fewer), the very same pixel: "
+        f"squared spread): " + ", ".join(f"{k} {v:.4f}" for k, v in near.items())
+        + f" (bar: at least {INT8_NEAR_MIN}, the control less), the very same pixel: "
         + ", ".join(
             f"{k} {v}" for k, v in exact.items()) + "; the worst pick's fp32 d2 gap over the "
         "squared spread " + ", ".join(f"{k} {v:.3g}" for k, v in worst_gap.items())
@@ -2464,9 +2499,12 @@ def check_variants_and_int8(torch, np, dev, bm, ph, frames_t, on_disk, tmp):
     served = [k for k in cos if k != control]
     if (min(cos[k] for k in served) <= INT8_COS_MIN
             or min(near[k] for k in served) < INT8_NEAR_MIN or not unchanged):
-        fail("the int8 clones disagree with fp32, or the float forward changed")
+        fail(f"the int8 clones disagree with fp32, or the float forward changed: least cosine "
+             f"{cos} (bar > {INT8_COS_MIN}), near-tie share {near} (bar {INT8_NEAR_MIN}), "
+             f"float forward unchanged {unchanged}")
     if cos[control] > INT8_COS_MIN or near[control] >= INT8_NEAR_MIN:
-        fail("a truncating quantizer passes the int8 bars: they catch no broken quantization")
+        fail(f"a truncating quantizer passes the int8 bars: they catch no broken quantization "
+             f"(cosine {cos[control]}, near-tie share {near[control]})")
     int8_ms = {}
     with torch.inference_mode():
         for label, net in (("fp32", dcn), ("int8", q_dyn), ("int8 static", q_static)):
@@ -2962,6 +3000,349 @@ def check_compute_dtype_and_preprocess(torch, np, dev, ph, frames_t, tmp):
     return out
 
 
+# -- dataset tooling and experiments ------------------------------------------------------
+
+# experiment caterpillar at Scale.full() (640x480, ResNet-34-8s, D=3, B=4) on the
+# synthetic stand-in: the protocol's 2 runs of EXP_STEPS steps, checkpoints every
+# EXP_SAVE_RATE; each network scored on EXP_PAIRS test pairs of EXP_MATCHES matches
+# (the protocol's 100 pairs cut to 8, one sweep chunk, to keep the phase near a
+# minute). From disk (e): 1 run of EXP_DISK_STEPS steps.
+EXP_STEPS, EXP_SAVE_RATE, EXP_PAIRS, EXP_MATCHES, EXP_DISK_STEPS = 6, 3, 8, EVAL_MATCHES, 3
+# the keys of pdc_tpu's result.json (tests/test_torch_port_experiments.py holds the
+# port's runner to pdc_tpu's on the CPU)
+RESULT_KEYS = {"protocol", "reference_dir", "description", "dataset", "scale",
+               "runs_truncated", "run_filter", "seeds", "networks"}
+NETWORK_KEYS = {"model_folder", "overrides", "composite", "test", "test_composite"}
+STAT_KEYS = ("pck_at_5px", "pck_at_10px", "norm_diff_3d_area_above_curve")
+
+
+class _ExperimentSpy:
+    """Within the block, records each DenseCorrespondenceTraining that run()
+    starts, with a CUDA event recorded after each of its steps, and the host
+    seconds and K3 launches of each network's scoring
+    (``evaluate_single_network``, synchronised before and after)."""
+
+    def __init__(self, torch, train_mod, ev, bm):
+        self._torch, self._bm = torch, bm
+        self._cls = train_mod.DenseCorrespondenceTraining
+        self._dce = ev.DenseCorrespondenceEvaluation
+        self.runs, self.scores = [], []
+
+    def __enter__(self):
+        torch, bm, spy = self._torch, self._bm, self
+        self._run, self._score = self._cls.run, self._dce.evaluate_single_network
+
+        def run(trainer, *args, **kwargs):
+            events = []
+            spy.runs.append((trainer, events))
+
+            def mark(it, metrics):
+                e = torch.cuda.Event(enable_timing=True)
+                e.record()
+                events.append((it, e))
+            return spy._run(trainer, *args, progress_callback=mark, **kwargs)
+
+        def score(dce, name, *args, **kwargs):
+            torch.cuda.synchronize()
+            t, n = time.perf_counter(), bm.launches
+            try:
+                return spy._score(dce, name, *args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                spy.scores.append((name, time.perf_counter() - t, bm.launches - n))
+        self._cls.run, self._dce.evaluate_single_network = run, score
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.run, self._dce.evaluate_single_network = self._run, self._score
+
+    def step_ms(self, save_rate):
+        """ms between the events of consecutive steps, leaving out each
+        interval that holds a checkpoint write."""
+        self._torch.cuda.synchronize()
+        return [a.elapsed_time(b) for _, events in self.runs
+                for (i, a), (_, b) in zip(events, events[1:]) if i % save_rate]
+
+
+def _same_scenes(np, a, b):
+    """The scenes of two datasets over both splits: equal names, frame ids,
+    frame counts and poses."""
+    def scenes(ds):
+        out = {}
+        for mode in ("train", "test"):
+            ds.set_train_mode() if mode == "train" else ds.set_test_mode()
+            out.update(ds.scenes)
+        return out
+    sa, sb = scenes(a), scenes(b)
+    return sorted(sa) == sorted(sb) and all(
+        (x.frame_ids is None and y.frame_ids is None or np.array_equal(x.frame_ids, y.frame_ids))
+        and x.num_frames == y.num_frames and np.array_equal(x.poses, y.poses)
+        for x, y in ((sa[n], sb[n]) for n in sa)), sorted(sa)
+
+
+def _check_experiment_run(torch, np, spy, k1, k2, n_runs, steps, what):
+    """K1 and K2 launched 2 per step of each run (the runner computes no
+    test loss), every metric finite, every run's weights moved, and the
+    folders' checkpoints. Returns the model folders."""
+    from pdc_tpu_torch.models.checkpoint import read_checkpoint
+    from pdc_tpu_torch.models.convert import flax_to_state_dict
+
+    log(f"{what}: {len(spy.runs)} runs trained, routes "
+        f"{[tr.route for tr, _ in spy.runs]}; launches K1 {k1}, K2 {k2} (expected "
+        f"2 x {steps} steps x {n_runs} runs = {2 * steps * n_runs} each)")
+    if len(spy.runs) != n_runs or k1 != 2 * steps * n_runs or k2 != 2 * steps * n_runs:
+        fail(f"{what}: K1/K2 did not launch twice per train step")
+    folders = []
+    for trainer, _ in spy.runs:
+        tl = trainer._logging_dict["train"]
+        values = [v for k, vs in tl.items() if k != "iteration" for v in vs]
+        if len(tl["loss"]) != steps or not all(np.isfinite(v) for v in values):
+            fail(f"{what}: a metric of {trainer.logging_dir} is missing or not finite")
+        folder = trainer.logging_dir
+        first = flax_to_state_dict(read_checkpoint(os.path.join(folder, "000000.ckpt")))
+        live = trainer.state.module.state_dict()
+        still = [k for k, v in first.items() if v.dim() > 1 and torch.equal(v, live[k].cpu())]
+        if still:
+            fail(f"{what}: {folder} left weights unchanged: {still[:5]}")
+        log(f"{what}: {os.path.basename(folder)} losses "
+            + ", ".join(f"{x:.5g}" for x in tl["loss"]))
+        folders.append(folder)
+    return folders
+
+
+def _check_result(np, result, n_nets, what):
+    """result.json has pdc_tpu's keys, and each network's test PCKs lie in
+    [0, 1] with a finite area above the curve."""
+    import math
+
+    nets = result["networks"]
+    ok = set(result) == RESULT_KEYS and len(nets) == n_nets and all(
+        set(info) == NETWORK_KEYS and set(info["test"]) == set(STAT_KEYS)
+        and all(0.0 <= info["test"][k] <= 1.0 for k in STAT_KEYS[:2])
+        and math.isfinite(info["test"][STAT_KEYS[2]]) for info in nets.values())
+    log(f"{what}: result.json keys {sorted(result)}; test statistics "
+        + "; ".join(f"{n}: " + ", ".join(f"{k} {v:.4f}" for k, v in info["test"].items())
+                    for n, info in nets.items()))
+    if not ok:
+        fail(f"{what}: result.json lacks pdc_tpu's keys or holds statistics out of range")
+
+
+def check_tooling_and_experiments(torch, np, dev, bm, ph, on_disk, tmp, smi):
+    """The phase "dataset tooling and experiments", on phase 8's scene tree
+    under ``tmp``: checks (a)-(f) of the module docstring. Returns what the
+    kernels line reads."""
+    import contextlib
+    import filecmp
+    import io
+    import math
+    import shutil
+
+    from pdc_tpu_torch import __main__ as cli
+    from pdc_tpu_torch.data import published_manifest as pm
+    from pdc_tpu_torch.data.config_gen import discover_scenes
+    from pdc_tpu_torch.data.dataset import SpartanDataset
+    from pdc_tpu_torch.data.download import BASE_URL
+    from pdc_tpu_torch.evaluation import evaluate as ev
+    from pdc_tpu_torch.evaluation.table import read_csv
+    from pdc_tpu_torch.experiments import PROTOCOLS, Scale, runner
+    from pdc_tpu_torch.models.dcn import DenseCorrespondenceNetwork
+    from pdc_tpu_torch.training import train as train_mod
+    from pdc_tpu_torch.utils import yaml_io
+    from pdc_tpu_torch.utils.yaml_io import load_yaml
+
+    seconds = {}
+
+    def command(label, argv):
+        """python -m pdc_tpu_torch <argv> in this process; returns its stdout."""
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        torch.cuda.synchronize(dev)
+        seconds[label] = time.perf_counter() - t
+        text = buf.getvalue()
+        log(f"python -m pdc_tpu_torch {' '.join(argv)}: rc {rc}, {seconds[label]:.2f} s; "
+            f"{len(text.splitlines())} lines of output, the last: "
+            f"{text.splitlines()[-1] if text else ''}")
+        if rc != 0:
+            fail(f"python -m pdc_tpu_torch {argv[0]} returned {rc}")
+        return text
+
+    def files(d):
+        return sorted(os.path.relpath(os.path.join(r, f), d)
+                      for r, _, fs in os.walk(d) for f in fs)
+
+    # (a) the published corpus, read back without PyYAML
+    pub = os.path.join(tmp, "published")
+    command("config-gen --published", ["config-gen", "--published", "--out_dir", pub])
+    want = {}
+    for sub, lists in (("single_object", pm.SINGLE_OBJECT_SCENE_LISTS),
+                       ("multi_object", pm.MULTI_OBJECT_SCENE_LISTS)):
+        for name, spec in lists.items():
+            cfg = {k: spec[k] for k in ("logs_root_path", "object_id", "train", "test")}
+            if spec.get("evaluation_labeled_data_path"):
+                cfg["evaluation_labeled_data_path"] = spec["evaluation_labeled_data_path"]
+            want[f"{sub}/{name}.yaml"] = cfg
+    for name, spec in pm.COMPOSITES.items():
+        want[f"composite/{name}.yaml"] = {
+            "logs_root_path": spec["logs_root_path"],
+            "single_object_scenes_config_files": [f"{e}.yaml" for e in spec["single_object"]],
+            "multi_object_scenes_config_files": [f"{e}.yaml" for e in spec["multi_object"]]}
+    written = files(pub)
+
+    def read_back(name):
+        """(load_yaml, the port's own parse_yaml) of a written file."""
+        with open(os.path.join(pub, name)) as f:
+            return load_yaml(os.path.join(pub, name)), yaml_io.parse_yaml(f.read())
+    bad = [n for n in written if n not in want or read_back(n) != (want[n], want[n])]
+    reader = "PyYAML" if yaml_io._pyyaml_loader() is not None else "parse_yaml (no PyYAML)"
+    log(f"tooling (a): {len(written)} YAMLs ({len(pm.SINGLE_OBJECT_SCENE_LISTS)} single-object, "
+        f"{len(pm.MULTI_OBJECT_SCENE_LISTS)} multi-object, {len(pm.COMPOSITES)} composites "
+        f"expected), read back with load_yaml ({reader} on this machine) and with the port's "
+        f"parse_yaml: {len(bad)} differ from the manifest")
+    if written != sorted(want) or bad:
+        fail(f"tooling (a): the published corpus differs from the manifest: {bad[:5]}")
+
+    # (b) a corpus generated from phase 8's tree
+    gen = os.path.join(tmp, "generated")
+    command("config-gen --data_dir", ["config-gen", "--data_dir", tmp, "--out_dir", gen,
+                                      "--name", "caterpillar_only"])
+    found = discover_scenes(tmp)
+    gen_composite = os.path.join(gen, "composite", "caterpillar_only.yaml")
+
+    def dataset(composite):
+        return SpartanDataset(config=load_yaml(composite), data_dir=tmp,
+                              config_dir=os.path.dirname(composite))
+    same, names = _same_scenes(np, dataset(on_disk["composite"]), dataset(gen_composite))
+    log(f"tooling (b): config-gen found {found} (phase 8 wrote {sorted(on_disk['scenes'])}); "
+        f"the generated composite's dataset has phase 8's scene names, frame ids and poses: "
+        f"{same} ({names}); split {load_yaml(os.path.join(gen, 'single_object', 'object.yaml'))}")
+    if found != sorted(on_disk["scenes"]) or not same:
+        fail("tooling (b): the generated corpus does not hold phase 8's scenes")
+
+    # (c) migrate a flattened copy of one scene back; download's dry run
+    src = os.path.join(tmp, "logs_proto", "scene_000")
+    old_logs = os.path.join(tmp, "old_layout", "logs_proto")
+    shutil.copytree(os.path.join(src, "processed"), os.path.join(old_logs, "scene_000"))
+    flat_mesh = os.path.isfile(os.path.join(old_logs, "scene_000", "fusion_mesh.ply"))
+    text = command("migrate", ["migrate", "--logs_dir", old_logs])
+    back = os.path.join(old_logs, "scene_000")
+    same_tree = files(back) == files(src) and all(
+        filecmp.cmp(os.path.join(back, f), os.path.join(src, f), shallow=False)
+        for f in files(src))
+    log(f"tooling (c): migrate on a flattened scene_000 (top-level fusion_mesh.ply: "
+        f"{flat_mesh}) printed {text.strip()!r}; the tree it gave back equals the original, "
+        f"{len(files(src))} files byte for byte: {same_tree}")
+    if not flat_mesh or text.strip() != "migrated scene_000" or not same_tree:
+        fail("tooling (c): migrate did not give back the scene's tree")
+    dl = os.path.join(tmp, "download")
+    cat = os.path.join(pub, "composite", "caterpillar_only.yaml")
+    text = command("download --dry_run", ["download", "--config", cat, "--data_dir", dl,
+                                          "--dry_run"])
+    scenes = set()
+    for entry in pm.COMPOSITES["caterpillar_only"]["single_object"]:
+        spec = pm.SINGLE_OBJECT_SCENE_LISTS[entry]
+        scenes.update(spec["train"] + spec["test"])
+    urls = sorted(f"{BASE_URL}logs_proto_compressed/{s}.tar.gz" for s in scenes)
+    listed = [ln.split()[-1] for ln in text.splitlines() if ln.startswith("would fetch ")]
+    fetched = files(os.path.join(dl, "logs_proto")) if os.path.isdir(dl) else []
+    log(f"tooling (c): download --dry_run listed {len(listed)} scene URLs of caterpillar_only "
+        f"(expected {len(urls)}: {urls[0]}, ...); files under {dl}/logs_proto: {len(fetched)}")
+    if listed != urls or fetched:
+        fail("tooling (c): download --dry_run did not list the scenes, or fetched")
+
+    # (d) experiment caterpillar at full width on the synthetic stand-in
+    exp_dir = os.path.join(tmp, "experiment")
+    argv = ["experiment", "caterpillar", "--steps", str(EXP_STEPS), "--save_rate",
+            str(EXP_SAVE_RATE), "--num_eval_pairs", str(EXP_PAIRS), "--num_matches_per_pair",
+            str(EXP_MATCHES), "--logging_dir", exp_dir, "--device", str(dev)]
+    protocol = PROTOCOLS["caterpillar"]
+    ph.forward_launches = ph.backward_launches = bm.launches = 0
+    with _ExperimentSpy(torch, train_mod, ev, bm) as spy:
+        command("experiment caterpillar", argv)
+    k1, k2, k3 = ph.forward_launches, ph.backward_launches, bm.launches
+    folders = _check_experiment_run(torch, np, spy, k1, k2, len(protocol.runs), EXP_STEPS,
+                                    "experiment (d)")
+    missing = [f for f in folders for c in ("000003.ckpt", "000006.ckpt")
+               if not os.path.exists(os.path.join(f, c))]
+    if missing:
+        fail(f"experiment (d): checkpoints missing in {missing}")
+    stand_in = runner._resolve_dataset(protocol, None, None, None, Scale.full(), {})
+    stand_in.set_test_mode()
+    pairs = ev.image_pair_list(stand_in, EXP_PAIRS, 1)
+    chunks = math.ceil(len(pairs) / ev.SWEEP_PAIR_CHUNK)
+    log(f"experiment (d): K3 launches {k3}, per network's scoring {[n for _, _, n in spy.scores]}"
+        f" (expected one per sweep chunk: {chunks} chunk of {len(pairs)} pairs each)")
+    if k3 != chunks * len(folders) or [n for _, _, n in spy.scores] != [chunks] * len(folders):
+        fail("experiment (d): K3 did not launch once per sweep chunk")
+    result = json.load(open(os.path.join(exp_dir, "result.json")))
+    _check_result(np, result, len(protocol.runs), "experiment (d)")
+    if not os.path.exists(os.path.join(exp_dir, "comparison_test.yaml")):
+        fail("experiment (d): comparison_test.yaml is missing")
+    net = protocol.runs[0].name
+    dcn = DenseCorrespondenceNetwork.from_model_folder(os.path.join(exp_dir, net), device=dev)
+    images = ev.DenseCorrespondenceEvaluation.compute_descriptor_images_batched(
+        dcn, stand_in, [(s, i) for s, a, b, _ in pairs for i in (a, b)])
+    ties, k3_err = check_eval_routes(torch, np, bm, ev, stand_in, pairs, images,
+                                     read_csv(os.path.join(exp_dir, net, "test", "data.csv")))
+    step_ms = spy.step_ms(EXP_SAVE_RATE)
+    score_s = [s for _, s, _ in spy.scores]
+    # the same command again: resume trains nothing, and scores the same
+    ph.forward_launches = ph.backward_launches = bm.launches = 0
+    with _ExperimentSpy(torch, train_mod, ev, bm) as again:
+        text = command("experiment caterpillar, again", argv)
+    result2 = json.load(open(os.path.join(exp_dir, "result.json")))
+    same_stats = all(result2["networks"][n]["test"] == info["test"]
+                     for n, info in result["networks"].items())
+    log(f"experiment (d) resume: {len(again.runs)} runs trained, K1 {ph.forward_launches}, K2 "
+        f"{ph.backward_launches}, K3 {bm.launches}; 'already trained' {text.count('already')} "
+        f"times; the same statistics: {same_stats}")
+    if again.runs or ph.forward_launches or text.count("already trained") != len(folders) \
+            or not same_stats:
+        fail("experiment (d): the second call retrained, or scored differently")
+    torch.cuda.empty_cache()
+
+    # (e) from disk, through (b)'s generated corpus
+    disk_dir = os.path.join(tmp, "experiment_from_disk")
+    argv = ["experiment", "caterpillar", "--data_dir", tmp, "--dataset_dir",
+            os.path.join(gen, "composite"), "--run_filter", "0.500", "--steps",
+            str(EXP_DISK_STEPS), "--num_eval_pairs", str(EXP_PAIRS), "--num_matches_per_pair",
+            str(EXP_MATCHES), "--logging_dir", disk_dir, "--device", str(dev)]
+    ph.forward_launches = ph.backward_launches = bm.launches = 0
+    with _ExperimentSpy(torch, train_mod, ev, bm) as disk:
+        command("experiment caterpillar --data_dir", argv)
+    k1d, k2d, k3d = ph.forward_launches, ph.backward_launches, bm.launches
+    _check_experiment_run(torch, np, disk, k1d, k2d, 1, EXP_DISK_STEPS, "experiment (e)")
+    trained_ds = disk.runs[0][0].dataset
+    trained_ds.set_train_mode()  # the runner scored on the same dataset, in test mode
+    trained_on = trained_ds.get_scene_list()
+    disk_ds = dataset(gen_composite)
+    disk_ds.set_test_mode()
+    disk_chunks = math.ceil(len(ev.image_pair_list(disk_ds, EXP_PAIRS, 1)) / ev.SWEEP_PAIR_CHUNK)
+    result_d = json.load(open(os.path.join(disk_dir, "result.json")))
+    log(f"experiment (e): trained on {trained_on}, the generated composite's train split; dataset "
+        f"{result_d['dataset']!r}; K3 launches {k3d} (expected {disk_chunks})")
+    if (k3d != disk_chunks or result_d["dataset"] != "published:" + tmp
+            or trained_on != load_yaml(os.path.join(gen, "single_object", "object.yaml"))["train"]):
+        fail("experiment (e): K3 did not launch once per sweep chunk, or the run did not read "
+             "the tree")
+    _check_result(np, result_d, 1, "experiment (e)")
+
+    # (f) the numbers
+    log(smi)
+    log("tooling and experiments, seconds per command: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in seconds.items()))
+    log(f"experiment (d) train step, CUDA events between consecutive steps (checkpoint "
+        f"intervals left out), ResNet-34-8s 640x480 B=4: mean {np.mean(step_ms):.3f} ms over "
+        f"{len(step_ms)} steps ({', '.join(f'{x:.1f}' for x in step_ms)}); host seconds per "
+        f"step call {', '.join(f'{1e3 * s:.1f}' for tr, _ in spy.runs for s in tr.step_seconds)}"
+        f" ms; scoring seconds per network (evaluate_single_network, {len(pairs)} pairs x "
+        f"{EXP_MATCHES} matches): {', '.join(f'{s:.3f}' for s in score_s)}")
+    return {"k1": k1, "k2": k2, "k3": k3, "k1_disk": k1d, "k2_disk": k2d, "k3_disk": k3d,
+            "k3_err": k3_err, "ties": ties, "seconds": seconds, "step_ms": step_ms,
+            "score_s": score_s}
+
+
 def flatten(tree, prefix=""):
     """{'a/b': leaf} of a nested dict."""
     out = {}
@@ -3316,6 +3697,12 @@ def main():
         dtype14 = check_compute_dtype_and_preprocess(torch, np, dev, ph, frames_t, tree)
         dtype14["phase_s"] = time.perf_counter() - t0
         phase("compute dtype, remat and preprocessing", t0)
+
+        # 15. dataset tooling and experiments, on phase 8's tree -------------------------
+        t0 = time.perf_counter()
+        tooling = check_tooling_and_experiments(torch, np, dev, bm, ph, on_disk, tree, smi)
+        torch.cuda.empty_cache()
+        phase("dataset tooling and experiments", t0)
     finally:
         shutil.rmtree(tree, ignore_errors=True)
 
@@ -3365,10 +3752,13 @@ def main():
                                           "evaluation": evaluation["launches"],
                                           "grasp stream": apps["launches"],
                                           "int8 server": variants["k3_server"],
-                                          "int8 grasp stream": variants["k3_stream"]},
+                                          "int8 grasp stream": variants["k3_stream"],
+                                          "experiment": tooling["k3"],
+                                          "experiment from disk": tooling["k3_disk"]},
                      "max_abs_err": max(max_abs_err, driver["k3_err"], on_disk["k3_err"],
                                         evaluation["k3_err"], pair_smo["k3_err"],
-                                        apps["k3_err"], variants["k3_err"]),
+                                        apps["k3_err"], variants["k3_err"],
+                                        tooling["k3_err"]),
                      "ms": k_ms, "device_ms": k_ms, "wrapper_ms": w_ms, "plain_ms": p_ms,
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
                      "empty_launch_ms": empty_ms,
@@ -3598,7 +3988,9 @@ def main():
                                      "ResNet-101-8s step": variants["train"]["Resnet101_8s"][0],
                                      "UNet step": variants["train"]["Unet"][0],
                                      "bf16 step": dtype14["train"]["launches"][0],
-                                     "bf16 driver": dtype14["driver"]["launches"][0]},
+                                     "bf16 driver": dtype14["driver"]["launches"][0],
+                                     "experiment": tooling["k1"],
+                                     "experiment from disk": tooling["k1_disk"]},
                 "max_abs_err": k1_err, "ms": k1_ms, "device_ms": k1_ms,
                 "wrapper_ms": k1_wrapper, "plain_ms": p1_ms, "bound_ms": b1_ms,
                 "bound_by": b1_by, "library_ms": None}
@@ -3611,7 +4003,9 @@ def main():
                                      "ResNet-101-8s step": variants["train"]["Resnet101_8s"][1],
                                      "UNet step": variants["train"]["Unet"][1],
                                      "bf16 step": dtype14["train"]["launches"][1],
-                                     "bf16 driver": dtype14["driver"]["launches"][1]},
+                                     "bf16 driver": dtype14["driver"]["launches"][1],
+                                     "experiment": tooling["k2"],
+                                     "experiment from disk": tooling["k2_disk"]},
                 "max_abs_err": k2_err, "ms": k2_ms, "device_ms": k2_ms,
                 "wrapper_ms": k2_wrapper, "plain_ms": p2_ms, "bound_ms": b2_ms,
                 "bound_by": b2_by, "library_ms": None}

@@ -25,7 +25,10 @@ sampler, the model folder;
 evaluation of a model folder (the 23-column match statistics, CDF stats,
 descriptor statistics, qualitative panels, keypoints and the test loss
 over a dataset; :mod:`pdc_tpu_torch.evaluation`, ``python -m pdc_tpu_torch
-evaluate``).
+evaluate``), the apps, the other backbones with bf16 and int8, the
+preprocessing pipeline, the dataset tooling (``config-gen``, ``migrate``,
+``download``) and the experiment runner (:mod:`pdc_tpu_torch.experiments`,
+``python -m pdc_tpu_torch experiment``). Not yet: the multi-device layer.
 """
 
 __version__ = "0.1.0"

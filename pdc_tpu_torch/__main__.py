@@ -1,9 +1,11 @@
 """Command-line interface: ``python -m pdc_tpu_torch <command> [args]``.
 
-Ported commands:
+Every command of ``python -m pdc_tpu``:
 
     python -m pdc_tpu_torch train --dataset_config <composite.yaml> --data_dir <root>
     python -m pdc_tpu_torch evaluate --model_folder trained_models/net
+    python -m pdc_tpu_torch experiment caterpillar --steps 600
+    python -m pdc_tpu_torch experiment --list
     python -m pdc_tpu_torch statistics --config <composite.yaml> --data_dir <root>
     python -m pdc_tpu_torch serve --model_folder trained_models/net
     python -m pdc_tpu_torch export-serving --model_folder trained_models/net --output net.pt2
@@ -11,12 +13,31 @@ Ported commands:
     python -m pdc_tpu_torch descriptor-video --model_folder <folder> --config <composite.yaml>
     python -m pdc_tpu_torch debug-vis view|debug --config <composite.yaml>
     python -m pdc_tpu_torch preprocess --data_dir <root>/logs_proto
+    python -m pdc_tpu_torch config-gen --data_dir <root> --out_dir <cfg>
+    python -m pdc_tpu_torch config-gen --published --out_dir <cfg>
+    python -m pdc_tpu_torch migrate --logs_dir <root>/logs_proto
+    python -m pdc_tpu_torch download --config <cfg>/composite/caterpillar_only.yaml --dry_run
 
-Each runs on the CUDA card unless ``--device cpu`` is given (``--platform
-cpu`` for export-serving), and raises without CUDA otherwise. ``python -m
-pdc_tpu_torch <command> --help`` lists a command's options. The other
-``python -m pdc_tpu`` commands (config-gen, experiment, ...) are still to be
-ported (see ROADMAP.md).
+Each command that runs a network runs on the CUDA card unless ``--device
+cpu`` is given (``--platform cpu`` for export-serving), and raises without
+CUDA otherwise. ``python -m pdc_tpu_torch <command> --help`` lists a
+command's options. The multi-device flags of ``train`` (``--data_parallel``,
+``--fsdp``, ``--tensor_parallel``, ``--pipeline``) and ``serve``
+(``--data_parallel``, ``--model_parallel``) are refused: the parallel layer
+is not ported yet (see ROADMAP.md).
+
+``experiment <protocol>`` trains every variant of one of the reference's
+experiment protocols (``--list`` prints the 13), scores each network on the
+test split of its composite and writes ``<logging_dir>/result.json``;
+``--smoke`` is a CI-sized preset (4 steps at 64x48) that explicit sizing
+flags override. Without ``--data_dir`` it uses a synthetic stand-in dataset;
+with it, the composite configs under ``--dataset_dir`` (default
+``configs/dataset/composite``; ``config-gen`` writes such a corpus).
+
+``config-gen`` writes the scene-list and composite YAMLs of a data root, or
+with ``--published`` those of the published pdc dataset; ``migrate`` moves
+old flat scene folders into the ``processed/``/``raw/`` layout;
+``download`` fetches a composite's scenes (``--dry_run`` lists them).
 
 ``preprocess`` renders every scene's object masks and depth images
 (``image_masks/%06d_mask.png``, ``rendered_images/%06d_depth.png`` and
@@ -73,7 +94,10 @@ DELEGATED = {"serve": "pdc_tpu_torch.apps.serve",
              "descriptor-images": "pdc_tpu_torch.apps.compute_descriptor_images",
              "descriptor-video": "pdc_tpu_torch.apps.make_descriptor_video",
              "debug-vis": "pdc_tpu_torch.apps.debug_visualization",
-             "preprocess": "pdc_tpu_torch.pipeline.preprocessing"}
+             "preprocess": "pdc_tpu_torch.pipeline.preprocessing",
+             "config-gen": "pdc_tpu_torch.data.config_gen",
+             "migrate": "pdc_tpu_torch.data.migrate",
+             "download": "pdc_tpu_torch.data.download"}
 PARALLEL_FLAGS = ("data_parallel", "fsdp", "tensor_parallel", "pipeline")
 
 
@@ -170,7 +194,69 @@ def _cmd_evaluate(argv):
     print(f"analysis written: {out}")
 
 
-COMMANDS = {"train": _cmd_train, "evaluate": _cmd_evaluate}
+SCALE_FLAGS = ("steps", "width", "height", "batch_size", "num_eval_pairs",
+               "num_matches_per_pair", "save_rate")
+
+
+def _cmd_experiment(argv):
+    """Run one of the reference's experiment protocols headlessly."""
+    import argparse
+
+    p = argparse.ArgumentParser(prog="python -m pdc_tpu_torch experiment")
+    p.add_argument("protocol", nargs="?", default=None, help="protocol name (omit with --list)")
+    p.add_argument("--list", action="store_true", dest="list_protocols",
+                   help="list available protocols")
+    p.add_argument("--steps", type=int, default=None,
+                   help="override per-variant training steps (default: the notebook's count)")
+    p.add_argument("--width", type=int, default=None, help="default 640")
+    p.add_argument("--height", type=int, default=None, help="default 480")
+    p.add_argument("--batch_size", type=int, default=None)
+    p.add_argument("--num_eval_pairs", type=int, default=None, help="default 100")
+    p.add_argument("--num_matches_per_pair", type=int, default=None, help="default 100")
+    p.add_argument("--save_rate", type=int, default=None)
+    p.add_argument("--smoke", action="store_true",
+                   help="tiny CI-sized run (4 steps, 64x48); explicit sizing flags still "
+                        "override its presets")
+    p.add_argument("--data_dir", default=None,
+                   help="pdc data root (default: synthetic stand-in dataset)")
+    p.add_argument("--dataset_dir", default=None,
+                   help="composite-config dir (default: configs/dataset/composite)")
+    p.add_argument("--logging_dir", default=None)
+    p.add_argument("--max_runs", type=int, default=None, help="truncate the variant grid")
+    p.add_argument("--run_filter", default=None,
+                   help="regex selecting a subset of the variant grid by run name")
+    p.add_argument("--seeds", type=int, default=1,
+                   help="replicate every selected run under N training seeds "
+                        "(training.seed=1..N); result.json gains cross-seed aggregates")
+    p.add_argument("--no_eval", action="store_true")
+    p.add_argument("--eval_only", action="store_true",
+                   help="skip training; evaluate the model folders already under logging_dir")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = p.parse_args(argv)
+
+    from pdc_tpu_torch.experiments import Scale, list_protocols, run_protocol
+
+    if args.list_protocols or not args.protocol:
+        for name, n_runs, desc in list_protocols():
+            print(f"{name:28s} {n_runs:3d} runs  {desc}")
+        return
+
+    import torch
+
+    # train and score in fp32, as the JAX package does: no TF32 in matmuls or cuDNN
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    scale = Scale.smoke() if args.smoke else Scale.full()
+    for field in SCALE_FLAGS:  # --smoke is a preset: explicit flags override it
+        if getattr(args, field) is not None:
+            setattr(scale, field, getattr(args, field))
+    run_protocol(args.protocol, scale=scale, data_dir=args.data_dir,
+                 dataset_dir=args.dataset_dir, logging_dir=args.logging_dir,
+                 train=not args.eval_only, evaluate=not args.no_eval, max_runs=args.max_runs,
+                 run_filter=args.run_filter, seeds=args.seeds, device=args.device)
+
+
+COMMANDS = {"train": _cmd_train, "evaluate": _cmd_evaluate, "experiment": _cmd_experiment}
 
 
 def main(argv=None):
@@ -183,8 +269,8 @@ def main(argv=None):
         COMMANDS[cmd](rest)
         return 0
     if cmd not in DELEGATED:
-        print(f"unknown or not yet ported command {cmd!r}; ported: "
-              f"{', '.join(sorted(DELEGATED) + sorted(COMMANDS))}", file=sys.stderr)
+        print(f"unknown command {cmd!r}; commands: "
+              f"{', '.join(sorted(COMMANDS) + sorted(DELEGATED))}", file=sys.stderr)
         return 2
     import importlib
 

@@ -2,7 +2,7 @@
 
 Port of :mod:`pdc_tpu.geom.camera` (``CameraIntrinsics`` :22-78, with
 ``from_yaml_file`` reading through the port's own YAML reader,
-``unproject_to_camera`` :92-108, ``project_to_image`` :111-126,
+``default_K_matrix`` :74-83, ``unproject_to_camera`` :92-108, ``project_to_image`` :111-126,
 ``uv_to_flat``/``flat_to_uv`` :129-142). Conventions are the same:
 
   * pixel coordinates are (u, v) = (column/right, row/down)
@@ -64,6 +64,18 @@ class CameraIntrinsics:
         return CameraIntrinsics(cx=float(K[0, 2]), cy=float(K[1, 2]),
                                 fx=float(K[0, 0]), fy=float(K[1, 1]),
                                 width=width, height=height)
+
+
+def default_K_matrix() -> np.ndarray:
+    """The reference's hard-coded default intrinsics (float64 ``[3, 3]``),
+    kept for parity with it."""
+    K = np.zeros((3, 3))
+    K[0, 0] = 533.6422696034836
+    K[1, 1] = 534.7824445233571
+    K[0, 2] = 319.4091030774892
+    K[1, 2] = 236.4374299691866
+    K[2, 2] = 1.0
+    return K
 
 
 def unproject_to_camera(uv, z, K):

@@ -1,8 +1,8 @@
 """Matrix-form (pooled) pixelwise contrastive loss, batched over pairs.
 
 Port of :mod:`pdc_tpu.losses.matrix_loss`: ``MatrixSampleIndices`` (:46-63),
-``pooled_non_match_loss_from_rows`` (:66-121) and ``compose_loss_matrix``
-(:201-318); ``_gather_rows`` (:192-198) is
+``pooled_non_match_loss_from_rows`` (:66-121), ``pooled_non_match_loss``
+(:177-189) and ``compose_loss_matrix`` (:201-318); ``_gather_rows`` (:192-198) is
 :func:`~pdc_tpu_torch.losses.pixelwise_contrastive.gather_rows`. Non-matches
 are scored as a distance matrix of every match row against a shared pool of
 image-b pixels (one pool on the object mask, one off it), with the
@@ -77,6 +77,29 @@ def pooled_non_match_loss_from_rows(da, db, matches_uv_b, matches_valid, pool_b,
         (pool_b % W).to(torch.float32), (pool_b // W).to(torch.float32),
         pool_valid.to(torch.float32),
         float(M), bool(use_l2_pixel_loss), float(M_pixel))
+
+
+def pooled_non_match_loss(image_a_pred, image_b_pred, matches_a, matches_uv_b, matches_valid,
+                          pool_b, pool_valid, image_width: int, M: float = 0.5,
+                          use_l2_pixel_loss: bool = False, M_pixel: float = 50.0,
+                          hinge=pooled_hinge):
+    """:func:`pooled_non_match_loss_from_rows` on the rows of
+    ``image_a_pred`` at ``matches_a`` and of ``image_b_pred`` at ``pool_b``
+    (flat indices; invalid entries read pixel 0). Takes one pair
+    (``[HW, D]`` predictions, ``[Nm]``/``[P]`` indices), as the JAX function
+    does, or a batch with a leading ``B``; returns ``(loss_sum, num_hard)``
+    of the same leading shape."""
+    one = image_a_pred.dim() == 2
+    if one:
+        image_a_pred, image_b_pred, matches_a, matches_uv_b, matches_valid, pool_b, pool_valid = (
+            torch.as_tensor(x)[None] for x in (image_a_pred, image_b_pred, matches_a,
+                                               matches_uv_b, matches_valid, pool_b, pool_valid))
+    da = gather_rows(image_a_pred, matches_a, matches_valid)
+    db = gather_rows(image_b_pred, pool_b, pool_valid)
+    loss, num_hard = pooled_non_match_loss_from_rows(
+        da, db, matches_uv_b, matches_valid, pool_b, pool_valid, image_width, M=M,
+        use_l2_pixel_loss=use_l2_pixel_loss, M_pixel=M_pixel, hinge=hinge)
+    return (loss[0], num_hard[0]) if one else (loss, num_hard)
 
 
 def compose_loss_matrix(image_a_pred, image_b_pred, s: MatrixSampleIndices, cfg: LossConfig,

@@ -200,6 +200,16 @@ class DenseCorrespondenceNetwork:
             for m, training in modes:
                 m.training = training
 
+    def forward_on_img_tensor(self, img):
+        """[H, W, 3] float RGB in [0, 1] -> descriptor image, WITHOUT the
+        mean/std normalisation, as the reference's deprecated method runs
+        it. Deprecated (warns): use :meth:`forward_on_img` or
+        :meth:`forward`."""
+        import warnings
+
+        warnings.warn("use forward/forward_on_img instead", DeprecationWarning)
+        return self.forward_single_image_tensor(img)
+
     def forward_single_image_tensor(self, img_tensor):
         """[H, W, 3] normalized image -> [H, W, D] descriptor image."""
         x = torch.as_tensor(img_tensor, dtype=torch.float32, device=self.device)

@@ -3,7 +3,8 @@ networks trained by the reference framework.
 
 Port of :mod:`pdc_tpu.models.torch_import`: ``convert_torchvision_resnet``
 (:31-100), ``resolve_pretrained_weights`` (:112-155),
-``maybe_load_pretrained_backbone`` (:158-174), ``convert_reference_dcn`` and
+``load_pretrained_backbone`` (:101-109), ``maybe_load_pretrained_backbone``
+(:158-174), ``convert_reference_dcn`` and
 ``load_reference_checkpoint`` (:177-240). A torchvision-layout state
 dict (``conv1.weight``, ``bn1.*``, ``layer{L}.{B}.{conv,bn}{N}.*``,
 ``layer{L}.{B}.downsample.{0,1}.*``) maps onto the port's
@@ -69,6 +70,24 @@ def convert_torchvision_resnet(state_dict: Mapping, target: Mapping) -> Dict[str
     return out
 
 
+def _load_backbone(module: torch.nn.Module, path: str) -> torch.nn.Module:
+    """The torchvision ResNet ``.pth`` at ``path`` into ``module``'s
+    backbone, in place."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if hasattr(sd, "state_dict"):
+        sd = sd.state_dict()
+    module.load_state_dict(convert_torchvision_resnet(sd, module.state_dict()), strict=True)
+    return module
+
+
+def load_pretrained_backbone(dcn, pth_path: str):
+    """Load a torchvision ResNet ``.pth`` into the backbone of ``dcn`` (a
+    :class:`~pdc_tpu_torch.models.dcn.DenseCorrespondenceNetwork`) in
+    place; the descriptor head keeps its weights. Returns ``dcn``."""
+    _load_backbone(dcn.module, pth_path)
+    return dcn
+
+
 def resolve_pretrained_weights(net_config: Mapping) -> Optional[str]:
     """The ImageNet-pretrained backbone weights of a
     ``dense_correspondence_network`` config block, looked up in order:
@@ -112,12 +131,8 @@ def maybe_load_pretrained_backbone(module: torch.nn.Module,
     path = resolve_pretrained_weights(net_config)
     if path is None:
         return module
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    if hasattr(sd, "state_dict"):
-        sd = sd.state_dict()
     logger.info("initializing backbone from pretrained weights: %s", path)
-    module.load_state_dict(convert_torchvision_resnet(sd, module.state_dict()), strict=True)
-    return module
+    return _load_backbone(module, path)
 
 
 def convert_reference_dcn(state_dict: Mapping, target: Mapping) -> Dict[str, torch.Tensor]:

@@ -269,3 +269,18 @@ def test_forward_runs_in_eval_mode_whatever_the_module_mode():
     with pytest.raises(RuntimeError):
         dcn.forward(torch.zeros(1, H, W, 5))
     assert dcn.module.training
+
+
+def test_forward_on_img_tensor_warns_and_skips_normalisation_as_jax(dcn, jdcn):
+    img = np.random.RandomState(5).uniform(0, 1, (H, W, 3)).astype(np.float32)
+    with pytest.warns(DeprecationWarning):
+        want = np.asarray(jdcn.forward_on_img_tensor(img))
+    with pytest.warns(DeprecationWarning, match="forward_on_img"):
+        got = dcn.forward_on_img_tensor(img)
+    assert got.shape == (H, W, D) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5 * float(np.abs(want).max()))
+    # no mean/std: the normalised frame gives forward_single_image_tensor's answer
+    x = (img - np.asarray(dcn.image_mean, np.float32)) / np.asarray(dcn.image_std_dev, np.float32)
+    with pytest.warns(DeprecationWarning):
+        np.testing.assert_array_equal(dcn.forward_on_img_tensor(x).numpy(),
+                                      dcn.forward_single_image_tensor(x).numpy())

@@ -99,3 +99,11 @@ def test_invert_and_transform_match_jax(batch):
         # applying T after its inverse gives the points back
         back = ttf.transform_points(torch.as_tensor(flat_T[i]), out_t.reshape(-1, 200, 3)[i])
         np.testing.assert_allclose(back.numpy(), flat_p[i], atol=1e-5)
+
+
+def test_default_K_matrix_equals_jax():
+    got, want = tcam.default_K_matrix(), jcam.default_K_matrix()
+    assert got.dtype == want.dtype == np.float64 and got.shape == (3, 3)
+    np.testing.assert_array_equal(got, want)
+    got[0, 0] = 0.0  # a new array each call, as in pdc_tpu
+    assert tcam.default_K_matrix()[0, 0] == want[0, 0]

@@ -83,3 +83,30 @@ def test_import_builds_nothing_and_needs_no_nvcc():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+
+
+DATASET_TOOLING_AND_EXPERIMENTS = (
+    "pdc_tpu_torch.data.config_gen", "pdc_tpu_torch.data.migrate",
+    "pdc_tpu_torch.data.download", "pdc_tpu_torch.data.published_manifest",
+    "pdc_tpu_torch.experiments", "pdc_tpu_torch.experiments.protocols",
+    "pdc_tpu_torch.experiments.runner")
+
+
+@pytest.mark.parametrize("module", DATASET_TOOLING_AND_EXPERIMENTS)
+def test_tooling_and_experiments_import_without_yaml_jax_or_pdc_tpu(module):
+    """Each imports, and the CLI lists its commands, with yaml, jax and
+    pdc_tpu made unimportable: the port needs none of them."""
+    assert module in _modules()
+    code = (
+        "import sys\n"
+        "for m in ('yaml', 'jax', 'flax', 'pdc_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        f"import {module}\n"
+        "from pdc_tpu_torch import __main__ as cli\n"
+        "assert {'config-gen', 'migrate', 'download'} <= set(cli.DELEGATED)\n"
+        "assert 'experiment' in cli.COMMANDS\n"
+        "print('ok')\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr

@@ -97,3 +97,40 @@ def test_one_kernel_call_per_pool_kind(assembled):
     pred = torch.zeros(B, H * W, 3)
     compose_loss_matrix(pred, pred, _to_port(assembled), LossConfig(), W, hinge=counting)
     assert shapes == [(B, 300, 3), (B, 300, 3)]
+
+
+@pytest.mark.parametrize("use_pix", [False, True], ids=["hinge", "pixel_weighted"])
+def test_pooled_non_match_loss_with_indices_equals_jax(use_pix):
+    """The index-taking wrapper on one pair, as the JAX function takes it,
+    and on a batch of the same pairs: loss sums within 1e-6 (relative),
+    hard counts equal."""
+    from pdc_tpu.losses.matrix_loss import pooled_non_match_loss as jax_loss
+    from pdc_tpu_torch.losses.matrix_loss import pooled_non_match_loss
+
+    rng = np.random.default_rng(3 + use_pix)
+    B, Nm, P, HW = 3, 200, 150, H * W
+    pa = (rng.standard_normal((B, HW, 3)) * 0.3).astype(np.float32)
+    pb = (rng.standard_normal((B, HW, 3)) * 0.3).astype(np.float32)
+    ma = rng.integers(0, HW, (B, Nm))
+    mb = rng.integers(0, HW, (B, Nm))
+    uv_b = np.stack([mb % W, mb // W], -1).astype(np.float32)
+    mv = rng.random((B, Nm)) < 0.8
+    pool = rng.integers(0, HW, (B, P))
+    pv = rng.random((B, P)) < 0.9
+    kw = dict(M=0.5, use_l2_pixel_loss=use_pix, M_pixel=20.0)
+    losses, hards = [], []
+    for b in range(B):
+        want_loss, want_hard = jax_loss(pa[b], pb[b], ma[b], uv_b[b], mv[b], pool[b], pv[b], W,
+                                        **kw)
+        got_loss, got_hard = pooled_non_match_loss(
+            *(torch.as_tensor(x[b]) for x in (pa, pb, ma, uv_b, mv, pool, pv)), W, **kw)
+        assert got_loss.shape == () and float(want_loss) > 0
+        np.testing.assert_allclose(float(got_loss), float(want_loss), rtol=1e-6)
+        assert int(got_hard) == int(want_hard) > 0
+        losses.append(float(got_loss))
+        hards.append(int(got_hard))
+    batch_loss, batch_hard = pooled_non_match_loss(
+        *(torch.as_tensor(x) for x in (pa, pb, ma, uv_b, mv, pool, pv)), W, **kw)
+    assert batch_loss.shape == (B,)
+    np.testing.assert_allclose(batch_loss.numpy(), losses, rtol=1e-6)
+    assert batch_hard.tolist() == hards

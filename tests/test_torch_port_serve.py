@@ -407,8 +407,14 @@ def test_cli_rejects_unported_options_and_commands(capsys):
         with pytest.raises(SystemExit):
             serve.main(["--model_folder", "x", flag])
         assert "not ported" in capsys.readouterr().err
-    assert cli.main(["config-gen"]) == 2
-    assert "not yet ported" in capsys.readouterr().err
+    for flag in ("--data_parallel", "--fsdp"):
+        with pytest.raises(SystemExit):
+            cli.main(["train", "--dataset_config", "x.yaml", flag])
+        assert "not ported" in capsys.readouterr().err
+    # every command of pdc_tpu is ported: a command no package has is refused
+    assert cli.main(["no-such-command"]) == 2
+    err = capsys.readouterr().err
+    assert "unknown command 'no-such-command'" in err and "experiment" in err
     with pytest.raises(SystemExit):  # train is ported: it needs its --dataset_config
         cli.main(["train"])
     assert cli.main([]) == 2

@@ -469,3 +469,26 @@ def test_torchvision_weights_convert_bit_equal_to_pdc_tpu(tmp_path, monkeypatch)
     dcn = DenseCorrespondenceNetwork.from_config(cfg["dense_correspondence_network"],
                                                  device="cpu")
     assert torch.equal(dcn.module.stem_bn.running_mean, tv["bn1.running_mean"])
+
+
+def test_load_pretrained_backbone_in_place_bit_equal_to_pdc_tpu(tmp_path):
+    """``load_pretrained_backbone(dcn, pth)`` against pdc_tpu's on the same
+    starting weights: every backbone entry is the torchvision one, the head
+    keeps its weights, and the whole state equals pdc_tpu's conversion."""
+    tv = _torchvision_state_dict(seed=3)
+    path = str(tmp_path / "resnet18.pth")
+    torch.save(tv, path)
+    dcn = DenseCorrespondenceNetwork.from_config(
+        {"descriptor_dimension": D, "image_width": W, "image_height": H,
+         "backbone": {"model_class": "Resnet", "resnet_name": "Resnet18_8s"}}, device="cpu")
+    head = dcn.module.head.weight.detach().clone()
+    jax_dcn = types.SimpleNamespace(variables=state_dict_to_flax(dcn.module.state_dict()))
+    jax_torch_import.load_pretrained_backbone(jax_dcn, path)
+    assert torch_import.load_pretrained_backbone(dcn, path) is dcn
+    got = dcn.module.state_dict()
+    want = flax_to_state_dict(jax_dcn.variables)
+    assert set(got) == set(want)
+    for name, value in want.items():
+        assert torch.equal(got[name], value), name
+    assert torch.equal(got["stage2_block1.conv1.weight"], tv["layer2.1.conv1.weight"])
+    assert torch.equal(got["head.weight"], head)
