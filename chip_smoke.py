@@ -237,6 +237,30 @@ Phases, each fatal on failure:
      train step by CUDA events and scoring seconds per network, beside the
      card's name and power limit.
 
+16. the data axis of the parallel layer, "the data axis" (after phase 15),
+     on a world of one process over NCCL (a FileStore in the scratch tree; the
+     machine has one card, so no collective crosses cards) at 640x480,
+     ResNet-34-8s, D=3, B=4. It fails unless (a) ``make_sharded_train_step``
+     and ``make_train_step`` on one assembled batch and the same weights agree
+     as phase 6's kernel and plain steps must (loss 1e-5, gradients 1e-4 by
+     relative L2, parameters within 2 lr and 99.9% of the significant ones
+     within 1e-6), K1 and K2 launching twice each; (b) 3 steps of the
+     device-sampled route with ``mesh`` (data-parallel) and with ``mesh`` and
+     ``fsdp`` from the same weights and draws as 3 steps of the single route
+     differ from it by at most 4 times F4's spread (the card's step is not
+     bit-reproducible, ROADMAP F4: a second run of the single route in the
+     same call measures it), in the losses and in the parameters' relative
+     L2 distance, K1 and K2 twice each per step; (c) ``make_pixel_sharded_best_match``
+     on a 640x480 descriptor image of phase 8's network with 100 queries equals
+     ``best_match`` exactly, one K3 launch; (d) ``mesh=`` evaluation of 4 pairs
+     of 100 matches and the descriptor statistics of 8 images on phase 8's
+     folder equal ``mesh=None``; (e) ``render_scene_products_sharded`` of
+     phase 14's 4 poses equals ``render_scene_products`` bit for bit; (f) a
+     ``DescriptorServer`` with ``devices=[cuda:0]`` (``serve --data_parallel``
+     here) answers 4 requests as the one-card server does, one K3 launch; (g)
+     it prints, beside the card's name and power limit, the NCCL all-reduce of
+     ResNet-34-8s's gradients and the three routes' steps by CUDA events.
+
 The last lines are a JSON object with every kernel's numbers, the
 nvidia-smi line, and ``{"ok": true, "device": {...}}``. Without CUDA, or when the
 package is not beside this script, it exits non-zero and prints no result.
@@ -2983,7 +3007,8 @@ def check_preprocess(torch, np, dev, tmp):
     if any(differ.values()) or not routes_equal or iou.min() < PREP_IOU_MIN:
         fail("preprocess: the card's renders disagree with the CPU route or the scene")
     return {"seconds": cmd_s, "per_pose": per_pose, "faces": len(faces),
-            "iou": (float(iou.min()), float(iou.mean()))}
+            "iou": (float(iou.min()), float(iou.mean())),
+            "render_inputs": (c.points, c._fg_faces, c.faces, stack, c.K)}
 
 
 def check_compute_dtype_and_preprocess(torch, np, dev, ph, frames_t, tmp):
@@ -3341,6 +3366,268 @@ def check_tooling_and_experiments(torch, np, dev, bm, ph, on_disk, tmp, smi):
     return {"k1": k1, "k2": k2, "k3": k3, "k1_disk": k1d, "k2_disk": k2d, "k3_disk": k3d,
             "k3_err": k3_err, "ties": ties, "seconds": seconds, "step_ms": step_ms,
             "score_s": score_s}
+
+
+# -- the data axis of the parallel layer ----------------------------------------------
+
+# phase 16: DP_STEPS steps of each device-sampled route from the same weights and
+# draws; the route's step timed over DP_TIMED calls; EVAL/STAT sizes of (d)
+DP_STEPS, DP_TIMED, AXIS_PAIRS, AXIS_STAT_IMAGES = 3, 3, 4, 8
+AXIS_QUERIES = 100
+# (b): the card's step is not bit-reproducible (ROADMAP F4): two runs of the single
+# route from the same weights and draws drift apart, and Adam turns each
+# rounding-level gradient difference into up to lr a step. That spread, measured in
+# the same call, is the bar: a route may differ from the single route by at most
+# AXIS_SPREAD_X times it (relative L2 of the parameters, relative loss), or by the
+# floors where the two single runs happen to agree
+AXIS_SPREAD_X, AXIS_PARAM_FLOOR, AXIS_LOSS_FLOOR = 4.0, 1e-6, 1e-6
+
+
+def _param_spread(torch, a, b):
+    """(max |a - b|, relative L2 distance ||a - b|| / ||b||) over two modules'
+    parameters."""
+    worst, num, den = 0.0, 0.0, 0.0
+    for p, q in zip(a.parameters(), b.parameters()):
+        d = p.detach() - q.detach()
+        worst = max(worst, float(d.abs().max()))
+        num += float((d * d).sum())
+        den += float((q.detach() ** 2).sum())
+    return worst, (num / den) ** 0.5
+
+
+def check_data_axis(torch, np, dev, bm, ph, frames_t, on_disk, render_inputs, tmp, smi):
+    """The phase "the data axis": (a)-(g) of the module docstring, on a world
+    of one process over NCCL. Returns the launches of each path and the
+    timings."""
+    from pdc_tpu_torch.apps.serve import DescriptorServer, _Request
+    from pdc_tpu_torch.data.assembler import AssemblerConfig
+    from pdc_tpu_torch.data.dataset import SpartanDataset
+    from pdc_tpu_torch.data.device_cache import DeviceCache
+    from pdc_tpu_torch.evaluation.evaluate import EVAL_COLUMNS
+    from pdc_tpu_torch.evaluation.evaluate import DenseCorrespondenceEvaluation as DCE
+    from pdc_tpu_torch.losses.pixelwise_contrastive import LossConfig
+    from pdc_tpu_torch.models.dcn import DenseCorrespondenceNetwork
+    from pdc_tpu_torch.parallel import distributed, make_mesh
+    from pdc_tpu_torch.parallel.sharded_train import (
+        make_pixel_sharded_best_match,
+        make_sharded_train_step,
+        rank_seed,
+    )
+    from pdc_tpu_torch.pipeline import renderer as pr
+    from pdc_tpu_torch.training.scanned import make_device_sampled_train_step
+    from pdc_tpu_torch.training.train import make_train_step
+
+    import torch.distributed as dist
+
+    distributed.ensure_initialized(coordinator_address="file://" + os.path.join(tmp, "store"),
+                                   num_processes=1, process_id=0, device="cuda")
+    out = {"launches": {}, "ms": {}}
+    try:
+        mesh = make_mesh()
+        log(f"data axis: {mesh}, backend {dist.get_backend()}, world {dist.get_world_size()} "
+            f"(the machine has one card: the collectives run over NCCL with one rank)")
+        if dist.get_backend() != "nccl" or mesh.device.type != "cuda":
+            fail("the data axis is not on NCCL and the card")
+        tc = TRAINING_CONFIG
+        loss_cfg = LossConfig.from_dict(tc["loss_function"])
+        asm_cfg = AssemblerConfig.from_training_config(tc)
+        Wt, Bt = tc["dense_correspondence_network"]["image_width"], tc["training"]["batch_size"]
+        lr = tc["training"]["learning_rate"]
+
+        # (a) the global-batch step against the single step, same batch and weights
+        single = make_train_step(tc, loss_cfg, asm_cfg, Wt)
+        s_single, s_sharded = new_train_state(torch, tc), new_train_state(torch, tc)
+        assembled = single.assemble(s_single, pair_batch(torch, frames_t, *draw_pairs(
+            np, np.random.default_rng(SEED + 16), Bt, N_FRAMES)),
+            torch.Generator(device=dev).manual_seed(SEED + 16))
+        m_single = single.update(s_single, *assembled)
+        ph.forward_launches = ph.backward_launches = 0
+        m_sharded = make_sharded_train_step(tc, loss_cfg, asm_cfg, Wt, mesh).update(
+            s_sharded, *assembled)
+        torch.cuda.synchronize()
+        out["launches"]["sharded step"] = (ph.forward_launches, ph.backward_launches)
+        num = den = 0.0
+        close = total = 0
+        for p, q in zip(s_sharded.module.parameters(), s_single.module.parameters()):
+            num += float(((p.grad - q.grad) ** 2).sum())
+            den += float((q.grad ** 2).sum())
+            sig = q.grad.abs() > 1e-3 * float(q.grad.abs().max())
+            close += int(((p.detach() - q.detach()).abs()[sig] <= 1e-2 * lr).sum())
+            total += int(sig.sum())
+        grad_rel = (num / den) ** 0.5
+        worst = _param_spread(torch, s_sharded.module, s_single.module)[0]
+        share = close / total
+        loss_a, loss_s = float(m_sharded["loss"]), float(m_single["loss"])
+        log(f"data axis (a): make_sharded_train_step against make_train_step on one batch: "
+            f"loss {loss_a:.8g} vs {loss_s:.8g}, gradient relative L2 {grad_rel:.3g}, "
+            f"parameters max|diff| {worst:.3g} (lr {lr}), {100 * share:.3f}% of the significant "
+            f"ones within 1e-2 lr; K1/K2 launches {out['launches']['sharded step']} (2/2 "
+            f"expected)")
+        if (abs(loss_a - loss_s) > STEP_LOSS_RTOL * abs(loss_s) or grad_rel > STEP_GRAD_RTOL
+                or worst > 2 * lr * (1 + 1e-3) or share < STEP_PARAM_SHARE
+                or out["launches"]["sharded step"] != (2, 2)):
+            fail("data axis (a): the sharded step disagrees with the single step")
+        del s_single, s_sharded, assembled
+        torch.cuda.empty_cache()
+
+        # (b) the device-sampled route: single, data-parallel, data-parallel + FSDP
+        t = time.perf_counter()
+        ds = SpartanDataset.make_synthetic(**DATASET_RECORD["synthetic"])
+        ds.set_parameters_from_training_config(tc)
+        cache = DeviceCache.from_dataset(ds, device=dev)
+        log(f"data axis (b): device cache of {cache.nbytes / 1e6:.1f} MB in "
+            f"{time.perf_counter() - t:.2f} s")
+        routes = {}
+        for name, kw in (("single", {}), ("single again", {}),
+                         ("data_parallel", {"mesh": mesh}),
+                         ("fsdp", {"mesh": mesh, "fsdp": True})):
+            state = new_train_state(torch, tc)
+            step = make_device_sampled_train_step(tc, loss_cfg, asm_cfg, Wt, cache, Bt,
+                                                  ((0, 1.0),), **kw)
+            gen = torch.Generator(device=dev).manual_seed(rank_seed(SEED, mesh.rank))
+            ph.forward_launches = ph.backward_launches = 0
+            losses = [float(step(state, gen)["loss"]) for _ in range(DP_STEPS)]
+            torch.cuda.synchronize()
+            launches = (ph.forward_launches, ph.backward_launches)
+            ms = time_cuda(torch, lambda: step(state, gen), iters=DP_TIMED, warmup=0)
+            routes[name] = {"losses": losses, "state": state, "launches": launches, "ms": ms}
+            if name in ("data_parallel", "fsdp"):
+                out["launches"][name] = launches
+            out["ms"][name + " step"] = ms
+
+        def spread(name):
+            r, s = routes[name], routes["single"]
+            worst, rel = _param_spread(torch, r["state"].module, s["state"].module)
+            return worst, rel, max(abs(a - b) / abs(b) for a, b in zip(r["losses"], s["losses"]))
+
+        f4_worst, f4_rel, f4_loss = spread("single again")
+        log(f"data axis (b): F4's spread, two runs of the single route, {DP_STEPS} steps: "
+            f"losses {['%.6g' % x for x in routes['single']['losses']]} vs "
+            f"{['%.6g' % x for x in routes['single again']['losses']]} (max relative "
+            f"{f4_loss:.3g}), parameters relative L2 {f4_rel:.3g}, max|diff| {f4_worst:.3g}")
+        for name in ("data_parallel", "fsdp"):
+            r = routes[name]
+            worst, rel, loss_rel = spread(name)
+            state_mb = (r["state"].fsdp.state_bytes(r["state"].optimizer) / 1e6
+                        if r["state"].fsdp is not None else None)
+            log(f"data axis (b): {name} route, {DP_STEPS} steps against the single route: "
+                f"losses {['%.6g' % x for x in r['losses']]} (max relative {loss_rel:.3g}, "
+                f"bar {max(AXIS_SPREAD_X * f4_loss, AXIS_LOSS_FLOOR):.3g}), parameters "
+                f"relative L2 {rel:.3g} (bar {max(AXIS_SPREAD_X * f4_rel, AXIS_PARAM_FLOOR):.3g}),"
+                f" max|diff| {worst:.3g}; K1/K2 launches {r['launches']} ({2 * DP_STEPS} each "
+                f"expected)"
+                + ("" if state_mb is None else f"; ZeRO state on this rank {state_mb:.1f} MB"))
+            if (loss_rel > max(AXIS_SPREAD_X * f4_loss, AXIS_LOSS_FLOOR)
+                    or rel > max(AXIS_SPREAD_X * f4_rel, AXIS_PARAM_FLOOR)
+                    or r["launches"] != (2 * DP_STEPS, 2 * DP_STEPS)
+                    or (r["state"].fsdp is None) == (name == "fsdp")):
+                fail(f"data axis (b): the {name} route disagrees with the single route")
+        # (g) the all-reduce of ResNet-34-8s's gradients over NCCL
+        params = [p for p in routes["single"]["state"].module.parameters()]
+        flat = torch.cat([p.detach().reshape(-1) for p in params])
+        out["ms"]["all_reduce"] = time_cuda(torch, lambda: mesh.all_reduce(flat), iters=10)
+        out["all_reduce_mb"] = flat.numel() * 4 / 1e6
+        del routes, cache, flat, params
+        torch.cuda.empty_cache()
+
+        # (c) K3 through the pixel-sharded best match, 640x480, Q=100
+        dcn = DenseCorrespondenceNetwork.from_model_folder(on_disk["folder"], device="cuda")
+        rgb = ds.scenes[sorted(ds.scenes)[0]].rgb[:1]
+        with torch.inference_mode():
+            res = dcn.forward(np.stack([ds.rgb_image_to_tensor(f) for f in rgb]))[0]
+        res_flat = res.reshape(-1, res.shape[-1]).to(torch.float32).contiguous()  # [HW, D]
+        rng = np.random.default_rng(SEED + 3)
+        q = res_flat[torch.as_tensor(rng.integers(0, res_flat.shape[0], AXIS_QUERIES),
+                                     device=dev)] + 0.01 * torch.as_tensor(
+            rng.standard_normal((AXIS_QUERIES, res_flat.shape[1]), dtype=np.float32),
+            device=dev)
+        want_idx, want_dist = bm.best_match(res_flat.t().contiguous()[None], q[None])
+        fn = make_pixel_sharded_best_match(mesh)
+        bm.launches = 0
+        idx, dist = fn(res_flat, q)
+        torch.cuda.synchronize()
+        out["launches"]["pixel-sharded best match"] = bm.launches
+        same = torch.equal(idx, want_idx[0]) and torch.equal(dist, want_dist[0])
+        out["k3_err"] = float((dist - want_dist[0]).abs().max())
+        out["ms"]["pixel-sharded best match"] = time_cuda(torch, lambda: fn(res_flat, q))
+        log(f"data axis (c): make_pixel_sharded_best_match at HW={res_flat.shape[0]} "
+            f"Q={AXIS_QUERIES} equals best_match exactly: {same}; K3 launches "
+            f"{out['launches']['pixel-sharded best match']} (1 expected)")
+        if not same or out["launches"]["pixel-sharded best match"] != 1:
+            fail("data axis (c): the pixel-sharded best match disagrees with best_match")
+
+        # (d) mesh= evaluation and statistics on phase 8's folder against mesh=None
+        eval_ds = DCE.load_dataset_from_model_folder(on_disk["folder"])
+        kw = dict(num_image_pairs=AXIS_PAIRS, num_matches_per_image_pair=EVAL_MATCHES, seed=3)
+        want = DCE.evaluate_network_quantitative(dcn, eval_ds, **kw)
+        bm.launches = 0
+        got = DCE.evaluate_network_quantitative(dcn, eval_ds, mesh=mesh, **kw)
+        out["launches"]["mesh= evaluation"] = bm.launches
+        rows_equal = len(got) == len(want) > 0 and all(
+            np.array_equal(got[c], want[c], equal_nan=got[c].dtype.kind == "f")
+            if got[c].dtype.kind == "f" else list(got[c]) == list(want[c]) for c in EVAL_COLUMNS)
+        stat_kw = dict(num_images=AXIS_STAT_IMAGES, batch_size=4, save_to_file=False)
+        eval_ds.reset_seed(5)
+        stats_want = DCE.compute_descriptor_statistics_on_dataset(dcn, eval_ds, **stat_kw)
+        eval_ds.reset_seed(5)
+        stats_got = DCE.compute_descriptor_statistics_on_dataset(dcn, eval_ds, mesh=mesh,
+                                                                 **stat_kw)
+        log(f"data axis (d): mesh= evaluation of {AXIS_PAIRS} pairs x {EVAL_MATCHES} matches "
+            f"on phase 8's folder equals mesh=None row for row: {rows_equal} ({len(got)} rows, "
+            f"K3 launches {out['launches']['mesh= evaluation']}); descriptor statistics equal: "
+            f"{stats_got == stats_want}")
+        if not rows_equal or stats_got != stats_want or out["launches"]["mesh= evaluation"] < 1:
+            fail("data axis (d): mesh= evaluation disagrees with mesh=None")
+
+        # (e) the sharded renderer against the unsharded one, phase 14's scene
+        verts, fg, faces, poses, K = render_inputs
+        want = pr.render_scene_products(verts, fg, faces, poses, K, H, W, 1000.0, device=dev)
+        got = pr.render_scene_products_sharded(verts, fg, faces, poses, K, H, W, 1000.0, mesh)
+        render_equal = all(np.array_equal(g, w) for g, w in zip(got, want))
+        log(f"data axis (e): render_scene_products_sharded of {len(poses)} poses of phase 14's "
+            f"scene ({len(faces)} faces) equals render_scene_products bit for bit: "
+            f"{render_equal}")
+        if not render_equal:
+            fail("data axis (e): the sharded renderer disagrees with the unsharded one")
+
+        # (f) serve --data_parallel (one replica per card: one here) against without
+        frames = np.stack([ds.scenes[n].rgb[i] for n in sorted(ds.scenes) for i in (0, 5)])
+        queries = q[:16].cpu().numpy()
+        answers = []
+        for devices in (None, [dev]):
+            server = DescriptorServer(dcn, port=0, max_batch=4, devices=devices)
+            try:
+                batch = [_Request(f, queries if i % 2 == 0 else None)
+                         for i, f in enumerate(frames)]
+                bm.launches = 0
+                server._run_batch(batch)
+                if devices is not None:
+                    out["launches"]["data-parallel server"] = bm.launches
+                if any(r.error for r in batch):
+                    fail(f"data axis (f): {[r.error for r in batch]}")
+                answers.append([r.result for r in batch])
+            finally:
+                server.shutdown()
+        served_equal = all(
+            (a is None and b is None) or np.array_equal(a, b)
+            for one, two in zip(*answers) for a, b in zip(one, two))
+        log(f"data axis (f): DescriptorServer(devices=[{dev}]) (serve --data_parallel on this "
+            f"machine) answers {len(frames)} requests as the one-card server: {served_equal}; "
+            f"K3 launches {out['launches']['data-parallel server']} (1 expected)")
+        if not served_equal or out["launches"]["data-parallel server"] != 1:
+            fail("data axis (f): the data-parallel server disagrees")
+
+        # (g) the timings
+        log(smi)
+        log(f"data axis (g), CUDA events: NCCL all_reduce of ResNet-34-8s's "
+            f"{out['all_reduce_mb']:.1f} MB of gradients on a world of one "
+            f"{out['ms']['all_reduce']:.4f} ms; device-sampler step (B={Bt}, 640x480) single "
+            f"{out['ms']['single step']:.3f} ms, data-parallel {out['ms']['data_parallel step']:.3f}"
+            f" ms, data-parallel + FSDP {out['ms']['fsdp step']:.3f} ms; pixel-sharded best match "
+            f"{out['ms']['pixel-sharded best match']:.4f} ms per call")
+    finally:
+        distributed.shutdown()
+    return out
 
 
 def flatten(tree, prefix=""):
@@ -3703,6 +3990,13 @@ def main():
         tooling = check_tooling_and_experiments(torch, np, dev, bm, ph, on_disk, tree, smi)
         torch.cuda.empty_cache()
         phase("dataset tooling and experiments", t0)
+
+        # 16. the data axis of the parallel layer, on a world of one over NCCL ------------
+        t0 = time.perf_counter()
+        axis = check_data_axis(torch, np, dev, bm, ph, frames_t, on_disk,
+                               dtype14["preprocess"]["render_inputs"], tree, smi)
+        torch.cuda.empty_cache()
+        phase("the data axis", t0)
     finally:
         shutil.rmtree(tree, ignore_errors=True)
 
@@ -3754,11 +4048,17 @@ def main():
                                           "int8 server": variants["k3_server"],
                                           "int8 grasp stream": variants["k3_stream"],
                                           "experiment": tooling["k3"],
-                                          "experiment from disk": tooling["k3_disk"]},
+                                          "experiment from disk": tooling["k3_disk"],
+                                          "data axis: pixel-sharded best match":
+                                              axis["launches"]["pixel-sharded best match"],
+                                          "data axis: mesh= evaluation":
+                                              axis["launches"]["mesh= evaluation"],
+                                          "data axis: data-parallel server":
+                                              axis["launches"]["data-parallel server"]},
                      "max_abs_err": max(max_abs_err, driver["k3_err"], on_disk["k3_err"],
                                         evaluation["k3_err"], pair_smo["k3_err"],
                                         apps["k3_err"], variants["k3_err"],
-                                        tooling["k3_err"]),
+                                        tooling["k3_err"], axis["k3_err"]),
                      "ms": k_ms, "device_ms": k_ms, "wrapper_ms": w_ms, "plain_ms": p_ms,
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
                      "empty_launch_ms": empty_ms,
@@ -3990,7 +4290,10 @@ def main():
                                      "bf16 step": dtype14["train"]["launches"][0],
                                      "bf16 driver": dtype14["driver"]["launches"][0],
                                      "experiment": tooling["k1"],
-                                     "experiment from disk": tooling["k1_disk"]},
+                                     "experiment from disk": tooling["k1_disk"],
+                                     **{f"data axis: {k}": v[0]
+                                        for k, v in axis["launches"].items()
+                                        if isinstance(v, tuple)}},
                 "max_abs_err": k1_err, "ms": k1_ms, "device_ms": k1_ms,
                 "wrapper_ms": k1_wrapper, "plain_ms": p1_ms, "bound_ms": b1_ms,
                 "bound_by": b1_by, "library_ms": None}
@@ -4005,7 +4308,10 @@ def main():
                                      "bf16 step": dtype14["train"]["launches"][1],
                                      "bf16 driver": dtype14["driver"]["launches"][1],
                                      "experiment": tooling["k2"],
-                                     "experiment from disk": tooling["k2_disk"]},
+                                     "experiment from disk": tooling["k2_disk"],
+                                     **{f"data axis: {k}": v[1]
+                                        for k, v in axis["launches"].items()
+                                        if isinstance(v, tuple)}},
                 "max_abs_err": k2_err, "ms": k2_ms, "device_ms": k2_ms,
                 "wrapper_ms": k2_wrapper, "plain_ms": p2_ms, "bound_ms": b2_ms,
                 "bound_by": b2_by, "library_ms": None}

@@ -21,10 +21,19 @@ Every command of ``python -m pdc_tpu``:
 Each command that runs a network runs on the CUDA card unless ``--device
 cpu`` is given (``--platform cpu`` for export-serving), and raises without
 CUDA otherwise. ``python -m pdc_tpu_torch <command> --help`` lists a
-command's options. The multi-device flags of ``train`` (``--data_parallel``,
-``--fsdp``, ``--tensor_parallel``, ``--pipeline``) and ``serve``
-(``--data_parallel``, ``--model_parallel``) are refused: the parallel layer
-is not ported yet (see ROADMAP.md).
+command's options.
+
+``train --data_parallel [--fsdp]`` trains data-parallel over the processes
+of ``torchrun``, one per card (the global batch is ``batch_size`` times the
+processes; ``--fsdp`` stores the parameters and Adam's moments sharded):
+
+    python -m torch.distributed.run --nproc_per_node 4 -m pdc_tpu_torch train \
+        --data_parallel --dataset_config <composite.yaml> --data_dir <root>
+
+Started as one process it trains on one device, as the JAX package does on
+one chip. ``serve --data_parallel`` serves one replica of the network per
+local card. ``train --tensor_parallel`` and ``--pipeline`` and ``serve
+--model_parallel`` are refused: they are ROADMAP queue 1 item 9b.
 
 ``experiment <protocol>`` trains every variant of one of the reference's
 experiment protocols (``--list`` prints the 13), scores each network on the
@@ -98,7 +107,8 @@ DELEGATED = {"serve": "pdc_tpu_torch.apps.serve",
              "config-gen": "pdc_tpu_torch.data.config_gen",
              "migrate": "pdc_tpu_torch.data.migrate",
              "download": "pdc_tpu_torch.data.download"}
-PARALLEL_FLAGS = ("data_parallel", "fsdp", "tensor_parallel", "pipeline")
+# the model axes of train, not ported yet (ROADMAP queue 1 item 9b)
+PARALLEL_FLAGS = ("tensor_parallel", "pipeline")
 
 
 def _cmd_train(argv):
@@ -117,14 +127,20 @@ def _cmd_train(argv):
     p.add_argument("--num_iterations", type=int, default=None,
                    help="override training.num_iterations")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--data_parallel", action="store_true",
+                   help="data-parallel over the processes of torchrun (training.data_parallel; "
+                        "global batch = batch_size * processes)")
+    p.add_argument("--fsdp", action="store_true",
+                   help="with --data_parallel: ZeRO-shard the parameters and Adam's moments "
+                        "over the processes (training.fsdp)")
     for flag in PARALLEL_FLAGS:
         p.add_argument(f"--{flag}", nargs="?", const=True, default=None,
-                       help="not ported: multi-device training waits for the parallel slice")
+                       help="not ported: ROADMAP queue 1 item 9b")
     args = p.parse_args(argv)
     for flag in PARALLEL_FLAGS:
         if getattr(args, flag) is not None:
-            p.error(f"--{flag} is not ported to pdc_tpu_torch yet: multi-device training "
-                    "waits for the parallel slice")
+            p.error(f"--{flag} is not ported to pdc_tpu_torch yet: tensor parallelism and the "
+                    "pipeline are ROADMAP queue 1 item 9b")
 
     import torch
 
@@ -144,6 +160,10 @@ def _cmd_train(argv):
         t["logging_dir"] = args.logging_dir
     if args.num_iterations is not None:
         t["num_iterations"] = args.num_iterations
+    if args.data_parallel:
+        t["data_parallel"] = True
+    if args.fsdp:
+        t["fsdp"] = True
     dataset_config = load_yaml(args.dataset_config)
     config_dir = os.path.dirname(os.path.abspath(args.dataset_config))
 
@@ -156,7 +176,8 @@ def _cmd_train(argv):
         dataset_test=split("test") if t.get("compute_test_loss", False) else None,
         device=args.device)
     trainer.run()
-    print(f"trained model folder: {trainer.logging_dir}")
+    if trainer.writes:
+        print(f"trained model folder: {trainer.logging_dir}")
 
 
 def _cmd_evaluate(argv):

@@ -22,8 +22,13 @@ of clients over TCP, with cross-request microbatching.
   the first scene of the folder's training dataset (deterministic per
   frame; ``pdc_tpu/apps/serve.py:28-34`` recommends it for a daemon).
 
-Not ported yet: ``mesh``/``--data_parallel``/``--model_parallel`` (parallel
-slice); the CLI rejects them.
+- Data parallelism (``devices=[...]``, ``--data_parallel``): one replica of
+  the network per device; batch buckets become multiples of the replica
+  count, each replica forwards (and answers the queries of) its contiguous
+  block of the coalesced batch, and the answers are put back in request
+  order (``pdc_tpu/apps/serve.py:177-215`` shards the batch over a mesh's
+  data axis). ``--data_parallel`` takes every local card. Not ported yet:
+  ``--model_parallel`` (ROADMAP queue 1 item 9b); the CLI rejects it.
 
 Wire protocol (one TCP connection serves many requests), unchanged:
   request  = JSON header line ending in ``\\n``, then the payload bytes.
@@ -39,6 +44,7 @@ Wire protocol (one TCP connection serves many requests), unchanged:
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import queue
@@ -150,6 +156,13 @@ def _bucket(n: int, buckets) -> int:
     return buckets[-1]
 
 
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two devices are one (``cuda`` means the current card)."""
+    def index(d):
+        return d.index if d.index is not None or d.type != "cuda" else torch.cuda.current_device()
+    return a.type == b.type and index(a) == index(b)
+
+
 class _Request:
     __slots__ = ("rgb", "queries", "event", "result", "error")
 
@@ -171,18 +184,31 @@ class DescriptorServer:
     :param max_wait_ms: how long the batcher waits for more requests once
         one arrives; it bounds the added latency.
     :param max_queries: per-request best-match query budget.
+    :param devices: one replica of the network per device (data
+        parallelism); None serves on the network's device alone.
     """
 
     def __init__(self, dcn, host: str = "127.0.0.1", port: int = 0,
                  max_batch: int = 8, max_wait_ms: float = 5.0,
-                 max_queries: int = 16):
+                 max_queries: int = 16, devices=None):
         self._device = dcn.device
         self._module = dcn.module
+        self._replicas = [(self._device, self._module)]
+        if devices is not None:
+            devices = [torch.device(d) for d in devices]
+            self._device = devices[0]
+            self._replicas = [(d, self._module if _same_device(d, dcn.device)
+                               else copy.deepcopy(self._module).to(d)) for d in devices]
         self._H, self._W = dcn.image_shape
         self._D = dcn.descriptor_dimension
         self._Q = max(1, max_queries)
-        self._buckets = tuple(b for b in (1, 2, 4, 8, 16, 32, 64, 128, 256)
-                              if b <= max(1, max_batch)) or (1,)
+        n = len(self._replicas)
+        if devices is not None:
+            self._buckets = tuple(n * m for m in (1, 2, 4, 8, 16, 32)
+                                  if n * m <= max(n, max_batch)) or (n,)
+        else:
+            self._buckets = tuple(b for b in (1, 2, 4, 8, 16, 32, 64, 128, 256)
+                                  if b <= max(1, max_batch)) or (1,)
         # never collect more than the largest bucket holds: a non-power-of-two
         # max_batch would otherwise overflow the padded frame array
         self._max_batch = self._buckets[-1]
@@ -226,18 +252,39 @@ class DescriptorServer:
 
     # -- the batched step ------------------------------------------------------
 
+    def _forward_one(self, device, module, frames: np.ndarray, queries, n: int):
+        """One replica's step on its frames; queries [n, Q, D] (n <= its
+        frames) or None."""
+        x = torch.from_numpy(frames).to(device).to(torch.float32)
+        x = (x / 255.0 - self._mean.to(device)) / self._std.to(device)
+        # float32 whatever the compute dtype, as pdc_tpu's server returns it
+        out = module(x.permute(0, 3, 1, 2).contiguous()).to(torch.float32)
+        if queries is None or n == 0:
+            return out, None, None
+        q = torch.from_numpy(queries).to(device)
+        idx, dist = best_match(out[:n].reshape(n, self._D, self._H * self._W), q)
+        return out, idx, dist
+
     def _forward(self, frames: np.ndarray, queries: Optional[np.ndarray], n: int):
         """frames [b, H, W, 3] uint8 (b = bucket), queries [n, Q, D] float32
         or None -> (descriptors [b, D, H, W], idx [n, Q] int32 or None,
-        dist [n, Q] or None), all on the device."""
-        x = torch.from_numpy(frames).to(self._device).to(torch.float32)
-        x = (x / 255.0 - self._mean) / self._std
-        # float32 whatever the compute dtype, as pdc_tpu's server returns it
-        out = self._module(x.permute(0, 3, 1, 2).contiguous()).to(torch.float32)
+        dist [n, Q] or None), all on the first replica's device. Each
+        replica takes a contiguous block of the frames; every replica's
+        work is queued before any result is collected."""
+        k = frames.shape[0] // len(self._replicas)
+        runs = []
+        for r, (device, module) in enumerate(self._replicas):
+            m = min(max(n - r * k, 0), k)  # requests in this block
+            runs.append(self._forward_one(
+                device, module, frames[r * k:(r + 1) * k],
+                None if queries is None else queries[r * k:r * k + m], m))
+        if len(runs) == 1:
+            return runs[0]
+        out = torch.cat([o.to(self._device) for o, _, _ in runs])
         if queries is None:
             return out, None, None
-        q = torch.from_numpy(queries).to(self._device)
-        idx, dist = best_match(out[:n].reshape(n, self._D, self._H * self._W), q)
+        idx = torch.cat([i.to(self._device) for _, i, _ in runs if i is not None])
+        dist = torch.cat([d.to(self._device) for _, _, d in runs if d is not None])
         return out, idx, dist
 
     # -- lifecycle -----------------------------------------------------------
@@ -594,8 +641,7 @@ class DescriptorClient:
 
 
 _NOT_PORTED = {
-    "data_parallel": "multi-card serving waits for the parallel slice",
-    "model_parallel": "multi-card serving waits for the parallel slice",
+    "model_parallel": "tensor-parallel serving is ROADMAP queue 1 item 9b",
 }
 
 
@@ -617,6 +663,9 @@ def main(argv=None):
                    help="torch device to serve on (default cuda; cpu must be "
                         "asked for)")
     add_int8_flags(p)
+    p.add_argument("--data_parallel", action="store_true",
+                   help="one replica of the network per local card; the coalesced batch is "
+                        "split over them")
     add_unported_flags(p, _NOT_PORTED)
     args = p.parse_args(argv)
     reject_unported_flags(p, args, _NOT_PORTED)
@@ -630,15 +679,19 @@ def main(argv=None):
         args.model_folder, iteration=args.iteration, device=args.device)
     dcn = serving_clone(dcn, quantize_arg(args),
                         lambda: first_frames(dcn.load_training_dataset()))
+    devices = None
+    if args.data_parallel:
+        devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+                   if dcn.device.type == "cuda" else [dcn.device])
     server = DescriptorServer(dcn, host=args.host, port=args.port,
                               max_batch=args.max_batch,
                               max_wait_ms=args.max_wait_ms,
-                              max_queries=args.max_queries)
+                              max_queries=args.max_queries, devices=devices)
     print(f"warming up {len(server._buckets)} batch buckets...", flush=True)
     server.warmup()
     host, port = server.address
-    print(f"serving {args.model_folder} on {host}:{port} "
-          f"(max_batch={args.max_batch}, device={dcn.device})", flush=True)
+    print(f"serving {args.model_folder} on {host}:{port} (max_batch={args.max_batch}, "
+          f"devices={[str(d) for d, _ in server._replicas]})", flush=True)
     try:
         server.serve_forever()
     finally:

@@ -15,8 +15,10 @@ and intrinsics stay on the host, as in the JAX package. ``pixel_perm`` holds
 each frame's valid-first pixel permutation (int32, as there), so masked
 sampling in the assembler is one draw and one gather.
 
-Not ported yet: ``partition_scenes`` and ``ShardedDeviceCache``, which wait
-for the parallel slice.
+``partition_scenes`` (:194) and ``ShardedDeviceCache`` (:227-353) split the
+scenes over the ranks of a data axis
+(:mod:`pdc_tpu_torch.parallel.mesh`): each rank uploads only the frames of
+its own scenes, and its pair sampler reads only its own tables.
 """
 
 from __future__ import annotations
@@ -212,3 +214,191 @@ def make_cached_train_step(training_config: dict, loss_cfg, assembler_cfg,
     """The train step over index batches of ``cache``; no image crosses the
     host link per step."""
     return CachedTrainStep(training_config, loss_cfg, assembler_cfg, image_width, cache=cache)
+
+
+def partition_scenes(dataset, num_shards: int, by_object: bool = False):
+    """Greedy balanced partition of whole scenes over shards: the largest
+    unit first, to the least-loaded shard (the first on ties). Whole
+    scenes keep within-scene pairs on one rank; ``by_object`` keeps all the
+    scenes of an object together, so across-scene pairs are too. Raises
+    ``ValueError`` when a shard gets nothing."""
+    if by_object:
+        objects = {}
+        for name, s in dataset.scenes.items():
+            objects.setdefault(s.object_id or name, []).append(name)
+        units = [(sorted(names), sum(dataset.scenes[n].num_frames for n in names))
+                 for names in objects.values()]
+    else:
+        units = [([name], dataset.scenes[name].num_frames) for name in dataset.scenes]
+    units.sort(key=lambda u: -u[1])
+    shards = [[] for _ in range(num_shards)]
+    loads = [0] * num_shards
+    for names, frames in units:
+        i = int(np.argmin(loads))
+        shards[i].extend(names)
+        loads[i] += frames
+    for i, names in enumerate(shards):
+        if not names:
+            kind = "objects" if by_object else "scenes"
+            raise ValueError(f"shard {i} received no scenes: the dataset has too few {kind} "
+                             f"for {num_shards} shards")
+    return shards
+
+
+def sharded_tables(dataset, shards) -> dict:
+    """The host tables of every shard, padded as the JAX package pads them:
+    ``scene_offsets``/``scene_lengths`` ``[n, Smax]`` (offsets local to the
+    shard's block, 0 padding), ``num_scenes [n, 1]``, ``scenes_by_object
+    [n, Omax, Mmax]`` (local scene slots, -1 padding), ``scenes_per_object
+    [n, Omax]`` and ``num_objects [n, 1]``, all int32, and
+    ``frames_per_shard`` (the largest shard's frames)."""
+    n = len(shards)
+    fmax = max(sum(dataset.scenes[nm].num_frames for nm in names) for names in shards)
+    smax = max(len(names) for names in shards)
+    offsets = np.zeros((n, smax), np.int32)
+    lengths = np.zeros((n, smax), np.int32)
+    nums = np.zeros((n, 1), np.int32)
+    shard_objects = []
+    for c, names in enumerate(shards):
+        objs, off = {}, 0
+        for j, name in enumerate(sorted(names)):
+            objs.setdefault(dataset.scenes[name].object_id or name, []).append(j)
+            f = dataset.scenes[name].num_frames
+            offsets[c, j], lengths[c, j] = off, f
+            off += f
+        nums[c, 0] = len(names)
+        shard_objects.append(objs)
+    omax = max(len(o) for o in shard_objects)
+    mmax = max(max(len(v) for v in o.values()) for o in shard_objects)
+    by_obj = np.full((n, omax, mmax), -1, np.int32)
+    per_obj = np.zeros((n, omax), np.int32)
+    num_obj = np.zeros((n, 1), np.int32)
+    for c, objs in enumerate(shard_objects):
+        for oi, oid in enumerate(sorted(objs)):
+            by_obj[c, oi, :len(objs[oid])] = objs[oid]
+            per_obj[c, oi] = len(objs[oid])
+        num_obj[c, 0] = len(objs)
+    return {"scene_offsets": offsets, "scene_lengths": lengths, "num_scenes": nums,
+            "scenes_by_object": by_obj, "scenes_per_object": per_obj, "num_objects": num_obj,
+            "frames_per_shard": fmax}
+
+
+@dataclasses.dataclass
+class ShardedDeviceCache:
+    """The frames split over a mesh's data axis: this rank holds only the
+    ``frames_per_shard`` rows of its scenes (zero-padded past them), so the
+    frames cost ``1/n`` of the dataset per device.
+
+    Port of ``pdc_tpu/data/device_cache.py:227-353``. Where the JAX cache
+    is one global array sharded over the mesh (``[n * Fmax, ...]``, tables
+    ``[n, ...]``), each rank here keeps its own block (``[Fmax, ...]``) and
+    its own row of the tables on its device; ``tables`` keeps every
+    shard's host tables, as :func:`sharded_tables` pads them."""
+
+    rgb: torch.Tensor            # [Fmax, H, W, 3] uint8, this rank's block
+    depth: torch.Tensor          # [Fmax, H, W] uint16
+    mask: torch.Tensor           # [Fmax, H, W] uint8
+    poses: torch.Tensor          # [Fmax, 4, 4] float32 (identity padding)
+    Ks: torch.Tensor             # [Fmax, 3, 3] float32
+    pixel_perm: torch.Tensor     # [Fmax, H*W] int32
+    mask_count: torch.Tensor     # [Fmax] int32
+    scene_offsets: torch.Tensor  # [Smax] int64, local to the block
+    scene_lengths: torch.Tensor  # [Smax] int64 (0 = padding)
+    num_scenes: int
+    scenes_by_object: torch.Tensor   # [Omax, Mmax] int64 local scene slots, -1 padded
+    scenes_per_object: torch.Tensor  # [Omax] int64
+    num_objects: int
+    frames_per_shard: int
+    assignment: dict             # scene name -> shard index
+    tables: dict                 # every shard's host tables (sharded_tables)
+    mesh: object
+    data_axis: str
+    dataset: object
+
+    @staticmethod
+    def from_dataset(dataset, mesh, data_axis: str = "data",
+                     max_bytes_per_device: int = 8 << 30,
+                     by_object: bool = False) -> "ShardedDeviceCache":
+        """Partition the scenes (:func:`partition_scenes`) and upload this
+        rank's. ``by_object`` keeps each object's scenes on one rank, so the
+        across-scene and different-object types stay local (different-object
+        also needs 2 objects on the rank). Raises ``MemoryError`` when a
+        shard's frames exceed ``max_bytes_per_device``."""
+        n, c = mesh.shape[data_axis], mesh.index[data_axis]
+        shards = partition_scenes(dataset, n, by_object=by_object)
+        # every rank checks every shard (from frame counts, decoding only its
+        # own scenes), so all raise alike
+        sample = dataset.scenes[sorted(shards[c])[0]]
+        H, W = sample.rgb.shape[1:3]
+        frame_bytes = H * W * (3 + sample.depth.dtype.itemsize + 1)
+        for i, names in enumerate(shards):
+            per_device = frame_bytes * sum(dataset.scenes[nm].num_frames for nm in names)
+            if per_device > max_bytes_per_device:
+                raise MemoryError(f"shard {i} exceeds the per-device budget "
+                                  f"({per_device} > {max_bytes_per_device} B)")
+        tables = sharded_tables(dataset, shards)
+        fmax = tables["frames_per_shard"]
+        rgb = np.zeros((fmax, H, W, 3), np.uint8)
+        depth = np.zeros((fmax, H, W), sample.depth.dtype)
+        mask = np.zeros((fmax, H, W), np.uint8)
+        poses = np.tile(np.eye(4, dtype=np.float32), (fmax, 1, 1))
+        Ks = np.tile(np.eye(3, dtype=np.float32), (fmax, 1, 1))
+        off = 0
+        for name in sorted(shards[c]):
+            s = dataset.scenes[name]
+            f = s.num_frames
+            rgb[off:off + f], depth[off:off + f], mask[off:off + f] = s.rgb, s.depth, s.mask
+            poses[off:off + f] = s.poses.astype(np.float32)
+            Ks[off:off + f] = np.broadcast_to(s.K.astype(np.float32), (f, 3, 3))
+            off += f
+        dev = mesh.device
+
+        def put(a, dtype=None):
+            return torch.as_tensor(a, dtype=dtype, device=dev)
+
+        mask_t = put(mask)
+        perm, count = build_pixel_perms(mask_t)
+        return ShardedDeviceCache(
+            rgb=put(rgb), depth=torch.from_numpy(depth).to(dev), mask=mask_t,
+            poses=put(poses), Ks=put(Ks), pixel_perm=perm, mask_count=count,
+            scene_offsets=put(tables["scene_offsets"][c], torch.int64),
+            scene_lengths=put(tables["scene_lengths"][c], torch.int64),
+            num_scenes=int(tables["num_scenes"][c, 0]),
+            scenes_by_object=put(tables["scenes_by_object"][c], torch.int64),
+            scenes_per_object=put(tables["scenes_per_object"][c], torch.int64),
+            num_objects=int(tables["num_objects"][c, 0]), frames_per_shard=fmax,
+            assignment={nm: i for i, names in enumerate(shards) for nm in names},
+            tables=tables, mesh=mesh, data_axis=data_axis, dataset=dataset)
+
+    @property
+    def device(self) -> torch.device:
+        return self.rgb.device
+
+    @property
+    def nbytes_per_device(self) -> int:
+        """Bytes of this rank's frame block (rgb, depth and mask)."""
+        return sum(t.numel() * t.element_size() for t in (self.rgb, self.depth, self.mask))
+
+    def gather(self, frame_index: dict) -> dict:
+        """Local frame indices (``frame_a``/``frame_b``, and ``_2`` for a
+        second pair) and ``match_type`` -> the batch of those frames on the
+        device, poses and intrinsics included, in the schema of
+        :meth:`DeviceCache.gather`."""
+        out = {"match_type": frame_index["match_type"]}
+        for suffix in ("", "_2"):
+            if "frame_a" + suffix not in frame_index:
+                continue
+            fa = frame_index["frame_a" + suffix].to(torch.int64)
+            fb = frame_index["frame_b" + suffix].to(torch.int64)
+            for side, f in (("a", fa), ("b", fb)):
+                out.update({f"rgb_{side}{suffix}": self.rgb.index_select(0, f),
+                            f"depth_{side}{suffix}": self.depth.index_select(0, f),
+                            f"mask_{side}{suffix}": self.mask.index_select(0, f),
+                            f"pose_{side}{suffix}": self.poses.index_select(0, f)})
+            out["K" + suffix] = self.Ks.index_select(0, fa)
+            if suffix == "":
+                out.update({"perm_a": self.pixel_perm.index_select(0, fa),
+                            "count_a": self.mask_count.index_select(0, fa),
+                            "perm_b": self.pixel_perm.index_select(0, fb),
+                            "count_b": self.mask_count.index_select(0, fb)})
+        return out

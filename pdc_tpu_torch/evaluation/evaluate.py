@@ -24,7 +24,13 @@ package, and why:
   * the ``[pixels, matches]`` statistics run in chunks of pixels, each
     chunk's arrays at most :data:`STATS_CHUNK_BYTES`; the unmasked best
     match of a sweep chunk's pairs is one launch of the best-match kernel
-    (:func:`~pdc_tpu_torch.ops.best_match.best_match`) on the card.
+    (:func:`~pdc_tpu_torch.ops.best_match.best_match`) on the card;
+  * ``mesh=`` (a :class:`~pdc_tpu_torch.parallel.mesh.Mesh`) splits the
+    sweep's pairs, and the statistics' images, over the ranks of its data
+    axis, padded to a multiple of the ranks with copies of the last one, as
+    the JAX package pads them; each rank computes its block (the kernel
+    included) and the blocks are all-gathered, so every rank returns what
+    ``mesh=None`` returns.
 
 Entry points run on the device of the network they are given; a network
 built from a model folder defaults to ``device="cuda"`` and raises without
@@ -46,6 +52,7 @@ from pdc_tpu_torch.geom.transforms import transform_points
 from pdc_tpu_torch.ops import sampling
 from pdc_tpu_torch.ops.best_match import best_match, squared_distances
 from pdc_tpu_torch.ops.correspondence import find_pixel_correspondences, reproject_pixels
+from pdc_tpu_torch.parallel.mesh import padded_block
 from pdc_tpu_torch.utils.constants import DEPTH_IM_SCALE
 from pdc_tpu_torch.utils.yaml_io import load_yaml, save_yaml
 
@@ -76,8 +83,6 @@ ACROSS_OBJECT_COLUMNS = [
 STATS_CHUNK_BYTES = 1 << 28
 # pairs of a sweep chunk: one best-match launch, one batch of correspondences
 SWEEP_PAIR_CHUNK = 16
-_MESH_MSG = ("mesh= is not ported to pdc_tpu_torch yet: sharded evaluation waits for the "
-             "parallel slice (ROADMAP queue 1, item 9)")
 
 
 def pair_generator(pair_seed: int) -> torch.Generator:
@@ -527,6 +532,7 @@ class DenseCorrespondenceEvaluation:
     def evaluate_network_quantitative(
         dcn, dataset, num_image_pairs: int = 100, num_matches_per_image_pair: int = 100,
         seed: int = 1, forward_batch_size: int = 16, fused: bool = True, mesh=None,
+        data_axis: str = "data",
     ):
         """Sample image pairs (:func:`image_pair_list`) and build the
         per-match table. Forwards run batched over the sweep's unique
@@ -535,9 +541,9 @@ class DenseCorrespondenceEvaluation:
         best-match launch and one batch of statistics each), else one pair
         at a time through
         :meth:`single_same_scene_image_pair_quantitative_analysis`; both
-        give the same rows."""
-        if mesh is not None:
-            raise NotImplementedError(_MESH_MSG)
+        give the same rows. ``mesh`` splits the fused sweep's pairs over
+        its ``data_axis`` (the forwards stay whole on every rank, as in the
+        JAX package); the rows are the same."""
         DCE = DenseCorrespondenceEvaluation
         pair_list = image_pair_list(dataset, num_image_pairs, seed)
         images = DCE.compute_descriptor_images_batched(
@@ -545,7 +551,8 @@ class DenseCorrespondenceEvaluation:
             batch_size=forward_batch_size)
         if fused:
             return DCE._quantitative_sweep_fused(dataset, pair_list, images,
-                                                 num_matches_per_image_pair)
+                                                 num_matches_per_image_pair, mesh=mesh,
+                                                 data_axis=data_axis)
         rows = []
         for scene_name, idx_a, idx_b, ps in pair_list:
             rows.extend(DCE.single_same_scene_image_pair_quantitative_analysis(
@@ -557,32 +564,42 @@ class DenseCorrespondenceEvaluation:
     @staticmethod
     def _quantitative_sweep_fused(dataset, pair_list, images, num_matches: int,
                                   padded_num_attempts: int = 2000,
-                                  pair_chunk: int = SWEEP_PAIR_CHUNK, mesh=None):
+                                  pair_chunk: int = SWEEP_PAIR_CHUNK, mesh=None, *,
+                                  data_axis: str = "data"):
         """The sweep's statistics, ``pair_chunk`` pairs at a time on the
         device: the correspondences of a chunk in one batch (each pair from
         its own generator, the first ``num_matches`` valid candidates kept in
         their original order), the unmasked best matches of all its pairs in
         one kernel launch, then the batched statistics. Each pair's draws are
-        its own, so the chunking changes no row."""
-        if mesh is not None:
-            raise NotImplementedError(_MESH_MSG)
-        rows = []
-        for start in range(0, len(pair_list), pair_chunk):
-            chunk = pair_list[start:start + pair_chunk]
+        its own, so the chunking changes no row, nor does ``mesh``, which
+        gives each rank a block of the pairs (padded with copies of the last
+        pair) and all-gathers the blocks' statistics."""
+        work = pair_list if mesh is None else padded_block(pair_list, mesh, data_axis)
+        parts = []
+        for start in range(0, len(work), pair_chunk):
+            chunk = work[start:start + pair_chunk]
             res_a = torch.stack([images[(s, ia)] for s, ia, _, _ in chunk]).to(torch.float32)
             res_b = torch.stack([images[(s, ib)] for s, _, ib, _ in chunk]).to(torch.float32)
             frames = _chunk_frames(dataset, chunk, res_a.device)
             uv_a, uv_b, gt_valid = _sweep_correspondences(
                 frames, [ps for _, _, _, ps in chunk], num_matches, padded_num_attempts)
-            stats = _to_numpy(_sweep_statistics(frames, uv_a, uv_b, res_a, res_b))
-            gt_valid = gt_valid.cpu().numpy()
-            for p, (scene_name, idx_a, idx_b, _) in enumerate(chunk):
-                keep = np.nonzero(gt_valid[p])[0]
-                if keep.size == 0:
-                    logger.info("no matches found for pair (%s, %d, %d)", scene_name, idx_a,
-                                idx_b)
-                rows.extend(_rows({k: v[p] for k, v in stats.items()}, keep,
-                                  scene_name=scene_name, img_a_idx=idx_a, img_b_idx=idx_b))
+            stats = _sweep_statistics(frames, uv_a, uv_b, res_a, res_b)
+            stats["gt_valid"] = gt_valid
+            parts.append(stats)
+        rows = []
+        if not parts:
+            return Table.from_rows(rows, EVAL_COLUMNS)
+        stats = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+        if mesh is not None:
+            stats = {k: mesh.all_gather(v, data_axis)[:len(pair_list)] for k, v in stats.items()}
+        stats = _to_numpy(stats)
+        gt_valid = stats.pop("gt_valid")
+        for p, (scene_name, idx_a, idx_b, _) in enumerate(pair_list):
+            keep = np.nonzero(gt_valid[p])[0]
+            if keep.size == 0:
+                logger.info("no matches found for pair (%s, %d, %d)", scene_name, idx_a, idx_b)
+            rows.extend(_rows({k: v[p] for k, v in stats.items()}, keep,
+                              scene_name=scene_name, img_a_idx=idx_a, img_b_idx=idx_b))
         return Table.from_rows(rows, EVAL_COLUMNS)
 
     @staticmethod
@@ -666,13 +683,15 @@ class DenseCorrespondenceEvaluation:
     def compute_descriptor_statistics_on_dataset(dcn, dataset, num_images: int = 100,
                                                  save_to_file: bool = True,
                                                  filename: Optional[str] = None,
-                                                 batch_size: int = 16, mesh=None):
+                                                 batch_size: int = 16, mesh=None,
+                                                 data_axis: str = "data"):
         """Per-channel min/max/mean over whole images and over their masks,
         of ``num_images`` random frames, forwarded ``batch_size`` at a time;
         saved as ``descriptor_statistics.yaml``. An image whose mask is
-        empty does not count."""
-        if mesh is not None:
-            raise NotImplementedError(_MESH_MSG)
+        empty does not count. ``mesh`` splits each batch's images over its
+        ``data_axis`` (padded with copies of the last one); the per-image
+        reductions are all-gathered, so every rank gets the same
+        statistics."""
         draws = []
         for _ in range(num_images):
             scene_name = dataset.get_random_scene_name()
@@ -684,7 +703,8 @@ class DenseCorrespondenceEvaluation:
         step = batch_size if batched else 1
         for start in range(0, len(draws), step):
             chunk = draws[start:start + step]
-            frames = [dataset.get_rgbd_mask_pose(s, i) for s, i in chunk]
+            work = chunk if mesh is None or not batched else padded_block(chunk, mesh, data_axis)
+            frames = [dataset.get_rgbd_mask_pose(s, i) for s, i in work]
             if batched:
                 res = dcn.forward(np.stack([dataset.rgb_image_to_tensor(f[0]) for f in frames]))
             else:
@@ -695,14 +715,15 @@ class DenseCorrespondenceEvaluation:
                                 device=flat.device).reshape(B, H * W)[..., None] != 0
             n_mask = torch.clamp(m.sum(1), min=1)
             big = torch.tensor(1e9, device=flat.device)
-            entire = (flat.min(1).values, flat.max(1).values, flat.mean(1))
-            masked = (torch.where(m, flat, big).min(1).values,
-                      torch.where(m, flat, -big).max(1).values,
-                      torch.where(m, flat, 0.0).sum(1) / n_mask)
-            entire = [x.cpu().numpy() for x in entire]
-            masked = [x.cpu().numpy() for x in masked]
-            mask_ok = (m.sum(1)[:, 0] > 0).cpu().numpy()
-            for j in range(B):
+            per_image = [flat.min(1).values, flat.max(1).values, flat.mean(1),
+                         torch.where(m, flat, big).min(1).values,
+                         torch.where(m, flat, -big).max(1).values,
+                         torch.where(m, flat, 0.0).sum(1) / n_mask, m.sum(1)[:, :1] > 0]
+            if work is not chunk:
+                per_image = [mesh.all_gather(x, data_axis)[:len(chunk)] for x in per_image]
+            per_image = [x.cpu().numpy() for x in per_image]
+            entire, masked, mask_ok = per_image[:3], per_image[3:6], per_image[6][:, 0]
+            for j in range(len(chunk)):
                 if not mask_ok[j]:
                     continue
                 count += 1

@@ -100,6 +100,9 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     running statistics are not updated again."""
 
     MOMENTUM = 0.9
+    # set for one step by pdc_tpu_torch.parallel.sharded_train.cross_rank_batchnorm:
+    # ``moments(x) -> (mean, mean of squares)`` over every rank's batch
+    moments = None
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5)
@@ -119,8 +122,12 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
                                    self.running_var).to(dtype)
         xf = x.to(torch.float32)
         # flax's fast variance: E[x^2] - E[x]^2, clipped at 0
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        if self.moments is None:
+            mean = xf.mean(dim=(0, 2, 3))
+            mean_sq = (xf * xf).mean(dim=(0, 2, 3))
+        else:
+            mean, mean_sq = self.moments(xf)
+        var = torch.clamp(mean_sq - mean * mean, min=0.0)
         if not getattr(_recompute, "active", False):
             with torch.no_grad():
                 m = self.MOMENTUM

@@ -5,9 +5,12 @@ loaded with ``ctypes``.
 Each ``pdc_tpu_torch/csrc/<name>.cu`` or ``<name>.cpp`` becomes
 ``build/pdc_tpu_torch_kernels/lib<name>-<hash>.so`` at the repository root,
 where the hash covers the source and the flags, so an edited source or flag
-builds anew and an unchanged one loads at once. A build writes a temporary
-name and renames it into place, so processes that build the same library at
-once each load a whole file. The sources include no PyTorch header: such a
+builds anew and an unchanged one loads at once. A build holds an exclusive
+lock on ``.<name>.lock`` in the build directory (``fcntl.flock``), so
+processes that reach the first use at once (the ranks of a data-parallel
+run on one host) build it once: the others wait and load the finished
+file. The build writes a temporary name and renames it into place, so no
+process ever loads a partial file. The sources include no PyTorch header: such a
 file compiles in seconds, where one that includes ``torch/extension.h``
 takes minutes. :func:`build_all` starts one ``nvcc`` per CUDA source, all at
 once; ``.cpp`` sources are built by :func:`load` at first use.
@@ -20,7 +23,9 @@ module is imported.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -123,8 +128,22 @@ def _finish(name: str, job) -> None:
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"{compiler} failed on {source} (exit {proc.returncode}):\n{log}")
-    _log_path(out).write_text(log)
+    log_tmp = tmp.with_name(tmp.name + ".log")
+    log_tmp.write_text(log)
+    os.replace(log_tmp, _log_path(out))
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+
+
+@contextlib.contextmanager
+def _build_lock(name: str):
+    """An exclusive lock, across processes, on building ``csrc/<name>``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / f".{name}.lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
 
 
 def _log_path(lib: Path) -> Path:
@@ -168,10 +187,13 @@ def build_all() -> Dict[str, float]:
     build finished (0.0 where the library already existed)."""
     names = [p.stem for p in sources()]
     seconds = dict.fromkeys(names, 0.0)
-    with _lock:
+    with _lock, contextlib.ExitStack() as locks:
         missing = [n for n in names if not library_path(n).exists()]
         if not missing:
             return seconds
+        for n in missing:  # in sorted order, so processes never deadlock
+            locks.enter_context(_build_lock(n))
+        missing = [n for n in missing if not library_path(n).exists()]  # built meanwhile
         t0 = time.perf_counter()
         jobs = {n: _start(n) for n in missing}
         errors = []
@@ -195,7 +217,9 @@ def load(name: str) -> ctypes.CDLL:
             return lib
         path = library_path(name)
         if not path.exists():
-            _finish(name, _start(name))
+            with _build_lock(name):
+                if not path.exists():  # another process may have built it meanwhile
+                    _finish(name, _start(name))
         lib = ctypes.CDLL(str(path))
         _loaded[name] = lib
         return lib

@@ -4,8 +4,9 @@ Port of :mod:`pdc_tpu.pipeline.renderer` (the reference's VTK/OpenGL
 ``DepthScanner`` without a GL context): a metric depth image of a point
 cloud or a triangle mesh under a camera pose, through a z-buffer that keeps
 each pixel's nearest fragment. Every public function of the JAX module is
-here with its name, arguments and outputs, except
-``render_scene_products_sharded``, which needs the multi-device layer.
+here with its name, arguments and outputs;
+``render_scene_products_sharded`` takes the port's
+:class:`~pdc_tpu_torch.parallel.mesh.Mesh`.
 
 What the port keeps of the JAX geometry, bit for bit:
 
@@ -535,13 +536,49 @@ def render_scene_products(vertices_world, fg_faces, full_faces, poses, K, height
                                     max_fragments=None, device=device), height, width)
 
 
-def render_scene_products_sharded(*args, **kwargs):
-    """The poses axis of :func:`render_scene_products` sharded over several
-    devices: not ported yet; it waits for the parallel layer (ROADMAP queue
-    1 item 9)."""
-    raise NotImplementedError(
-        "render_scene_products_sharded is not ported yet: it needs the multi-device layer "
-        "(ROADMAP queue 1 item 9); render_scene_products renders on one card")
+def render_scene_products_sharded(vertices_world, fg_faces, full_faces, poses, K,
+                                  height: int, width: int, depth_scale: float, mesh,
+                                  axis: str = "data", min_tile: int = 2, max_tile: int = 64):
+    """:func:`render_scene_products` with the poses split over the ranks of
+    ``mesh``'s ``axis`` (a :class:`~pdc_tpu_torch.parallel.mesh.Mesh`): the
+    poses are padded to a multiple of the ranks by repeating the last one,
+    the host pass (:func:`prepare_sorted_render`) runs on all of them, as
+    the JAX package's does, each rank renders its contiguous block of poses
+    on its device, and the packed buffers are all-gathered, so every rank
+    returns the same numpy arrays, the padding dropped. Each pose's render
+    is the unsharded one, so the output equals
+    :func:`render_scene_products` bit for bit.
+
+    :return: ``(mask [P, H, W] uint8, depth_cropped_mm [P, H, W] uint16,
+        depth_full_mm [P, H, W] uint16)`` numpy arrays
+    """
+    from pdc_tpu_torch.parallel.mesh import block_range
+
+    n = mesh.shape[axis]
+    poses3 = np.asarray(_poses_3d(poses), np.float32)
+    n_poses = len(poses3)
+    pad = (-n_poses) % n
+    if pad:  # repeat the last pose; its frames are dropped after the gather
+        poses3 = np.concatenate([poses3, np.repeat(poses3[-1:], pad, axis=0)])
+    prep_fg = prepare_sorted_render(vertices_world, fg_faces, poses3, K, height, width,
+                                    min_tile, max_tile)
+    prep_full = prepare_sorted_render(vertices_world, full_faces, poses3, K, height, width,
+                                      min_tile, max_tile)
+    lo, hi = block_range(len(poses3), mesh, axis)
+
+    def block(prep):
+        return [(fb, idx[lo:hi], tile) for fb, idx, tile in prep]
+
+    dev = mesh.device
+    zbuf_fg, zbuf_full = _render_prepared(
+        _upload(np.asarray(vertices_world, np.float32), dev, torch.float32),
+        _upload(poses3[lo:hi], dev, torch.float32),
+        _upload(np.asarray(K, np.float32), dev, torch.float32),
+        [block(prep_fg), block(prep_full)], height, width, dev)
+    packed = mesh.all_gather(_packed(zbuf_fg, zbuf_full, height, width, float(depth_scale)),
+                             axis)
+    mask, crop, full = unpack_scene_products(packed, height, width)
+    return mask[:n_poses], crop[:n_poses], full[:n_poses]
 
 
 # -- host helpers ------------------------------------------------------------------------------

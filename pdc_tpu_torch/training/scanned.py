@@ -10,13 +10,24 @@ that scene whose pose differs from a's by more than 0.2 m or 20 degrees
 (the empty pair, type -1, when none does). The JAX package's within-scene
 sampler ``device_sample_pairs`` (:322) is this sampler's type-0 case.
 
-What is not ported: ``make_scanned_train_step`` (:517), the ``lax.scan``
-loop of K train steps per dispatch, which exists for the dispatch latency
+The bounded samplers ``device_sample_pairs_bounded`` (:189) and
+``device_sample_pairs_mixed_bounded`` (:218) draw from one rank's
+zero-padded tables of a
+:class:`~pdc_tpu_torch.data.device_cache.ShardedDeviceCache`, and
+:func:`make_sharded_cache_train_step` (:359) trains over such a cache.
+
+What is not ported: the ``lax.scan`` loop of ``make_scanned_train_step``
+(:517), K train steps per dispatch, which exists for the dispatch latency
 of a remote TPU runtime. Here :func:`make_device_sampled_train_step` takes
 one step per call: sample, gather, assemble, update, all on the device.
 The training config's ``steps_per_dispatch`` only selects this route
 (:class:`~pdc_tpu_torch.training.train.DenseCorrespondenceTraining`).
-The bounded and sharded samplers (:189-356) wait for the parallel slice.
+Its ``mesh``/``fsdp`` semantics (:570-700) are ported: with a mesh each
+rank samples its own ``batch_size`` pairs (from a generator seeded per
+rank, :func:`~pdc_tpu_torch.parallel.sharded_train.rank_seed`), runs its
+own BatchNorm, and the gradients (reduce-scattered under ``fsdp``), the
+running statistics and the metrics are averaged over the ranks before one
+Adam step (:func:`~pdc_tpu_torch.parallel.sharded_train.data_parallel_update`).
 """
 
 from __future__ import annotations
@@ -27,10 +38,13 @@ import numpy as np
 import torch
 
 from pdc_tpu_torch.losses.composer import (
+    MATCH_TYPE_DIFFERENT_OBJECT,
     MATCH_TYPE_SINGLE_OBJECT_ACROSS_SCENE,
     MATCH_TYPE_SINGLE_OBJECT_WITHIN_SCENE,
     MATCH_TYPE_SYNTHETIC_MULTI_OBJECT,
 )
+from pdc_tpu_torch.parallel.sharded_train import data_parallel_update
+from pdc_tpu_torch.parallel.tensor_parallel import to_fsdp_state
 from pdc_tpu_torch.training.train import TrainState, TrainStep
 
 POSE_DIST_THRESHOLD = 0.2     # metres (reference threshold)
@@ -146,18 +160,10 @@ def device_sample_pairs_mixed(generator: torch.Generator, tables: dict, poses: t
     mt = types[torch.clamp(pick, max=len(type_probs) - 1)]
 
     def frame_in_scene(uf, s):
-        return offsets[s] + draw_below(uf, lengths[s])
+        return _frame_in_scene(offsets, lengths, s, uf)
 
     def within_pair(uf, uc, s):
-        """Frame a in scene ``s`` and the first of K candidates whose pose
-        differs enough (else a again); ok is False when none does."""
-        fa = frame_in_scene(uf, s)
-        cand = offsets[s][:, None] + draw_below(uc, lengths[s][:, None])
-        ok = _pose_ok(poses[fa], poses[cand])
-        any_ok = ok.any(dim=-1)
-        first = torch.argmax(ok.to(torch.uint8), dim=-1)
-        fb = torch.where(any_ok, cand.gather(1, first[:, None])[:, 0], fa)
-        return fa, fb, any_ok
+        return _within_pair(poses, offsets, lengths, s, uf, uc)
 
     # within-scene: pose-difference rejection in a uniform scene
     s_w = draw_below(u[1], S)
@@ -204,12 +210,146 @@ def device_sample_pairs_mixed(generator: torch.Generator, tables: dict, poses: t
     return (fa, fb, torch.where(is_pair2, fa2, fa), torch.where(is_pair2, fb2, fb), mt_out)
 
 
-class DeviceSampledTrainStep(TrainStep):
+def _frame_in_scene(offsets, lengths, s, uf):
+    """A frame uniform in scene ``s`` of a scene table, from uniforms ``uf``."""
+    return offsets[s] + draw_below(uf, lengths[s])
+
+
+def _within_pair(poses, offsets, lengths, s, uf, uc):
+    """Frame a in scene ``s`` and the first of the candidates whose pose
+    differs enough (else a again): ``(fa, fb, ok)``, ok False when none
+    does."""
+    fa = _frame_in_scene(offsets, lengths, s, uf)
+    cand = offsets[s][:, None] + draw_below(uc, lengths[s][:, None])
+    ok = _pose_ok(poses[fa], poses[cand])
+    any_ok = ok.any(dim=-1)
+    first = torch.argmax(ok.to(torch.uint8), dim=-1)
+    return fa, torch.where(any_ok, cand.gather(1, first[:, None])[:, 0], fa), any_ok
+
+
+def device_sample_pairs_bounded(generator: torch.Generator, scene_offsets, scene_lengths,
+                                num_scenes: int, poses: torch.Tensor, batch_size: int):
+    """Within-scene pairs from one rank's zero-padded scene table (entries
+    from ``num_scenes`` on are padding): ``(frame_a, frame_b, match_type)``
+    int64 ``[B]``, local frame indices of the rank's block; type -1 where
+    no candidate's pose differs enough."""
+    dev = scene_offsets.device
+    B, K = batch_size, NUM_POSE_CANDIDATES
+
+    def uniform(*shape):
+        return torch.rand((B,) + shape, generator=generator, device=generator.device,
+                          dtype=torch.float64).to(dev)
+
+    s = draw_below(uniform(), max(int(num_scenes), 1))
+    fa, fb, ok = _within_pair(poses, scene_offsets, scene_lengths, s, uniform(), uniform(K))
+    return fa, fb, torch.where(ok, MATCH_TYPE_SINGLE_OBJECT_WITHIN_SCENE, -1)
+
+
+def device_sample_pairs_mixed_bounded(generator: torch.Generator, offsets, lengths,
+                                      num_scenes: int, by_obj, per_obj, num_obj: int,
+                                      poses: torch.Tensor, batch_size: int, type_probs,
+                                      with_second: bool = False):
+    """Type-mixed pairs from one rank's zero-padded tables (the bounded
+    form of :func:`device_sample_pairs_mixed`, same draws and returns).
+
+    The fallbacks follow the host sampler's: an across-scene draw on an
+    object of one scene uses that scene twice; a different-object draw on
+    a rank with one object becomes within-scene (type 0); a synthetic
+    multi-object draw there composites the same object twice.
+
+    :param offsets, lengths: ``[Smax]`` local scene table; ``num_scenes``
+        real entries
+    :param by_obj: ``[Omax, Mmax]`` local scene slots (-1 padded),
+        ``per_obj [Omax]``, ``num_obj`` real objects
+    """
+    dev = offsets.device
+    B, K = batch_size, NUM_POSE_CANDIDATES
+    type_probs = tuple((t, p) for t, p in type_probs if p > 0)
+    if any(t not in SAMPLED_TYPES for t, _ in type_probs):
+        raise ValueError(f"the device sampler draws the types {SAMPLED_TYPES}, got {type_probs}")
+    has_smo = any(t == MATCH_TYPE_SYNTHETIC_MULTI_OBJECT for t, _ in type_probs)
+    if has_smo and not with_second:
+        raise ValueError("SYNTHETIC_MULTI_OBJECT in type_probs requires with_second=True")
+    S, O = max(int(num_scenes), 1), max(int(num_obj), 1)
+
+    def uniform(*shape):
+        return torch.rand((B,) + shape, generator=generator, device=generator.device,
+                          dtype=torch.float64).to(dev)
+
+    u = {k: uniform() for k in (0, 1, 2, 3, 4, 5, 6, 7, 9)}
+    u_cand = {k: uniform(K) for k in (3, 8, 10)}
+    types = torch.as_tensor([t for t, _ in type_probs], dtype=torch.int64, device=dev)
+    cdf = torch.cumsum(torch.as_tensor([p for _, p in type_probs], dtype=torch.float64,
+                                       device=dev), 0)
+    pick = torch.searchsorted(cdf, (u[0] * cdf[-1])[:, None], right=True)[:, 0]
+    mt = types[torch.clamp(pick, max=len(type_probs) - 1)]
+    if int(num_obj) < 2:  # different-object needs two objects on this rank
+        mt = torch.where(mt == MATCH_TYPE_DIFFERENT_OBJECT, 0, mt)
+
+    s_w = draw_below(u[1], S)
+    fa_w, fb_w, ok_w = _within_pair(poses, offsets, lengths, s_w, u[2], u_cand[3])
+    mt_w = torch.where(ok_w, MATCH_TYPE_SINGLE_OBJECT_WITHIN_SCENE, -1)
+
+    o_x = draw_below(u[4], O)
+    n_o = per_obj[o_x]
+    i1 = draw_below(u[5], n_o)
+    i2 = torch.where(n_o > 1, (i1 + 1 + draw_below(u[6], n_o - 1)) % torch.clamp(n_o, min=1),
+                     i1)
+    s_x1, s_x2 = by_obj[o_x, i1], by_obj[o_x, i2]
+    o_d2 = (o_x + 1 + draw_below(u[7], O - 1)) % O if O > 1 else o_x
+    s_d1 = by_obj[o_x, draw_below(u[5], per_obj[o_x])]
+    s_d2 = by_obj[o_d2, draw_below(u[6], per_obj[o_d2])]
+
+    is_within = mt == MATCH_TYPE_SINGLE_OBJECT_WITHIN_SCENE
+    is_across = mt == MATCH_TYPE_SINGLE_OBJECT_ACROSS_SCENE
+    is_smo = mt == MATCH_TYPE_SYNTHETIC_MULTI_OBJECT
+    s_a = torch.where(is_within | is_smo, torch.where(is_smo, s_d1, s_w),
+                      torch.where(is_across, s_x1, s_d1))
+    s_b = torch.where(is_within | is_smo, s_a, torch.where(is_across, s_x2, s_d2))
+    fa = torch.where(is_within, fa_w, _frame_in_scene(offsets, lengths, s_a, u[2]))
+    fb = torch.where(is_within, fb_w, _frame_in_scene(offsets, lengths, s_b, u[3]))
+    mt_out = torch.where(is_within, mt_w, mt)
+    if has_smo:
+        fa_m1, fb_m1, ok_m1 = _within_pair(poses, offsets, lengths, s_d1, u[2], u_cand[8])
+        fa = torch.where(is_smo, fa_m1, fa)
+        fb = torch.where(is_smo, fb_m1, fb)
+    if not with_second:
+        return fa, fb, mt_out
+    fa2, fb2, ok_2 = _within_pair(poses, offsets, lengths, s_d2, u[9], u_cand[10])
+    if has_smo:
+        mt_out = torch.where(is_smo & ~(ok_m1 & ok_2), -1, mt_out)
+    is_pair2 = mt_out == MATCH_TYPE_SYNTHETIC_MULTI_OBJECT
+    return (fa, fb, torch.where(is_pair2, fa2, fa), torch.where(is_pair2, fb2, fb), mt_out)
+
+
+class _DataParallelStep(TrainStep):
+    """A train step whose update, given a mesh, is the data-parallel one
+    (:func:`~pdc_tpu_torch.parallel.sharded_train.data_parallel_update`);
+    with ``fsdp`` its first call switches the state to ZeRO storage in
+    place (:func:`~pdc_tpu_torch.parallel.tensor_parallel.to_fsdp_state`)."""
+
+    def __init__(self, *args, mesh=None, data_axis: str = "data", fsdp: bool = False, **kwargs):
+        super().__init__(*args, **kwargs)
+        if fsdp and mesh is None:
+            raise ValueError("fsdp=True requires a mesh")
+        self.mesh, self.data_axis, self.fsdp = mesh, data_axis, fsdp
+
+    def update(self, state: TrainState, img_a, img_b, indices):
+        if self.mesh is None:
+            return super().update(state, img_a, img_b, indices)
+        if self.fsdp:
+            to_fsdp_state(state, self.training_config, self.mesh, self.data_axis)
+        return data_parallel_update(self, state, img_a, img_b, indices, self.mesh,
+                                    self.data_axis)
+
+
+class DeviceSampledTrainStep(_DataParallelStep):
     """``step(state, generator) -> metrics``: one train step with its pairs
     sampled on the device (:func:`device_sample_pairs_mixed`), its frames
     gathered from the cache, then
-    :class:`~pdc_tpu_torch.training.train.TrainStep`'s assembly and update;
-    every draw from ``generator``, which lives on the cache's device."""
+    :class:`~pdc_tpu_torch.training.train.TrainStep`'s assembly and update
+    (the data-parallel update with a mesh); every draw from ``generator``,
+    which lives on the cache's device."""
 
     def __init__(self, *args, cache, batch_size: int, type_probs, **kwargs):
         super().__init__(*args, **kwargs)
@@ -248,9 +388,67 @@ class DeviceSampledTrainStep(TrainStep):
 
 def make_device_sampled_train_step(training_config: dict, loss_cfg, assembler_cfg,
                                    image_width: int, cache, batch_size: int,
-                                   type_probs) -> DeviceSampledTrainStep:
+                                   type_probs, mesh=None, data_axis: str = "data",
+                                   fsdp: bool = False) -> DeviceSampledTrainStep:
     """The train step of the on-device sampler route; see
     :class:`DeviceSampledTrainStep`. ``type_probs`` as in
-    :func:`device_sample_pairs_mixed`."""
+    :func:`device_sample_pairs_mixed`. With ``mesh`` every rank holds the
+    whole cache and the step is data-parallel over ``data_axis`` (the
+    global batch is ``batch_size`` times the ranks); ``fsdp`` (needs
+    ``mesh``) adds ZeRO storage of the state."""
     return DeviceSampledTrainStep(training_config, loss_cfg, assembler_cfg, image_width,
-                                  cache=cache, batch_size=batch_size, type_probs=type_probs)
+                                  cache=cache, batch_size=batch_size, type_probs=type_probs,
+                                  mesh=mesh, data_axis=data_axis, fsdp=fsdp)
+
+
+class ShardedCacheTrainStep(_DataParallelStep):
+    """``step(state, generator) -> metrics`` over a
+    :class:`~pdc_tpu_torch.data.device_cache.ShardedDeviceCache`: this rank
+    samples ``batch_size`` pairs from its own scenes (the bounded samplers),
+    gathers them from its block, assembles them and takes the
+    data-parallel update over the cache's mesh."""
+
+    def __init__(self, *args, cache, batch_size: int, type_probs=None, **kwargs):
+        super().__init__(*args, mesh=cache.mesh, data_axis=cache.data_axis, **kwargs)
+        self.cache = cache
+        self.batch_size = batch_size
+        probs = tuple((t, p) for t, p in (type_probs or ((0, 1.0),)) if p > 0)
+        self.mixed = any(t != 0 for t, _ in probs)
+        self.type_probs = probs
+        self.with_second = any(t == MATCH_TYPE_SYNTHETIC_MULTI_OBJECT for t, _ in probs)
+        self.assembler_cfg = dataclasses.replace(
+            self.assembler_cfg, enable_synthetic_multi_object=self.with_second)
+
+    def sample(self, generator: torch.Generator) -> dict:
+        """One batch of local frame indices and types from this rank's
+        tables."""
+        c = self.cache
+        if self.mixed:
+            out = device_sample_pairs_mixed_bounded(
+                generator, c.scene_offsets, c.scene_lengths, c.num_scenes, c.scenes_by_object,
+                c.scenes_per_object, c.num_objects, c.poses, self.batch_size, self.type_probs,
+                with_second=self.with_second)
+        else:
+            out = device_sample_pairs_bounded(generator, c.scene_offsets, c.scene_lengths,
+                                              c.num_scenes, c.poses, self.batch_size)
+        index = {"frame_a": out[0], "frame_b": out[1], "match_type": out[-1]}
+        if self.with_second:
+            index.update(frame_a_2=out[2], frame_b_2=out[3])
+        return index
+
+    def __call__(self, state: TrainState, generator: torch.Generator):
+        batch = self.cache.gather(self.sample(generator))
+        return self.update(state, *self.assemble(state, batch, generator))
+
+
+def make_sharded_cache_train_step(training_config: dict, loss_cfg, assembler_cfg,
+                                  image_width: int, cache, batch_size: int,
+                                  type_probs=None, fsdp: bool = False) -> ShardedCacheTrainStep:
+    """Data-parallel training over a sharded cache; see
+    :class:`ShardedCacheTrainStep`. ``type_probs`` over {0, 1, 2, 4}
+    (default within-scene only; build the cache ``by_object`` for the other
+    types); ``fsdp`` adds ZeRO storage of the state, so each rank holds 1/n
+    of the frames and 1/n of the state."""
+    return ShardedCacheTrainStep(training_config, loss_cfg, assembler_cfg, image_width,
+                                 cache=cache, batch_size=batch_size, type_probs=type_probs,
+                                 fsdp=fsdp)

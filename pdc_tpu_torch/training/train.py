@@ -22,9 +22,11 @@ The driver keeps the JAX package's model folder (``training.yaml``,
 same formats, so a folder moves between the two packages in both
 directions, and its three routes (:meth:`DenseCorrespondenceTraining.run`).
 
-Not ported yet: the multi-device layouts (``data_parallel``/``fsdp`` on
-several devices, ``tensor_parallel``, ``pipeline``), which wait for the
-parallel slice.
+``training.data_parallel`` (and ``fsdp``) over several processes
+(``torchrun``) takes the device-sampler route data-parallel over
+:mod:`pdc_tpu_torch.parallel`; rank 0 alone writes the model folder.
+Not ported yet: ``tensor_parallel`` and ``pipeline`` (ROADMAP queue 1
+item 9b).
 """
 
 from __future__ import annotations
@@ -81,6 +83,9 @@ class TrainState:
     # the step at which the LR schedule (re)started: 0, or the iteration of
     # a resume with a new learning rate (optax's schedule count restarts)
     schedule_start: int = 0
+    # ZeRO storage (pdc_tpu_torch.parallel.tensor_parallel.FsdpLayout): the
+    # optimizer then steps this rank's blocks of the parameters
+    fsdp: Optional[object] = None
 
 
 def make_optimizer(training_config: dict, params) -> torch.optim.Adam:
@@ -252,7 +257,8 @@ def make_eval_loss_step(loss_cfg: LossConfig, assembler_cfg: AssemblerConfig,
 ROUTE_DEVICE_SAMPLER = "device sampler"
 ROUTE_CACHED_HOST_SAMPLER = "cached host sampler"
 ROUTE_HOST_STREAMING = "host streaming"
-PARALLEL_MSG = "is not ported yet: multi-device training waits for the parallel slice"
+PARALLEL_MSG = ("is not ported to pdc_tpu_torch yet: tensor parallelism and the pipeline are "
+                "ROADMAP queue 1 item 9b")
 TRAIN_METRICS = ("loss", "match_loss", "masked_non_match_loss",
                  "background_non_match_loss", "blind_non_match_loss")
 TEST_METRICS = ("loss", "match_loss", "non_match_loss")
@@ -311,6 +317,8 @@ class DenseCorrespondenceTraining:
         self._pending_metrics = []
         self._tb_writer = None
         self.route = None
+        # the data axis of a data-parallel run (None on one process)
+        self._mesh = None
         self.preempted = False
         # host seconds of each step call and of each save_network
         self.step_seconds = []
@@ -335,8 +343,15 @@ class DenseCorrespondenceTraining:
 
     # -- setup -------------------------------------------------------------------
 
+    @property
+    def writes(self) -> bool:
+        """Whether this process writes the model folder: rank 0 of a
+        data-parallel run, or the only process."""
+        return self._mesh is None or self._mesh.rank == 0
+
     def setup_logging_dir(self):
-        """Create the model folder, wiping a previous run of the same name."""
+        """Create the model folder, wiping a previous run of the same name
+        (the path alone on a rank that does not write)."""
         t = self._config["training"]
         if "logging_dir_name" in t:
             dir_name = t["logging_dir_name"]
@@ -346,6 +361,8 @@ class DenseCorrespondenceTraining:
             dir_name = f"{stamp}_{d}d"
         base = t.get("logging_dir", "trained_models")
         self._logging_dir = os.path.join(base, dir_name)
+        if not self.writes:
+            return self._logging_dir
         if os.path.isdir(self._logging_dir):
             import shutil
 
@@ -395,6 +412,8 @@ class DenseCorrespondenceTraining:
 
     def save_configs(self):
         """The training config, the dataset's record and a unique run id."""
+        if not self.writes:
+            return
         save_yaml(self._config, os.path.join(self._logging_dir, "training.yaml"))
         if hasattr(self._dataset, "config_snapshot"):
             dataset_cfg = self._dataset.config_snapshot()
@@ -417,14 +436,19 @@ class DenseCorrespondenceTraining:
         """``%06d.ckpt`` (weights and BatchNorm statistics), ``.ckpt.opt``
         (the Adam state as optax's), ``%06d_log_history.yaml`` and the
         rolling ``loss.yaml``; the two checkpoint files are written
-        atomically."""
+        atomically. Under ZeRO every rank takes part in gathering Adam's
+        moments; only the writing rank writes."""
         t0 = time.perf_counter()
         tag = "%06d" % iteration
         state = self._state
+        optimizer = (state.optimizer if state.fsdp is None
+                     else state.fsdp.gathered_optimizer(state.optimizer))
+        if not self.writes:
+            return
         _write_atomic(os.path.join(self._logging_dir, tag + ".ckpt"),
                       state_dict_to_flax(state.module.state_dict()))
         _write_atomic(os.path.join(self._logging_dir, tag + ".ckpt.opt"),
-                      adam_state_to_flax(state.module, state.optimizer,
+                      adam_state_to_flax(state.module, optimizer,
                                          state.step - state.schedule_start))
         save_yaml(self._logging_dict,
                   os.path.join(self._logging_dir, tag + "_log_history.yaml"))
@@ -442,6 +466,9 @@ class DenseCorrespondenceTraining:
         iteration = int(os.path.basename(ckpt).split(".")[0])
         self._ensure_state()
         state = self._state
+        if state.fsdp is not None:  # back to replicated storage; run() shards again
+            state.fsdp = None
+            state.optimizer = make_optimizer(self._config, state.module.parameters())
         state.module.load_state_dict(flax_to_state_dict(read_checkpoint(ckpt)), strict=True)
         state.step = iteration
         state.schedule_start = 0
@@ -471,19 +498,35 @@ class DenseCorrespondenceTraining:
     def _ensure_state(self):
         if self._state is not None:
             return
+        self._data_parallel_mesh()
         module, _ = self.build_network()
         self._state = create_train_state(module, self._config, device=self.device)
 
+    def _data_parallel_mesh(self):
+        """With ``training.data_parallel``: initialise the process group
+        (:func:`~pdc_tpu_torch.parallel.distributed.ensure_initialized`;
+        torchrun's variables, or the group a launcher set up) and, when it
+        has more than one process, the data axis over it, binding this
+        trainer to the rank's device."""
+        t = self._config["training"]
+        if self._mesh is not None or not t.get("data_parallel"):
+            return self._mesh
+        from pdc_tpu_torch.parallel.distributed import ensure_initialized
+        from pdc_tpu_torch.parallel.mesh import make_mesh
+
+        if ensure_initialized(device=self.device.type):
+            self._mesh = make_mesh(("data",), device=(
+                None if self.device.type == "cuda" else self.device))
+            self.device = self._mesh.device
+        return self._mesh
+
     def _check_parallel_options(self):
-        """Refuse the multi-device layouts; warn, as the JAX package does,
-        where a data-parallel option is ignored on one device."""
+        """Refuse the layouts of ROADMAP item 9b (tensor parallelism, the
+        pipeline)."""
         t = self._config["training"]
         for key in ("tensor_parallel", "pipeline"):
             if int(t.get(key, 0) or 0) > 1:
                 raise NotImplementedError(f"training.{key} {PARALLEL_MSG}")
-        n = torch.cuda.device_count() if self.device.type == "cuda" else 1
-        if (t.get("data_parallel") or t.get("fsdp")) and n > 1:
-            raise NotImplementedError(f"training.data_parallel/fsdp on {n} devices {PARALLEL_MSG}")
 
     def _choose_route(self, loss_cfg, assembler_cfg, W):
         """(route, step, cache) as the JAX package chooses its route."""
@@ -508,9 +551,16 @@ class DenseCorrespondenceTraining:
                               if n_iter % k == 0), 1)
                 if (k_eff > 1 and set(type_probs) <= set(SAMPLED_TYPES)
                         and assembler_cfg.use_matrix_loss):
+                    mesh = self._mesh
+                    fsdp = bool(t.get("fsdp")) and mesh is not None
+                    if mesh is not None:
+                        logger.info("data-parallel training over %d processes (global batch "
+                                    "%d)%s", mesh.shape["data"],
+                                    self._batch_size * mesh.shape["data"],
+                                    " + fsdp state sharding" if fsdp else "")
                     step = make_device_sampled_train_step(
                         self._config, loss_cfg, assembler_cfg, W, cache, self._batch_size,
-                        tuple(sorted(type_probs.items())))
+                        tuple(sorted(type_probs.items())), mesh=mesh, fsdp=fsdp)
                     return ROUTE_DEVICE_SAMPLER, step, cache
                 step = make_cached_train_step(self._config, loss_cfg, assembler_cfg, W, cache)
                 return ROUTE_CACHED_HOST_SAMPLER, step, cache
@@ -527,6 +577,7 @@ class DenseCorrespondenceTraining:
         net_cfg = self._config["dense_correspondence_network"]
         W = net_cfg["image_width"]
         self._check_parallel_options()
+        self._data_parallel_mesh()
         if t.get("compilation_cache_dir"):
             logger.info("training.compilation_cache_dir ignored: it holds XLA programs, "
                         "and the port runs none")
@@ -540,6 +591,11 @@ class DenseCorrespondenceTraining:
         assembler_cfg = AssemblerConfig.from_training_config(self._config)
         self.route, train_step, cache = self._choose_route(loss_cfg, assembler_cfg, W)
         logger.info("training route: %s", self.route)
+        if self._mesh is not None and self.route != ROUTE_DEVICE_SAMPLER:
+            raise ValueError(
+                "training.data_parallel over several processes needs the device-cache "
+                "sampler route (matrix loss, steps_per_dispatch divisor > 1, sample types "
+                f"within {{0, 1, 2, 4}}); this config takes the {self.route} route")
         if self.route != ROUTE_DEVICE_SAMPLER and (t.get("data_parallel") or t.get("fsdp")):
             logger.warning(
                 "training.data_parallel/fsdp IGNORED: multi-chip training "
@@ -548,6 +604,9 @@ class DenseCorrespondenceTraining:
                 "types) — this run is single-chip")
         elif t.get("fsdp") and not t.get("data_parallel"):
             logger.warning("training.fsdp IGNORED: requires training.data_parallel")
+        elif t.get("data_parallel") and self._mesh is None:
+            logger.info("training.data_parallel on one process: training on one device "
+                        "(launch with torchrun for several)")
 
         eval_step = None
         if t.get("compute_test_loss", False) and self._dataset_test is not None:
@@ -566,7 +625,12 @@ class DenseCorrespondenceTraining:
         profile_steps = int(t.get("profile_num_steps", 10))
         profiler = None
 
-        generator = torch.Generator(device=self.device).manual_seed(int(t.get("seed", 1)))
+        seed = int(t.get("seed", 1))
+        if self._mesh is not None:  # each rank draws its own pairs
+            from pdc_tpu_torch.parallel.sharded_train import rank_seed
+
+            seed = rank_seed(seed, self._mesh.rank)
+        generator = torch.Generator(device=self.device).manual_seed(seed)
         prefetch = None
         if self.route == ROUTE_CACHED_HOST_SAMPLER:
             prefetch = PrefetchLoader(lambda: cache.sample_index_batch(self._batch_size),

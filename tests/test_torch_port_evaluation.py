@@ -317,8 +317,15 @@ def test_sweep_is_reproducible_and_keeps_its_schema(port_sweeps, datasets, nets,
                                               num_matches_per_image_pair=20, seed=1)
     assert again.rows() == fused.rows() or all(
         np.array_equal(again[c], fused[c], equal_nan=True) for c in EVAL_COLUMNS[9:22])
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        DCE.evaluate_network_quantitative(dcn, ds, mesh=object())
+    # mesh= is ported: a mesh of one process (no process group) gives the same rows
+    # (tests/test_torch_port_parallel.py holds 2 and 4 gloo ranks)
+    from pdc_tpu_torch.parallel.mesh import make_mesh
+
+    meshed = DCE.evaluate_network_quantitative(dcn, ds, num_image_pairs=5,
+                                               num_matches_per_image_pair=20, seed=1,
+                                               mesh=make_mesh(device="cpu"))
+    assert meshed.rows() == fused.rows() or all(
+        np.array_equal(meshed[c], fused[c], equal_nan=True) for c in EVAL_COLUMNS[9:22])
     # the test loss over a dataset runs and agrees with pdc_tpu's on the same
     # batches (tests/test_torch_port_per_pair.py holds it at 1e-5 on a smaller one)
     from tests.test_torch_port_per_pair import compute_loss_against_jax

@@ -110,3 +110,21 @@ def test_tooling_and_experiments_import_without_yaml_jax_or_pdc_tpu(module):
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                        timeout=120)
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+
+
+def test_parallel_package_holds_the_data_axis_without_sync_batchnorm():
+    """pdc_tpu_torch/parallel/ has the modules of the data axis (checked for
+    forbidden imports above, with every port file), and no port file uses
+    torch.nn.SyncBatchNorm, which refuses CPU tensors: the cross-rank
+    BatchNorm is the port's own (parallel/sharded_train.py)."""
+    names = set(os.listdir(os.path.join(PKG, "parallel")))
+    assert {"__init__.py", "mesh.py", "distributed.py", "sharded_train.py",
+            "tensor_parallel.py"} <= names
+    for path in _port_files():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        used = [n for n in ast.walk(tree)
+                if (isinstance(n, ast.Attribute) and n.attr == "SyncBatchNorm")
+                or (isinstance(n, ast.Name) and n.id == "SyncBatchNorm")
+                or (isinstance(n, ast.alias) and n.name.endswith("SyncBatchNorm"))]
+        assert not used, f"{path} uses SyncBatchNorm"

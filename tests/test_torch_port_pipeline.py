@@ -127,8 +127,14 @@ def test_scene_products_equal_jax(scene):
         _equal(g, w, "unpacked")
     assert pr.render_scene_products_start(verts, fg, faces, poses, K, H, W, 1000.0,
                                           max_fragments=10, device=CPU) is None
-    with pytest.raises(NotImplementedError, match="item 9"):
-        pr.render_scene_products_sharded(verts, fg, faces, poses, K, H, W, 1000.0, mesh=None)
+    # the sharded renderer is ported: on a mesh of one process it equals the
+    # unsharded one (tests/test_torch_port_parallel.py holds 2 gloo ranks)
+    from pdc_tpu_torch.parallel.mesh import make_mesh
+
+    for g, w, what in zip(pr.render_scene_products_sharded(
+            verts, fg, faces, poses, K, H, W, 1000.0, make_mesh(device=CPU)), want,
+            ("mask", "depth_cropped_mm", "depth_full_mm")):
+        _equal(g, w, "sharded " + what)
 
 
 def test_host_metrics_equal_jax(scene):

@@ -403,14 +403,21 @@ def test_cli_rejects_unported_options_and_commands(capsys):
         with pytest.raises(FileNotFoundError):
             serve.main(["--model_folder", "x", flag, "--device", "cpu"])
         assert "not ported" not in capsys.readouterr().err
-    for flag in ("--data_parallel", "--model_parallel"):
-        with pytest.raises(SystemExit):
-            serve.main(["--model_folder", "x", flag])
-        assert "not ported" in capsys.readouterr().err
-    for flag in ("--data_parallel", "--fsdp"):
+    with pytest.raises(SystemExit):
+        serve.main(["--model_folder", "x", "--model_parallel"])
+    assert "item 9b" in capsys.readouterr().err
+    # --data_parallel is ported: it parses, and the missing folder is the error
+    with pytest.raises(FileNotFoundError):
+        serve.main(["--model_folder", "x", "--data_parallel", "--device", "cpu"])
+    assert "not ported" not in capsys.readouterr().err
+    for flag in ("--tensor_parallel", "--pipeline"):
         with pytest.raises(SystemExit):
             cli.main(["train", "--dataset_config", "x.yaml", flag])
-        assert "not ported" in capsys.readouterr().err
+        assert "item 9b" in capsys.readouterr().err
+    for flag in ("--data_parallel", "--fsdp"):  # ported: the missing config is the error
+        with pytest.raises(FileNotFoundError):
+            cli.main(["train", "--dataset_config", "x.yaml", flag, "--device", "cpu"])
+        assert "not ported" not in capsys.readouterr().err
     # every command of pdc_tpu is ported: a command no package has is refused
     assert cli.main(["no-such-command"]) == 2
     err = capsys.readouterr().err

@@ -388,12 +388,22 @@ def test_multi_device_layouts_wait_for_their_slice(tmp_path, caplog):
     for key in ("tensor_parallel", "pipeline"):
         trainer = DenseCorrespondenceTraining(tiny_config(tmp_path, key, **{key: 2}), ds,
                                               device="cpu")
-        with pytest.raises(NotImplementedError, match="parallel slice"):
+        with pytest.raises(NotImplementedError, match="item 9b"):
             trainer.run()
+    # data_parallel on one process: the JAX package's warning, and one device
     cfg = tiny_config(tmp_path, "dp", iters=1, data_parallel=True, steps_per_dispatch=1)
     with caplog.at_level(logging.WARNING, logger=port_train.logger.name):
-        DenseCorrespondenceTraining(cfg, ds, device="cpu").run()
+        trainer = DenseCorrespondenceTraining(cfg, ds, device="cpu")
+        trainer.run()
     assert "data_parallel/fsdp IGNORED" in caplog.text
+    assert trainer.writes and trainer._mesh is None
+    # on the device-sampler route too it trains on the one device
+    # (tests/test_torch_port_parallel.py runs it over 2 gloo ranks)
+    cfg = tiny_config(tmp_path, "dp_sampler", iters=2, data_parallel=True, fsdp=True,
+                      steps_per_dispatch=2)
+    trainer = DenseCorrespondenceTraining(cfg, ds, device="cpu")
+    trainer.run()
+    assert trainer.route == port_train.ROUTE_DEVICE_SAMPLER and trainer.state.fsdp is None
     if not torch.cuda.is_available():  # the default device is cuda, never a silent CPU
         with pytest.raises(RuntimeError, match="CUDA"):
             DenseCorrespondenceTraining(cfg, ds)
