@@ -261,6 +261,30 @@ Phases, each fatal on failure:
      it prints, beside the card's name and power limit, the NCCL all-reduce of
      ResNet-34-8s's gradients and the three routes' steps by CUDA events.
 
+17. the model axes of the parallel layer, "the model axes" (after phase 16),
+     on a world of one process over NCCL, ``(data, model)`` and ``(data,
+     pipe)`` meshes of shape (1, 1), at 640x480, ResNet-34-8s, D=3, fp32
+     without TF32, phase 6's batch and training values. It fails unless (a)
+     ``make_tp_inference`` at B=8 equals ``forward_on_images`` within
+     DESC_TOL; (b) one ``make_tp_train_step`` step equals one single step on
+     the same batch and weights (loss within 1e-6 relative, gradients within
+     4 times F4's spread, measured from two single steps in the same call),
+     K1 and K2 launching twice each; it prints the step's collectives by kind
+     and count and times 3 steps of each by CUDA events; (c)
+     ``make_pp_inference`` with microbatch 1 and 2 equals the eval forward of
+     the same microbatches within 2e-5 and that of the whole batch within
+     DESC_TOL (cuDNN picks its algorithm by the batch size: on an H100 the
+     microbatched forward reads 3.91e-5 from the whole batch's); (d) one ``make_pp_train_step`` step (one microbatch of the
+     8 images) equals one ``make_frozen_bn_train_step`` step under (b)'s
+     bars, K1 and K2 twice each, and a step of 2 microbatches of 4 runs with
+     the same launches; both are timed against the oracle; (e) a TP and a PP
+     checkpoint written by ``DenseCorrespondenceTraining.save_network`` load
+     through ``from_model_folder`` and give the live network's forward within
+     1e-6 (the TP folder with its ``.ckpt.opt``, the PP folder without); (f) a
+     ``DescriptorServer(model_parallel=1)`` answers 2 ``descriptors`` and 2
+     ``best_match`` requests as the plain server (DESC_TOL; picks equal or
+     near-ties), one K3 launch.
+
 The last lines are a JSON object with every kernel's numbers, the
 nvidia-smi line, and ``{"ok": true, "device": {...}}``. Without CUDA, or when the
 package is not beside this script, it exits non-zero and prints no result.
@@ -3630,6 +3654,310 @@ def check_data_axis(torch, np, dev, bm, ph, frames_t, on_disk, render_inputs, tm
     return out
 
 
+# -- the model axes of the parallel layer ---------------------------------------------
+
+# phase 17: AXES_TIMED CUDA-event timings of each step; (c)'s microbatches; the
+# pipeline's step checked with one microbatch of the 2B images (the oracle's
+# forward, batch for batch) and timed with AXES_PP_MICROBATCH as well
+AXES_TIMED, AXES_INFER_MB, AXES_PP_MICROBATCH = 3, (1, 2), 4
+AXES_PP_TOL = 2e-5  # the pipelined forward against the eval forward (JAX's bar)
+AXES_RELOAD_TOL = 1e-6  # a reloaded checkpoint's forward against the live network's
+COLLECTIVES = ("all_reduce", "all_gather", "broadcast", "send", "recv", "isend", "irecv",
+               "all_gather_object")
+
+
+class _CollectiveCounter:
+    """Counts the torch.distributed calls made inside the block, by kind
+    (each function is wrapped and put back on exit)."""
+
+    def __init__(self, dist):
+        self.dist, self.counts, self.saved = dist, {}, {}
+
+    def __enter__(self):
+        for name in COLLECTIVES:
+            fn = getattr(self.dist, name)
+            self.saved[name] = fn
+
+            def counted(*args, _fn=fn, _name=name, **kwargs):
+                self.counts[_name] = self.counts.get(_name, 0) + 1
+                return _fn(*args, **kwargs)
+            setattr(self.dist, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.dist, name, fn)
+
+
+def _grad_rel(torch, a, b):
+    """Relative L2 distance of two modules' gradients, parameter by name."""
+    theirs = dict(b.named_parameters())
+    num = den = 0.0
+    for name, p in a.named_parameters():
+        q = theirs[name]
+        num += float(((p.grad - q.grad) ** 2).sum())
+        den += float((q.grad ** 2).sum())
+    return (num / den) ** 0.5
+
+
+def _event_ms(torch, fn, n):
+    """Mean CUDA-event milliseconds of ``n`` calls of ``fn``, each timed on
+    its own between two events."""
+    times = []
+    for _ in range(n):
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        e[0].record()
+        fn()
+        e[1].record()
+        torch.cuda.synchronize()
+        times.append(e[0].elapsed_time(e[1]))
+    return sum(times) / len(times)
+
+
+def check_model_axes(torch, np, dev, bm, ph, frames_t, tmp, smi):
+    """The phase "the model axes": (a)-(f) of the module docstring, on a world
+    of one process over NCCL. Returns the launches of each path and the
+    timings."""
+    import torch.distributed as dist
+
+    from pdc_tpu_torch.apps.serve import DescriptorServer, _Request
+    from pdc_tpu_torch.data.assembler import AssemblerConfig
+    from pdc_tpu_torch.losses.pixelwise_contrastive import LossConfig
+    from pdc_tpu_torch.models.dcn import DenseCorrespondenceNetwork
+    from pdc_tpu_torch.parallel import (
+        distributed,
+        make_frozen_bn_train_step,
+        make_mesh,
+        make_pp_inference,
+        make_pp_train_step,
+        make_tp_inference,
+        make_tp_train_step,
+    )
+    from pdc_tpu_torch.parallel.tensor_parallel import ColumnParallelConv
+    from pdc_tpu_torch.training import train as train_mod
+    from pdc_tpu_torch.training.train import make_train_step
+
+    distributed.ensure_initialized(coordinator_address="file://" + os.path.join(tmp, "store17"),
+                                   num_processes=1, process_id=0, device="cuda")
+    out = {"launches": {}, "ms": {}}
+    try:
+        tm = make_mesh(("data", "model"), shape=(1, 1))
+        pm = make_mesh(("data", "pipe"), shape=(1, 1))
+        log(f"model axes: {tm}; {pm}; backend {dist.get_backend()}, world "
+            f"{dist.get_world_size()} (one card: every collective runs over NCCL on one rank)")
+        if (dist.get_backend() != "nccl" or tm.device.type != "cuda"
+                or tm.group("model") is None or pm.group("pipe") is None):
+            fail("the model axes are not on NCCL and the card")
+        tc = TRAINING_CONFIG
+        net_cfg = tc["dense_correspondence_network"]
+        loss_cfg = LossConfig.from_dict(tc["loss_function"])
+        asm_cfg = AssemblerConfig.from_training_config(tc)
+        Ht, Wt = net_cfg["image_height"], net_cfg["image_width"]
+        Bt = tc["training"]["batch_size"]
+
+        # (a) TP inference at B=8 against the batch forward
+        dcn = DenseCorrespondenceNetwork.from_config(
+            net_cfg, generator=torch.Generator().manual_seed(SEED + 17), device="cuda")
+        with torch.inference_mode():
+            want = dcn.forward_on_images(frames_t["rgb"]).permute(0, 3, 1, 2).contiguous()
+        x = dcn.normalize_on_device(frames_t["rgb"]).permute(0, 3, 1, 2).contiguous()
+        fwd, sharded = make_tp_inference(dcn.module, tm)()
+        n_sharded = sum(isinstance(m, ColumnParallelConv) for m in sharded.modules())
+        with torch.inference_mode():
+            got = fwd(sharded, x)
+            tp_err = float((got - want).abs().max())
+            out["ms"]["tp inference"] = time_cuda(torch, lambda: fwd(sharded, x), iters=5)
+            out["ms"]["plain inference"] = time_cuda(torch, lambda: dcn.module(x), iters=5)
+        log(f"model axes (a): make_tp_inference of {net_cfg['backbone']['resnet_name']} "
+            f"({n_sharded} convolutions channel-sharded: each one whose output channels divide "
+            f"over the model axis) at B={x.shape[0]} against "
+            f"forward_on_images: max|diff| {tp_err:.3g} (bar {DESC_TOL})")
+        if not tp_err <= DESC_TOL or n_sharded == 0 or tuple(got.shape) != tuple(want.shape):
+            fail("model axes (a): TP inference disagrees with the batch forward")
+        del got, want
+        torch.cuda.empty_cache()
+
+        # (b) one TP step against the single step; F4's spread from two single steps
+        single = make_train_step(tc, loss_cfg, asm_cfg, Wt)
+        s1, s2, s_tp = (new_train_state(torch, tc) for _ in range(3))
+        assembled = single.assemble(s1, pair_batch(torch, frames_t, *draw_pairs(
+            np, np.random.default_rng(SEED + 17), Bt, N_FRAMES)),
+            torch.Generator(device=dev).manual_seed(SEED + 17))
+        m1 = single.update(s1, *assembled)
+        m2 = single.update(s2, *assembled)
+        step, s_tp = make_tp_train_step(tc, loss_cfg, asm_cfg, Wt, tm, s_tp)
+        ph.forward_launches = ph.backward_launches = 0
+        with _CollectiveCounter(dist) as cc:
+            m_tp = step.update(s_tp, *assembled)
+        torch.cuda.synchronize()
+        out["launches"]["tp step"] = (ph.forward_launches, ph.backward_launches)
+        spread = _grad_rel(torch, s2.module, s1.module)
+        tp_rel = _grad_rel(torch, s_tp.module, s1.module)
+        l1, l_tp = float(m1["loss"]), float(m_tp["loss"])
+        log(f"model axes (b): make_tp_train_step against make_train_step on one batch: loss "
+            f"{l_tp:.8g} vs {l1:.8g} (second single step {float(m2['loss']):.8g}), gradient "
+            f"relative L2 {tp_rel:.3g} (F4's spread, two single steps: {spread:.3g}; bar "
+            f"{max(AXIS_SPREAD_X * spread, AXIS_PARAM_FLOOR):.3g}); K1/K2 launches "
+            f"{out['launches']['tp step']} (2/2 expected); a step's collectives "
+            f"{dict(sorted(cc.counts.items()))}")
+        if (abs(l_tp - l1) > 1e-6 * abs(l1) or tp_rel > max(AXIS_SPREAD_X * spread,
+                                                             AXIS_PARAM_FLOOR)
+                or out["launches"]["tp step"] != (2, 2)):
+            fail("model axes (b): the TP step disagrees with the single step")
+        out["ms"]["single step"] = _event_ms(torch, lambda: single.update(s1, *assembled),
+                                             AXES_TIMED)
+        out["ms"]["tp step"] = _event_ms(torch, lambda: step.update(s_tp, *assembled),
+                                         AXES_TIMED)
+        del s1, s2
+
+        # (c) PP inference on a pipe axis of 1 against the eval forward
+        pp_err, batch_err = {}, {}
+        with torch.inference_mode():
+            want = dcn.module(x)
+            for mb in AXES_INFER_MB:
+                pfwd, pack = make_pp_inference(dcn.module, pm, (Ht, Wt), microbatch=mb)()
+                got = pfwd(pack, x)
+                # the eval forward a microbatch at a time: cuDNN picks its algorithm by
+                # the batch size, so only the same microbatches round alike
+                per_mb = torch.cat([dcn.module(x[i:i + mb]) for i in range(0, len(x), mb)])
+                pp_err[mb] = float((got - per_mb).abs().max())
+                batch_err[mb] = float((got - want).abs().max())
+            out["ms"]["pp inference"] = time_cuda(torch, lambda: pfwd(pack, x), iters=5)
+        log(f"model axes (c): make_pp_inference at B={x.shape[0]} against the eval forward of "
+            f"the same microbatches, max|diff| " + ", ".join(
+                f"microbatch {mb}: {e:.3g}" for mb, e in pp_err.items())
+            + f" (bar {AXES_PP_TOL}); against the eval forward of the whole batch " + ", ".join(
+                f"{batch_err[mb]:.3g}" for mb in AXES_INFER_MB)
+            + f" (bar {DESC_TOL}, another batch's cuDNN algorithm; largest |descriptor| "
+            f"{float(want.abs().max()):.3g})")
+        if not all(e <= AXES_PP_TOL for e in pp_err.values()) or not all(
+                e <= DESC_TOL for e in batch_err.values()):
+            fail("model axes (c): PP inference disagrees with the eval forward")
+        del want, pack, got, per_mb
+        torch.cuda.empty_cache()
+
+        # (d) one PP step against the frozen-BN oracle; F4's spread from two oracle steps
+        oracle = make_frozen_bn_train_step(tc, loss_cfg, asm_cfg, Wt, (Ht, Wt))
+        o1, o2, s_pp = (new_train_state(torch, tc) for _ in range(3))
+        mo1 = oracle.update(o1, *assembled)
+        oracle.update(o2, *assembled)
+        pstep, pp_state, pp_meta = make_pp_train_step(tc, loss_cfg, asm_cfg, Wt, pm, s_pp,
+                                                      (Ht, Wt), microbatch=2 * Bt)
+        ph.forward_launches = ph.backward_launches = 0
+        with _CollectiveCounter(dist) as pc:
+            m_pp = pstep.update(pp_state, *assembled)
+        torch.cuda.synchronize()
+        out["launches"]["pp step"] = (ph.forward_launches, ph.backward_launches)
+        o_spread = _grad_rel(torch, o2.module, o1.module)
+        pp_rel = _grad_rel(torch, pp_state.stage, o1.module)
+        lo, lp = float(mo1["loss"]), float(m_pp["loss"])
+        log(f"model axes (d): make_pp_train_step (one microbatch of {2 * Bt} images) against "
+            f"make_frozen_bn_train_step: loss {lp:.8g} vs {lo:.8g}, gradient relative L2 "
+            f"{pp_rel:.3g} (F4's spread, two oracle steps: {o_spread:.3g}; bar "
+            f"{max(AXIS_SPREAD_X * o_spread, AXIS_PARAM_FLOOR):.3g}); K1/K2 launches "
+            f"{out['launches']['pp step']} (2/2 expected); a step's collectives "
+            f"{dict(sorted(pc.counts.items()))}")
+        if (abs(lp - lo) > 1e-6 * abs(lo)
+                or pp_rel > max(AXIS_SPREAD_X * o_spread, AXIS_PARAM_FLOOR)
+                or out["launches"]["pp step"] != (2, 2)):
+            fail("model axes (d): the PP step disagrees with the frozen-BN oracle")
+        out["ms"]["oracle step"] = _event_ms(torch, lambda: oracle.update(o1, *assembled),
+                                             AXES_TIMED)
+        out["ms"]["pp step"] = _event_ms(torch, lambda: pstep.update(pp_state, *assembled),
+                                         AXES_TIMED)
+        pstep_mb, pp_mb, _ = make_pp_train_step(tc, loss_cfg, asm_cfg, Wt, pm, o2, (Ht, Wt),
+                                                microbatch=AXES_PP_MICROBATCH)
+        ph.forward_launches = ph.backward_launches = 0
+        m_mb = pstep_mb.update(pp_mb, *assembled)
+        torch.cuda.synchronize()
+        mb_launches = (ph.forward_launches, ph.backward_launches)
+        out["ms"]["pp step microbatched"] = _event_ms(
+            torch, lambda: pstep_mb.update(pp_mb, *assembled), AXES_TIMED)
+        log(f"model axes (d): the PP step with {2 * Bt // AXES_PP_MICROBATCH} microbatches of "
+            f"{AXES_PP_MICROBATCH}: loss {float(m_mb['loss']):.8g}, K1/K2 launches "
+            f"{mb_launches}")
+        if not np.isfinite(float(m_mb["loss"])) or mb_launches != (2, 2):
+            fail("model axes (d): the microbatched PP step failed")
+        del o1, o2, pp_mb
+        torch.cuda.empty_cache()
+
+        # (e) a TP and a PP checkpoint through the trainer's save path, reloaded
+        reload_err = {}
+        for name, state, mesh in (("tp", s_tp, tm), ("pp", pp_state, pm)):
+            trainer = train_mod.DenseCorrespondenceTraining(
+                driver_config(tmp, f"axes_{name}"), device="cuda")
+            trainer.setup_logging_dir()
+            trainer.save_configs()
+            trainer._state, trainer._mesh, trainer._pp_meta = state, mesh, pp_meta
+            trainer.save_network(1)
+            files = set(os.listdir(trainer.logging_dir))
+            reloaded = DenseCorrespondenceNetwork.from_model_folder(trainer.logging_dir,
+                                                                    device="cuda")
+            with torch.inference_mode():
+                live = (state.module.eval()(x[:2]) if name == "tp"
+                        else state.stage.eval()(x[:2], (Ht, Wt)))
+                reload_err[name] = float((reloaded.module(x[:2]) - live).abs().max())
+            opt = "000001.ckpt.opt" in files
+            log(f"model axes (e): the {name.upper()} checkpoint through save_network reloads "
+                f"with from_model_folder: forward max|diff| {reload_err[name]:.3g} (bar "
+                f"{AXES_RELOAD_TOL}); .ckpt.opt written: {opt} ({name == 'tp'} expected)")
+            if (not reload_err[name] <= AXES_RELOAD_TOL or "000001.ckpt" not in files
+                    or opt != (name == "tp")):
+                fail(f"model axes (e): the {name.upper()} checkpoint does not reload")
+        del s_tp, pp_state, assembled
+        torch.cuda.empty_cache()
+
+        # (f) the model_parallel=1 server against the plain server
+        frames = frames_t["rgb"][:4].cpu().numpy()
+        queries = np.random.default_rng(SEED + 17).standard_normal(
+            (SERVE_QUERIES, D)).astype(np.float32)
+        answers = []
+        for kw in ({}, {"model_parallel": 1}):
+            server = DescriptorServer(dcn, port=0, max_batch=4, **kw)
+            try:
+                batch = [_Request(f, queries if i % 2 else None) for i, f in enumerate(frames)]
+                bm.launches = 0
+                server._run_batch(batch)
+                if kw:
+                    out["launches"]["tp server"] = bm.launches
+                    (_, module), = server._replicas
+                    n_server = sum(isinstance(m, ColumnParallelConv) for m in module.modules())
+                if any(r.error for r in batch):
+                    fail(f"model axes (f): {[r.error for r in batch]}")
+                answers.append([r.result for r in batch])
+            finally:
+                server.shutdown()
+        desc_err, bad_picks = 0.0, 0
+        for i, (one, two) in enumerate(zip(*answers)):
+            if i % 2 == 0:  # a descriptors request
+                desc_err = max(desc_err, float(np.abs(one[0] - two[0]).max()))
+            else:  # a best_match request: every query slot is valid
+                differ = (one[1] != two[1]).any(axis=1)
+                bad_picks += int((differ & (np.abs(one[2] - two[2]) > TIE_TOL_D2)).sum())
+                desc_err = max(desc_err, float(np.abs(one[2] - two[2]).max()))
+        log(f"model axes (f): DescriptorServer(model_parallel=1) ({n_server} convolutions "
+            f"sharded over [{dev}]) answers {len(frames)} requests as the plain server: "
+            f"max|diff| {desc_err:.3g} (bar {DESC_TOL}), picks apart beyond a near-tie "
+            f"{bad_picks}; K3 launches {out['launches']['tp server']} (1 expected)")
+        if desc_err > DESC_TOL or bad_picks or out["launches"]["tp server"] != 1 or not n_server:
+            fail("model axes (f): the model-parallel server disagrees")
+
+        log(smi)
+        ms = out["ms"]
+        log(f"model axes, CUDA events ({AXES_TIMED} steps each, B={Bt}, {Wt}x{Ht}): TP step "
+            f"{ms['tp step']:.3f} ms against the single step's {ms['single step']:.3f} ms "
+            f"({100 * (ms['tp step'] / ms['single step'] - 1):+.1f}%); PP step (1 microbatch) "
+            f"{ms['pp step']:.3f} ms, ({2 * Bt // AXES_PP_MICROBATCH} microbatches) "
+            f"{ms['pp step microbatched']:.3f} ms, against the frozen-BN oracle's "
+            f"{ms['oracle step']:.3f} ms ({100 * (ms['pp step'] / ms['oracle step'] - 1):+.1f}%, "
+            f"{100 * (ms['pp step microbatched'] / ms['oracle step'] - 1):+.1f}%); wrapper ms a "
+            f"B={x.shape[0]} forward: TP {ms['tp inference']:.3f}, PP (microbatch "
+            f"{AXES_INFER_MB[-1]}) {ms['pp inference']:.3f}, plain {ms['plain inference']:.3f}")
+    finally:
+        distributed.shutdown()
+    return out
+
+
 def flatten(tree, prefix=""):
     """{'a/b': leaf} of a nested dict."""
     out = {}
@@ -3997,6 +4325,12 @@ def main():
                                dtype14["preprocess"]["render_inputs"], tree, smi)
         torch.cuda.empty_cache()
         phase("the data axis", t0)
+
+        # 17. the model axes of the parallel layer, on a world of one over NCCL -----------
+        t0 = time.perf_counter()
+        axes = check_model_axes(torch, np, dev, bm, ph, frames_t, tree, smi)
+        torch.cuda.empty_cache()
+        phase("the model axes", t0)
     finally:
         shutil.rmtree(tree, ignore_errors=True)
 
@@ -4054,7 +4388,9 @@ def main():
                                           "data axis: mesh= evaluation":
                                               axis["launches"]["mesh= evaluation"],
                                           "data axis: data-parallel server":
-                                              axis["launches"]["data-parallel server"]},
+                                              axis["launches"]["data-parallel server"],
+                                          "model axes: tp server":
+                                              axes["launches"]["tp server"]},
                      "max_abs_err": max(max_abs_err, driver["k3_err"], on_disk["k3_err"],
                                         evaluation["k3_err"], pair_smo["k3_err"],
                                         apps["k3_err"], variants["k3_err"],
@@ -4293,6 +4629,9 @@ def main():
                                      "experiment from disk": tooling["k1_disk"],
                                      **{f"data axis: {k}": v[0]
                                         for k, v in axis["launches"].items()
+                                        if isinstance(v, tuple)},
+                                     **{f"model axes: {k}": v[0]
+                                        for k, v in axes["launches"].items()
                                         if isinstance(v, tuple)}},
                 "max_abs_err": k1_err, "ms": k1_ms, "device_ms": k1_ms,
                 "wrapper_ms": k1_wrapper, "plain_ms": p1_ms, "bound_ms": b1_ms,
@@ -4311,6 +4650,9 @@ def main():
                                      "experiment from disk": tooling["k2_disk"],
                                      **{f"data axis: {k}": v[1]
                                         for k, v in axis["launches"].items()
+                                        if isinstance(v, tuple)},
+                                     **{f"model axes: {k}": v[1]
+                                        for k, v in axes["launches"].items()
                                         if isinstance(v, tuple)}},
                 "max_abs_err": k2_err, "ms": k2_ms, "device_ms": k2_ms,
                 "wrapper_ms": k2_wrapper, "plain_ms": p2_ms, "bound_ms": b2_ms,

@@ -31,9 +31,16 @@ processes; ``--fsdp`` stores the parameters and Adam's moments sharded):
         --data_parallel --dataset_config <composite.yaml> --data_dir <root>
 
 Started as one process it trains on one device, as the JAX package does on
-one chip. ``serve --data_parallel`` serves one replica of the network per
-local card. ``train --tensor_parallel`` and ``--pipeline`` and ``serve
---model_parallel`` are refused: they are ROADMAP queue 1 item 9b.
+one chip. ``train --tensor_parallel k`` channel-shards the network over k
+processes and ``--pipeline S`` pipelines it over S stages (GPipe, frozen
+BatchNorm); the other processes form a leading data axis, and
+``batch_size`` is then the global batch, a multiple of that axis:
+
+    python -m torch.distributed.run --nproc_per_node 4 -m pdc_tpu_torch train \
+        --tensor_parallel 2 --dataset_config <composite.yaml> --data_dir <root>
+
+``serve --data_parallel`` serves one replica of the network per local card;
+``serve --model_parallel N`` channel-shards each replica over N of them.
 
 ``experiment <protocol>`` trains every variant of one of the reference's
 experiment protocols (``--list`` prints the 13), scores each network on the
@@ -107,8 +114,6 @@ DELEGATED = {"serve": "pdc_tpu_torch.apps.serve",
              "config-gen": "pdc_tpu_torch.data.config_gen",
              "migrate": "pdc_tpu_torch.data.migrate",
              "download": "pdc_tpu_torch.data.download"}
-# the model axes of train, not ported yet (ROADMAP queue 1 item 9b)
-PARALLEL_FLAGS = ("tensor_parallel", "pipeline")
 
 
 def _cmd_train(argv):
@@ -133,14 +138,13 @@ def _cmd_train(argv):
     p.add_argument("--fsdp", action="store_true",
                    help="with --data_parallel: ZeRO-shard the parameters and Adam's moments "
                         "over the processes (training.fsdp)")
-    for flag in PARALLEL_FLAGS:
-        p.add_argument(f"--{flag}", nargs="?", const=True, default=None,
-                       help="not ported: ROADMAP queue 1 item 9b")
+    p.add_argument("--tensor_parallel", type=int, default=None, metavar="N",
+                   help="channel-shard the network over N processes (training.tensor_parallel); "
+                        "the others form a leading data axis")
+    p.add_argument("--pipeline", type=int, default=None, metavar="S",
+                   help="GPipe-pipeline the network over S stages (training.pipeline; "
+                        "frozen-BN semantics); the other processes form a leading data axis")
     args = p.parse_args(argv)
-    for flag in PARALLEL_FLAGS:
-        if getattr(args, flag) is not None:
-            p.error(f"--{flag} is not ported to pdc_tpu_torch yet: tensor parallelism and the "
-                    "pipeline are ROADMAP queue 1 item 9b")
 
     import torch
 
@@ -164,6 +168,10 @@ def _cmd_train(argv):
         t["data_parallel"] = True
     if args.fsdp:
         t["fsdp"] = True
+    if args.tensor_parallel is not None:
+        t["tensor_parallel"] = args.tensor_parallel
+    if args.pipeline is not None:
+        t["pipeline"] = args.pipeline
     dataset_config = load_yaml(args.dataset_config)
     config_dir = os.path.dirname(os.path.abspath(args.dataset_config))
 

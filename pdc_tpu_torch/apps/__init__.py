@@ -32,16 +32,3 @@ def serving_clone(dcn, quantize, frames=None, batch_size: int = 8):
         return dcn.calibrate_quantization(frames(), batch_size=batch_size)
     return dcn.quantized() if quantize else dcn
 
-
-def add_unported_flags(parser, flags: dict):
-    """Flags of the JAX package's CLI that the port accepts only to refuse:
-    ``{flag: why}``."""
-    for flag, why in flags.items():
-        parser.add_argument(f"--{flag}", action="store_true", help=f"not ported: {why}")
-
-
-def reject_unported_flags(parser, args, flags: dict):
-    """Exit 2 (``parser.error``) naming the first of ``flags`` that is set."""
-    for flag, why in flags.items():
-        if getattr(args, flag):
-            parser.error(f"--{flag} is not ported to pdc_tpu_torch yet: {why}")

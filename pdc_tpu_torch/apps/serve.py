@@ -27,8 +27,17 @@ of clients over TCP, with cross-request microbatching.
   count, each replica forwards (and answers the queries of) its contiguous
   block of the coalesced batch, and the answers are put back in request
   order (``pdc_tpu/apps/serve.py:177-215`` shards the batch over a mesh's
-  data axis). ``--data_parallel`` takes every local card. Not ported yet:
-  ``--model_parallel`` (ROADMAP queue 1 item 9b); the CLI rejects it.
+  data axis). ``--data_parallel`` takes every local card.
+- Tensor parallelism (``model_parallel=N``, ``--model_parallel N``): the
+  replicas become groups of N devices, each holding one network whose
+  convolutions are channel-sharded over its group in this process
+  (:func:`~pdc_tpu_torch.parallel.tensor_parallel.shard_channels` with
+  :class:`~pdc_tpu_torch.parallel.tensor_parallel.LocalChannels`: each
+  device convolves its block of output channels on its own copy of the
+  input, the blocks are concatenated on the group's first device, where
+  the rest of the network runs), ``pdc_tpu/apps/serve.py:177-232``'s
+  ``(data, model)`` mesh. The batch is split over the groups as above.
+  ``--model_parallel`` takes every local card; int8 clones shard alike.
 
 Wire protocol (one TCP connection serves many requests), unchanged:
   request  = JSON header line ending in ``\\n``, then the payload bytes.
@@ -57,15 +66,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from pdc_tpu_torch.apps import (
-    add_int8_flags,
-    add_unported_flags,
-    first_frames,
-    quantize_arg,
-    reject_unported_flags,
-    serving_clone,
-)
+from pdc_tpu_torch.apps import add_int8_flags, first_frames, quantize_arg, serving_clone
 from pdc_tpu_torch.ops.best_match import best_match
+from pdc_tpu_torch.parallel.tensor_parallel import LocalChannels, shard_channels
 
 _JOIN_TIMEOUT_S = 10.0
 
@@ -186,15 +189,27 @@ class DescriptorServer:
     :param max_queries: per-request best-match query budget.
     :param devices: one replica of the network per device (data
         parallelism); None serves on the network's device alone.
+    :param model_parallel: N channel-shards each replica over N of
+        ``devices`` (the network's device when None): the replicas become
+        groups of N; N must divide the number of devices.
     """
 
     def __init__(self, dcn, host: str = "127.0.0.1", port: int = 0,
                  max_batch: int = 8, max_wait_ms: float = 5.0,
-                 max_queries: int = 16, devices=None):
+                 max_queries: int = 16, devices=None, model_parallel: Optional[int] = None):
         self._device = dcn.device
         self._module = dcn.module
         self._replicas = [(self._device, self._module)]
-        if devices is not None:
+        if model_parallel:
+            devices = [torch.device(d) for d in (devices or [dcn.device])]
+            m = int(model_parallel)
+            if len(devices) % m:
+                raise ValueError(f"--model_parallel {m} does not divide {len(devices)} devices")
+            groups = [devices[i:i + m] for i in range(0, len(devices), m)]
+            self._device = devices[0]
+            self._replicas = [(g[0], shard_channels(copy.deepcopy(self._module).to(g[0]),
+                                                    LocalChannels(g))) for g in groups]
+        elif devices is not None:
             devices = [torch.device(d) for d in devices]
             self._device = devices[0]
             self._replicas = [(d, self._module if _same_device(d, dcn.device)
@@ -640,11 +655,6 @@ class DescriptorClient:
         return uv, dist
 
 
-_NOT_PORTED = {
-    "model_parallel": "tensor-parallel serving is ROADMAP queue 1 item 9b",
-}
-
-
 def main(argv=None):
     import argparse
 
@@ -666,9 +676,10 @@ def main(argv=None):
     p.add_argument("--data_parallel", action="store_true",
                    help="one replica of the network per local card; the coalesced batch is "
                         "split over them")
-    add_unported_flags(p, _NOT_PORTED)
+    p.add_argument("--model_parallel", type=int, default=0, metavar="N",
+                   help="channel-shard each replica over N local cards (N must divide the "
+                        "card count); the batch is split over the replicas")
     args = p.parse_args(argv)
-    reject_unported_flags(p, args, _NOT_PORTED)
 
     from pdc_tpu_torch.models.dcn import DenseCorrespondenceNetwork
 
@@ -680,18 +691,23 @@ def main(argv=None):
     dcn = serving_clone(dcn, quantize_arg(args),
                         lambda: first_frames(dcn.load_training_dataset()))
     devices = None
-    if args.data_parallel:
+    if args.data_parallel or args.model_parallel:
         devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
                    if dcn.device.type == "cuda" else [dcn.device])
+    if args.model_parallel and len(devices) % args.model_parallel:
+        raise SystemExit(f"--model_parallel {args.model_parallel} does not divide "
+                         f"{len(devices)} devices")
     server = DescriptorServer(dcn, host=args.host, port=args.port,
                               max_batch=args.max_batch,
                               max_wait_ms=args.max_wait_ms,
-                              max_queries=args.max_queries, devices=devices)
+                              max_queries=args.max_queries, devices=devices,
+                              model_parallel=args.model_parallel or None)
     print(f"warming up {len(server._buckets)} batch buckets...", flush=True)
     server.warmup()
     host, port = server.address
     print(f"serving {args.model_folder} on {host}:{port} (max_batch={args.max_batch}, "
-          f"devices={[str(d) for d, _ in server._replicas]})", flush=True)
+          f"replicas on {[str(d) for d, _ in server._replicas]}, model_parallel="
+          f"{args.model_parallel or 1})", flush=True)
     try:
         server.serve_forever()
     finally:

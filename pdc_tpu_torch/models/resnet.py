@@ -390,6 +390,7 @@ class ResNetFCN(nn.Module):
                  dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
         self.dtype, self.remat = dtype, bool(remat)
+        self.output_stride, self.bottleneck = output_stride, bool(bottleneck)
         if output_stride not in self._LAYOUTS:
             raise ValueError(f"output_stride must be 8, 16 or 32, got {output_stride}")
         strides, dilations = self._LAYOUTS[output_stride]

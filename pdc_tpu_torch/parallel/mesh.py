@@ -61,6 +61,13 @@ class Mesh:
         self.device = device
         self._groups = groups
 
+    def peer(self, axis: str, index: int) -> int:
+        """The global rank that differs from this one only on ``axis``,
+        where it is at ``index`` (the source or destination of a
+        point-to-point send along the axis)."""
+        coords = [index if a == axis else self.index[a] for a in self.axis_names]
+        return int(np.ravel_multi_index(coords, tuple(self.shape.values())))
+
     def group(self, axis: str = "data"):
         """The process group of ``axis``: None where no collective is needed
         (an axis of size 1 beside larger ones, or no process group at all);

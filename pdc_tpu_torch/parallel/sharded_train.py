@@ -154,11 +154,14 @@ def _sync_running_stats(module: torch.nn.Module, mesh: Mesh, axis: str):
 
 def _apply_update(training_config: dict, state: TrainState, mesh: Mesh, axis: str, mean: bool):
     """Reduce the gradients over ``axis`` (all-reduce, or reduce-scatter to
-    the blocks under ZeRO), take Adam's step at the step's LR, and under
-    ZeRO all-gather the updated parameters into the module."""
+    the blocks under ZeRO, or under channel sharding the layout's
+    reduction), take Adam's step at the step's LR, and under ZeRO
+    all-gather the updated parameters into the module."""
     fsdp = getattr(state, "fsdp", None)
     if fsdp is not None:
         fsdp.reduce_scatter_grads(mean)
+    elif getattr(state, "tp", None) is not None:
+        state.tp.sync_gradients(state.module, mean)
     else:
         _sync_gradients(state.module, mesh, axis, mean)
     lr = host_lr(training_config, state.step - state.schedule_start)

@@ -25,8 +25,13 @@ directions, and its three routes (:meth:`DenseCorrespondenceTraining.run`).
 ``training.data_parallel`` (and ``fsdp``) over several processes
 (``torchrun``) takes the device-sampler route data-parallel over
 :mod:`pdc_tpu_torch.parallel`; rank 0 alone writes the model folder.
-Not ported yet: ``tensor_parallel`` and ``pipeline`` (ROADMAP queue 1
-item 9b).
+``training.tensor_parallel: k`` and ``training.pipeline: S`` (with
+``pipeline_microbatch``) take the model-parallel route over a ``(data,
+model)`` or ``(data, pipe)`` mesh of the processes, the rest of them on the
+data axis (``pdc_tpu/training/train.py:418-480``): host batches streamed,
+``batch_size`` the global batch (a multiple of the data axis), a
+channel-sharded checkpoint gathered whole, a pipelined one unpacked to the
+standard layout without ``.ckpt.opt``.
 """
 
 from __future__ import annotations
@@ -86,6 +91,9 @@ class TrainState:
     # ZeRO storage (pdc_tpu_torch.parallel.tensor_parallel.FsdpLayout): the
     # optimizer then steps this rank's blocks of the parameters
     fsdp: Optional[object] = None
+    # channel sharding (pdc_tpu_torch.parallel.tensor_parallel.TensorParallelLayout):
+    # the module's convolutions hold this rank's blocks of output channels
+    tp: Optional[object] = None
 
 
 def make_optimizer(training_config: dict, params) -> torch.optim.Adam:
@@ -257,11 +265,36 @@ def make_eval_loss_step(loss_cfg: LossConfig, assembler_cfg: AssemblerConfig,
 ROUTE_DEVICE_SAMPLER = "device sampler"
 ROUTE_CACHED_HOST_SAMPLER = "cached host sampler"
 ROUTE_HOST_STREAMING = "host streaming"
-PARALLEL_MSG = ("is not ported to pdc_tpu_torch yet: tensor parallelism and the pipeline are "
-                "ROADMAP queue 1 item 9b")
+ROUTE_MODEL_PARALLEL = "model-parallel host streaming"
 TRAIN_METRICS = ("loss", "match_loss", "masked_non_match_loss",
                  "background_non_match_loss", "blind_non_match_loss")
 TEST_METRICS = ("loss", "match_loss", "non_match_loss")
+
+
+def model_parallel_layout(training: dict, n_devices: int, batch_size: int):
+    """``(key, k, data)`` of ``training.tensor_parallel: k`` or
+    ``training.pipeline: k`` over ``n_devices`` (one a process), ``data =
+    n_devices // k`` the data axis; None when neither is above 1. Raises the
+    JAX trainer's three errors (``pdc_tpu/training/train.py:437-455``)."""
+    tp = int(training.get("tensor_parallel", 0) or 0)
+    pp = int(training.get("pipeline", 0) or 0)
+    if tp <= 1 and pp <= 1:
+        return None
+    if tp > 1 and pp > 1:
+        raise ValueError(
+            "training.tensor_parallel and training.pipeline are separate mesh layouts — set "
+            "one (compose either with data_parallel; a combined TP x PP trainer mesh is not "
+            "supported)")
+    key, k = ("tensor_parallel", tp) if tp > 1 else ("pipeline", pp)
+    if n_devices % k:
+        raise ValueError(f"{key}={k} does not divide the {n_devices} visible devices (one a "
+                         f"process)")
+    if batch_size % (n_devices // k):
+        raise ValueError(
+            f"training.batch_size={batch_size} must be a multiple of the data axis "
+            f"({n_devices // k} = {n_devices} devices / {key}={k}) — each step's batch is "
+            f"sharded over it")
+    return key, k, n_devices // k
 
 
 def _write_atomic(path: str, tree: dict):
@@ -294,6 +327,11 @@ class DenseCorrespondenceTraining:
         ``cache_dataset_on_device`` is false or the frames exceed
         ``device_cache_max_bytes``.
 
+    With ``training.tensor_parallel`` or ``training.pipeline`` above 1 it
+    takes the model-parallel route instead (:meth:`_parallel_mesh`,
+    :meth:`_setup_model_parallel_step`): global host batches streamed on
+    every rank, each data rank stepping on its block.
+
     Metrics stay on the device and are fetched at logging, saving and
     test-loss boundaries. Logging, saving and the test loss are checked
     after every step. SIGTERM ends the run at the next step boundary with a
@@ -317,8 +355,11 @@ class DenseCorrespondenceTraining:
         self._pending_metrics = []
         self._tb_writer = None
         self.route = None
-        # the data axis of a data-parallel run (None on one process)
+        # the mesh of a data- or model-parallel run (None on one process), and
+        # the model-parallel layout (model_parallel_layout) when there is one
         self._mesh = None
+        self._model_parallel = None
+        self._pp_meta = None
         self.preempted = False
         # host seconds of each step call and of each save_network
         self.step_seconds = []
@@ -346,7 +387,7 @@ class DenseCorrespondenceTraining:
     @property
     def writes(self) -> bool:
         """Whether this process writes the model folder: rank 0 of a
-        data-parallel run, or the only process."""
+        data- or model-parallel run, or the only process."""
         return self._mesh is None or self._mesh.rank == 0
 
     def setup_logging_dir(self):
@@ -432,24 +473,44 @@ class DenseCorrespondenceTraining:
 
     # -- checkpointing --------------------------------------------------------------
 
+    def _current_variables(self):
+        """``(variables, module, optimizer)``: the live network as the
+        standard flax ``{params, batch_stats}``, and the whole module and an
+        optimizer-like object of its Adam state, for ``.ckpt.opt`` (None
+        for a pipelined run, whose optimizer is per stage, as in JAX). A
+        collective in a sharded run: channel-sharded parameters and moments
+        are gathered whole, pipeline stages unpacked, ZeRO moments
+        gathered; every rank calls it."""
+        from pdc_tpu_torch.parallel.pipeline import PPTrainState, unpack_pipeline_variables
+
+        state = self._state
+        if isinstance(state, PPTrainState):
+            return unpack_pipeline_variables(state.pack, self._pp_meta, self._mesh), None, None
+        module, optimizer = state.module, state.optimizer
+        if state.tp is not None:
+            module, optimizer = state.tp.gathered(module, optimizer)
+        elif state.fsdp is not None:
+            optimizer = state.fsdp.gathered_optimizer(optimizer)
+        return state_dict_to_flax(module.state_dict()), module, optimizer
+
     def save_network(self, iteration: int):
         """``%06d.ckpt`` (weights and BatchNorm statistics), ``.ckpt.opt``
-        (the Adam state as optax's), ``%06d_log_history.yaml`` and the
-        rolling ``loss.yaml``; the two checkpoint files are written
-        atomically. Under ZeRO every rank takes part in gathering Adam's
-        moments; only the writing rank writes."""
+        (the Adam state as optax's; none for a pipelined run),
+        ``%06d_log_history.yaml`` and the rolling ``loss.yaml``; the two
+        checkpoint files are written atomically. In a sharded run every rank
+        takes part in gathering the state (:meth:`_current_variables`); only
+        the writing rank writes."""
         t0 = time.perf_counter()
         tag = "%06d" % iteration
         state = self._state
-        optimizer = (state.optimizer if state.fsdp is None
-                     else state.fsdp.gathered_optimizer(state.optimizer))
+        variables, module, optimizer = self._current_variables()
         if not self.writes:
             return
-        _write_atomic(os.path.join(self._logging_dir, tag + ".ckpt"),
-                      state_dict_to_flax(state.module.state_dict()))
-        _write_atomic(os.path.join(self._logging_dir, tag + ".ckpt.opt"),
-                      adam_state_to_flax(state.module, optimizer,
-                                         state.step - state.schedule_start))
+        _write_atomic(os.path.join(self._logging_dir, tag + ".ckpt"), variables)
+        if module is not None:
+            _write_atomic(os.path.join(self._logging_dir, tag + ".ckpt.opt"),
+                          adam_state_to_flax(module, optimizer,
+                                             state.step - state.schedule_start))
         save_yaml(self._logging_dict,
                   os.path.join(self._logging_dir, tag + "_log_history.yaml"))
         current = {
@@ -465,6 +526,9 @@ class DenseCorrespondenceTraining:
         ckpt = find_latest_checkpoint(model_folder, iteration)
         iteration = int(os.path.basename(ckpt).split(".")[0])
         self._ensure_state()
+        if not isinstance(self._state, TrainState) or self._state.tp is not None:
+            self._state = None  # a pipelined or channel-sharded run: run() lays it out again
+            self._ensure_state()
         state = self._state
         if state.fsdp is not None:  # back to replicated storage; run() shards again
             state.fsdp = None
@@ -498,35 +562,66 @@ class DenseCorrespondenceTraining:
     def _ensure_state(self):
         if self._state is not None:
             return
-        self._data_parallel_mesh()
+        self._parallel_mesh()
         module, _ = self.build_network()
         self._state = create_train_state(module, self._config, device=self.device)
 
-    def _data_parallel_mesh(self):
-        """With ``training.data_parallel``: initialise the process group
+    def _parallel_mesh(self):
+        """With ``training.tensor_parallel`` or ``pipeline`` above 1, or
+        ``training.data_parallel``: initialise the process group
         (:func:`~pdc_tpu_torch.parallel.distributed.ensure_initialized`;
-        torchrun's variables, or the group a launcher set up) and, when it
-        has more than one process, the data axis over it, binding this
-        trainer to the rank's device."""
+        torchrun's variables, or the group a launcher set up) and build the
+        mesh over it, binding this trainer to the rank's device: the
+        model-parallel layout's ``(data, model)`` or ``(data, pipe)`` mesh
+        (:func:`model_parallel_layout`'s checks first, on one process too),
+        or, when there is more than one process, the data axis."""
         t = self._config["training"]
-        if self._mesh is not None or not t.get("data_parallel"):
+        if self._mesh is not None:
             return self._mesh
+        wanted = max(int(t.get(k, 0) or 0) for k in ("tensor_parallel", "pipeline")) > 1
+        if not wanted and not t.get("data_parallel"):
+            return None
+        import torch.distributed as dist
+
         from pdc_tpu_torch.parallel.distributed import ensure_initialized
         from pdc_tpu_torch.parallel.mesh import make_mesh
 
-        if ensure_initialized(device=self.device.type):
-            self._mesh = make_mesh(("data",), device=(
-                None if self.device.type == "cuda" else self.device))
+        several = ensure_initialized(device=self.device.type)
+        device = None if self.device.type == "cuda" else self.device
+        if wanted:
+            n = dist.get_world_size() if dist.is_initialized() else 1
+            self._model_parallel = model_parallel_layout(t, n, self._batch_size)
+            key, k, data = self._model_parallel
+            self._mesh = make_mesh(("data", "model" if key == "tensor_parallel" else "pipe"),
+                                   shape=(data, k), device=device)
+        elif several:
+            self._mesh = make_mesh(("data",), device=device)
+        if self._mesh is not None:
             self.device = self._mesh.device
         return self._mesh
 
-    def _check_parallel_options(self):
-        """Refuse the layouts of ROADMAP item 9b (tensor parallelism, the
-        pipeline)."""
-        t = self._config["training"]
-        for key in ("tensor_parallel", "pipeline"):
-            if int(t.get(key, 0) or 0) > 1:
-                raise NotImplementedError(f"training.{key} {PARALLEL_MSG}")
+    def _setup_model_parallel_step(self, loss_cfg, assembler_cfg, W):
+        """The step of ``training.tensor_parallel`` or ``training.pipeline``,
+        with ``self._state`` laid out on the mesh (channel-sharded, or this
+        rank's pipeline stage), as ``pdc_tpu/training/train.py:418-480``
+        routes them."""
+        from pdc_tpu_torch.parallel.pipeline import make_pp_train_step
+        from pdc_tpu_torch.parallel.tensor_parallel import make_tp_train_step
+
+        key, k, data = self._model_parallel
+        net_cfg = self._config["dense_correspondence_network"]
+        if key == "tensor_parallel":
+            logger.info("tensor-parallel training: %dx%d DP x TP mesh", data, k)
+            step, self._state = make_tp_train_step(self._config, loss_cfg, assembler_cfg, W,
+                                                   self._mesh, self._state)
+            return step
+        logger.info("pipeline-parallel training: %dx%d DP x PP mesh (GPipe, frozen BN — see "
+                    "parallel/pipeline.py)", data, k)
+        step, self._state, self._pp_meta = make_pp_train_step(
+            self._config, loss_cfg, assembler_cfg, W, self._mesh, self._state,
+            (net_cfg["image_height"], W),
+            microbatch=int(self._config["training"].get("pipeline_microbatch", 1)))
+        return step
 
     def _choose_route(self, loss_cfg, assembler_cfg, W):
         """(route, step, cache) as the JAX package chooses its route."""
@@ -576,8 +671,11 @@ class DenseCorrespondenceTraining:
         t = self._config["training"]
         net_cfg = self._config["dense_correspondence_network"]
         W = net_cfg["image_width"]
-        self._check_parallel_options()
-        self._data_parallel_mesh()
+        self._parallel_mesh()
+        if (self._model_parallel is not None and self._model_parallel[0] == "pipeline"
+                and t.get("compute_test_loss", False) and self._dataset_test is not None):
+            raise ValueError("training.compute_test_loss needs the whole network; a pipelined "
+                             "run holds one stage a process")
         if t.get("compilation_cache_dir"):
             logger.info("training.compilation_cache_dir ignored: it holds XLA programs, "
                         "and the port runs none")
@@ -589,14 +687,22 @@ class DenseCorrespondenceTraining:
 
         loss_cfg = LossConfig.from_dict(self._config["loss_function"])
         assembler_cfg = AssemblerConfig.from_training_config(self._config)
-        self.route, train_step, cache = self._choose_route(loss_cfg, assembler_cfg, W)
+        if self._model_parallel is not None:
+            # host batches streamed: the device cache assumes a replicated state
+            self.route, cache = ROUTE_MODEL_PARALLEL, None
+            train_step = self._setup_model_parallel_step(loss_cfg, assembler_cfg, W)
+        else:
+            self.route, train_step, cache = self._choose_route(loss_cfg, assembler_cfg, W)
         logger.info("training route: %s", self.route)
-        if self._mesh is not None and self.route != ROUTE_DEVICE_SAMPLER:
+        if self._mesh is not None and self.route not in (ROUTE_DEVICE_SAMPLER,
+                                                         ROUTE_MODEL_PARALLEL):
             raise ValueError(
                 "training.data_parallel over several processes needs the device-cache "
                 "sampler route (matrix loss, steps_per_dispatch divisor > 1, sample types "
                 f"within {{0, 1, 2, 4}}); this config takes the {self.route} route")
-        if self.route != ROUTE_DEVICE_SAMPLER and (t.get("data_parallel") or t.get("fsdp")):
+        # (a model-parallel mesh carries a data axis: that run is not single-device)
+        if (self.route not in (ROUTE_DEVICE_SAMPLER, ROUTE_MODEL_PARALLEL)
+                and (t.get("data_parallel") or t.get("fsdp"))):
             logger.warning(
                 "training.data_parallel/fsdp IGNORED: multi-chip training "
                 "needs the device-cache scanned path (>1 device, matrix "
@@ -626,13 +732,20 @@ class DenseCorrespondenceTraining:
         profiler = None
 
         seed = int(t.get("seed", 1))
-        if self._mesh is not None:  # each rank draws its own pairs
-            from pdc_tpu_torch.parallel.sharded_train import rank_seed
+        if self._mesh is not None:
+            from pdc_tpu_torch.parallel.sharded_train import rank_seed, shard_host_batch
 
-            seed = rank_seed(seed, self._mesh.rank)
+            # each data rank draws its own pairs; the ranks of a model or pipe
+            # axis must draw the same ones
+            seed = rank_seed(seed, self._mesh.rank if self._model_parallel is None
+                             else self._mesh.index["data"])
         generator = torch.Generator(device=self.device).manual_seed(seed)
         prefetch = None
-        if self.route == ROUTE_CACHED_HOST_SAMPLER:
+        if self.route == ROUTE_MODEL_PARALLEL:
+            # the global batch on every rank (one stream a run), each data rank its block
+            prefetch = PrefetchLoader(lambda: self._dataset.make_host_batch(self._batch_size),
+                                      depth=2)
+        elif self.route == ROUTE_CACHED_HOST_SAMPLER:
             prefetch = PrefetchLoader(lambda: cache.sample_index_batch(self._batch_size),
                                       depth=2)
         elif self.route == ROUTE_HOST_STREAMING:
@@ -663,6 +776,9 @@ class DenseCorrespondenceTraining:
                 t0 = time.perf_counter()
                 if self.route == ROUTE_DEVICE_SAMPLER:
                     metrics = train_step(self._state, generator)
+                elif self.route == ROUTE_MODEL_PARALLEL:
+                    metrics = train_step(self._state, shard_host_batch(prefetch.next(),
+                                                                       self._mesh), generator)
                 else:
                     metrics = train_step(self._state, prefetch.next(), generator)
                 elapsed = time.perf_counter() - t0
@@ -761,10 +877,22 @@ class DenseCorrespondenceTraining:
     def get_dcn(self) -> DenseCorrespondenceNetwork:
         """The current network as an inference
         :class:`~pdc_tpu_torch.models.dcn.DenseCorrespondenceNetwork`, on a
-        copy of the weights (later training does not change it)."""
+        copy of the weights (later training does not change it); whole in a
+        sharded run, where every rank must call this."""
+        from pdc_tpu_torch.parallel.pipeline import PPTrainState
+        from pdc_tpu_torch.parallel.tensor_parallel import unshard_channels
+
         net_cfg = self._config["dense_correspondence_network"]
+        state = self._state
+        if isinstance(state, PPTrainState):
+            module = self.build_network()[0]
+            module.load_state_dict(flax_to_state_dict(self._current_variables()[0]))
+        elif state.tp is not None:
+            module = unshard_channels(state.module)
+        else:
+            module = copy.deepcopy(state.module)
         return DenseCorrespondenceNetwork(
-            copy.deepcopy(self._state.module),
+            module,
             descriptor_dimension=net_cfg["descriptor_dimension"],
             image_width=net_cfg["image_width"],
             image_height=net_cfg["image_height"],

@@ -113,13 +113,14 @@ def test_tooling_and_experiments_import_without_yaml_jax_or_pdc_tpu(module):
 
 
 def test_parallel_package_holds_the_data_axis_without_sync_batchnorm():
-    """pdc_tpu_torch/parallel/ has the modules of the data axis (checked for
-    forbidden imports above, with every port file), and no port file uses
+    """pdc_tpu_torch/parallel/ has the modules of the data axis and of the
+    model axes (checked for forbidden imports above, with every port file,
+    pipeline.py among them), and no port file uses
     torch.nn.SyncBatchNorm, which refuses CPU tensors: the cross-rank
     BatchNorm is the port's own (parallel/sharded_train.py)."""
     names = set(os.listdir(os.path.join(PKG, "parallel")))
     assert {"__init__.py", "mesh.py", "distributed.py", "sharded_train.py",
-            "tensor_parallel.py"} <= names
+            "tensor_parallel.py", "pipeline.py"} <= names
     for path in _port_files():
         with open(path) as f:
             tree = ast.parse(f.read(), path)

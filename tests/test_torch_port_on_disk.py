@@ -631,13 +631,10 @@ def test_cli_train_writes_a_folder_pdc_tpu_loads(layout, tmp_path, capsys):
 
 def test_cli_train_refuses_unported_flags_and_a_missing_card(layout, monkeypatch, capsys):
     base = ["train", "--dataset_config", layout["composite_file"], "--data_dir", layout["root"]]
-    for extra in (["--tensor_parallel", "2"], ["--pipeline", "2"]):
-        with pytest.raises(SystemExit):
-            cli.main(base + extra)
-        assert "not ported" in capsys.readouterr().err
-    # --data_parallel and --fsdp are ported: without a card they need it, as plain train does
+    # every parallel flag is ported: without a card they need it, as plain train does
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for extra in (["--data_parallel"], ["--data_parallel", "--fsdp"]):
+    for extra in (["--data_parallel"], ["--data_parallel", "--fsdp"], ["--tensor_parallel", "2"],
+                  ["--pipeline", "2"]):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cli.main(base + extra)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -631,10 +631,14 @@ def test_rank_seed_and_process_info():
     names = [f"s{i}" for i in (3, 1, 0, 2, 4)]
     assert distributed.local_scene_subset(names, 1, 2) == ["s1", "s3"]
     assert distributed.local_scene_subset(names) == sorted(names)
-    with pytest.raises(NotImplementedError, match="9b"):
-        tp.make_tp_train_step()
-    with pytest.raises(NotImplementedError, match="9b"):
-        tp.channel_shardings({})
+    # the model axes are ported: channel_shardings and make_tp_train_step no longer raise
+    mesh = make_mesh(("data", "model"), shape=(1, 1), device="cpu")
+    assert tp.channel_shardings({"k": torch.zeros(1, 1, 1, 4), "b": torch.zeros(3)}, mesh) == {
+        "k": (None, None, None, "model"), "b": ("model",)}
+    state = create_train_state(ResNetFCN(D, stage_sizes=R18), TC, device="cpu")
+    step, state = tp.make_tp_train_step(TC, LossConfig(), AssemblerConfig(**ASM), W, mesh, state)
+    assert state.tp is not None and any(isinstance(m, tp.ColumnParallelConv)
+                                        for m in state.module.modules())
 
 
 def test_data_parallel_server_answers_in_request_order():

@@ -403,17 +403,18 @@ def test_cli_rejects_unported_options_and_commands(capsys):
         with pytest.raises(FileNotFoundError):
             serve.main(["--model_folder", "x", flag, "--device", "cpu"])
         assert "not ported" not in capsys.readouterr().err
-    with pytest.raises(SystemExit):
-        serve.main(["--model_folder", "x", "--model_parallel"])
-    assert "item 9b" in capsys.readouterr().err
+    # --model_parallel is ported: it parses, and the missing folder is the error
+    with pytest.raises(FileNotFoundError):
+        serve.main(["--model_folder", "x", "--model_parallel", "2", "--device", "cpu"])
+    assert "not ported" not in capsys.readouterr().err
     # --data_parallel is ported: it parses, and the missing folder is the error
     with pytest.raises(FileNotFoundError):
         serve.main(["--model_folder", "x", "--data_parallel", "--device", "cpu"])
     assert "not ported" not in capsys.readouterr().err
-    for flag in ("--tensor_parallel", "--pipeline"):
-        with pytest.raises(SystemExit):
-            cli.main(["train", "--dataset_config", "x.yaml", flag])
-        assert "item 9b" in capsys.readouterr().err
+    for flag in ("--tensor_parallel", "--pipeline"):  # ported: the missing config is the error
+        with pytest.raises(FileNotFoundError):
+            cli.main(["train", "--dataset_config", "x.yaml", flag, "2", "--device", "cpu"])
+        assert "not ported" not in capsys.readouterr().err
     for flag in ("--data_parallel", "--fsdp"):  # ported: the missing config is the error
         with pytest.raises(FileNotFoundError):
             cli.main(["train", "--dataset_config", "x.yaml", flag, "--device", "cpu"])

@@ -385,11 +385,16 @@ def test_sigterm_writes_a_checkpoint_and_returns(tmp_path):
 
 def test_multi_device_layouts_wait_for_their_slice(tmp_path, caplog):
     ds = SpartanDataset.make_synthetic(**SYNTH)
+    # the model axes on one process: JAX's errors (k does not divide 1 device; both set)
     for key in ("tensor_parallel", "pipeline"):
         trainer = DenseCorrespondenceTraining(tiny_config(tmp_path, key, **{key: 2}), ds,
                                               device="cpu")
-        with pytest.raises(NotImplementedError, match="item 9b"):
+        with pytest.raises(ValueError, match=f"{key}=2 does not divide the 1 visible devices"):
             trainer.run()
+    trainer = DenseCorrespondenceTraining(tiny_config(tmp_path, "both", tensor_parallel=2,
+                                                      pipeline=2), ds, device="cpu")
+    with pytest.raises(ValueError, match="separate mesh layouts"):
+        trainer.run()
     # data_parallel on one process: the JAX package's warning, and one device
     cfg = tiny_config(tmp_path, "dp", iters=1, data_parallel=True, steps_per_dispatch=1)
     with caplog.at_level(logging.WARNING, logger=port_train.logger.name):
