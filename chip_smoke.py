@@ -34,9 +34,11 @@ Phases, each fatal on failure:
   7. the main path, the training driver: ``DenseCorrespondenceTraining.run``
      on the synthetic dataset of trained_models/tpu_journey/dataset.yaml
      (DATASET_RECORD: 2 scenes, 12 frames, 640x480) with ResNet-34-8s, B=4,
-     6 iterations, checkpoints at 0, 3 and 6 and the test loss at 6. It fails
-     unless (a) the run took the on-device sampler route; (b) K1 launched 2
-     per train step plus 2 per test-loss batch and K2 2 per train step;
+     6 iterations in 2 calls of 3 steps, checkpoints at 0, 3 and 6 and the
+     test loss at 6. It fails unless (a) the run took the on-device sampler
+     route; (b) K1 launched 2 per train step and per warm-up step of the
+     graph's capture plus 2 per test-loss batch, and K2 2 per train step and
+     warm-up step;
      (c) every metric is finite and the weights moved; (d) the folder holds
      the configs, the checkpoints with their .opt files and the log
      histories; (e) 000006.ckpt.opt reads back bit-equal to the live Adam
@@ -52,8 +54,8 @@ Phases, each fatal on failure:
      back bit-equal to the rendering (poses within 1e-9); each codec's ms
      per 640x480 frame to write and to decode; then ``python -m pdc_tpu_torch
      train`` in this process with the values of phase 7. It fails unless
-     (a) K1 launched 2 per train step plus 2 per test-loss batch and K2 2 per
-     train step; (b) every metric is finite and the weights moved; (c)
+     (a) K1 launched 2 per train step and warm-up step plus 2 per test-loss
+     batch and K2 2 per train step and warm-up step; (b) every metric is finite and the weights moved; (c)
      dataset.yaml records the absolute data_dir and config_dir, and
      load_training_dataset("train") rebuilds the same scene names, frame ids
      and poses from disk; (d) from_model_folder gives the live network's
@@ -192,7 +194,8 @@ Phases, each fatal on failure:
      gradient cosine at least 0.6, relative L2 at most 1.0; the CPU reads
      0.009, 0.84, 0.59); the bf16 step's split against fp32's is printed;
      (c) ``DenseCorrespondenceTraining`` with ``compute_dtype: bfloat16`` runs
-     3 iterations (K1 and K2 2 per step) and writes fp32 checkpoint and Adam
+     3 iterations (K1 and K2 2 per step and warm-up step) and writes fp32
+     checkpoint and Adam
      files; ``from_model_folder`` on the folder builds fp32 by default and
      bf16 on request, their descriptors within relative RMS 0.03; (d)
      ResNet-101-8s, B=4: one step with ``remat: true`` and one without, on
@@ -223,10 +226,11 @@ Phases, each fatal on failure:
      fusion_mesh.ply) file for file and byte for byte, and ``download
      --dry_run`` on the published caterpillar_only lists its scene URLs and
      fetches nothing; (d) ``experiment caterpillar`` at Scale.full() (640x480,
-     ResNet-34-8s, D=3, B=4) on the synthetic stand-in, 6 steps, checkpoints
-     every 3, 8 test pairs of 100 matches a network: its 2 runs launch K1 and
-     K2 twice per step, K3 once per sweep chunk, have finite metrics and moved
-     weights, 000003.ckpt and 000006.ckpt, and result.json has pdc_tpu's keys
+     ResNet-34-8s, D=3, B=4) on the synthetic stand-in, 12 steps (2 calls of
+     6), checkpoints every 12, 8 test pairs of 100 matches a network: its 2
+     runs launch K1 and K2 twice per step and per warm-up step of their
+     capture, K3 once per sweep chunk, have finite metrics and moved weights,
+     000000.ckpt and 000012.ckpt, and result.json has pdc_tpu's keys
      with test PCKs in [0, 1] and a finite area; comparison_test.yaml exists;
      on 4 test pairs of one network the fused sweep (K3) agrees with the
      per-pair route run with the plain best match (as phase 9 (c)); the same
@@ -284,6 +288,28 @@ Phases, each fatal on failure:
      ``DescriptorServer(model_parallel=1)`` answers 2 ``descriptors`` and 2
      ``best_match`` requests as the plain server (DESC_TOL; picks equal or
      near-ties), one K3 launch.
+
+18. K steps per dispatch, "K steps per dispatch" (after phase 17), at
+     640x480, ResNet-34-8s, D=3, B=4, TRAINING_CONFIG's values, fp32 without
+     TF32, on a device cache of DATASET_RECORD's scenes. It fails unless (a)
+     one call of ``make_scanned_train_step`` with K=10 (one CUDA graph of the
+     whole step, captured after a warm-up step it undoes, replayed 10 times)
+     equals 10 eager ``DeviceSampledTrainStep`` calls from clones of the
+     state and generator: the ten losses and the parameters within 4 times
+     F4's spread (two eager runs in the same call measure it, as phase 16
+     (b)), the generator left as the eager calls leave it, metrics of shape
+     [10], and K1 and K2 launching 20 times each in the call (the graph's
+     replays counted); (b) the same for a bf16 step and for a mix of
+     within-scene and synthetic multi-object pairs; (c)
+     ``DenseCorrespondenceTraining.run`` with ``steps_per_dispatch: 10``,
+     ``num_iterations: 20`` and ``save_rate: 10`` takes the device-sampler
+     route, calls back at 10 and 20, logs iterations 1-20 with host_lr's
+     rates, writes checkpoints 0, 10 and 20 and no other, launches K1 and K2
+     2 a step and a warm-up step, and its last folder reloads (as phase 7
+     (g)); (d) the data-parallel route on a world of one over NCCL runs its
+     K steps in one call, eagerly (a process group's collectives are not
+     captured), and says so. It prints the eager and the graph's ms a step
+     by CUDA events and the host ms a call, fp32 and bf16.
 
 The last lines are a JSON object with every kernel's numbers, the
 nvidia-smi line, and ``{"ok": true, "device": {...}}``. Without CUDA, or when the
@@ -755,16 +781,16 @@ def draw_pairs(np, rng, B, n_frames):
 
 # -- the training driver ---------------------------------------------------------
 
-# DenseCorrespondenceTraining.run over TRAINING_CONFIG: 6 iterations, so that
-# steps_per_dispatch 10 leaves k_eff = 6 and the on-device sampler route is
-# taken; checkpoints at 0, 3 and 6; the test loss at iteration 6 over 8 // B = 2
+# DenseCorrespondenceTraining.run over TRAINING_CONFIG: 6 iterations, 3 steps a
+# call (the on-device sampler route, one CUDA graph replayed 3 times a call);
+# checkpoints at 0, 3 and 6; the test loss at iteration 6 over 8 // B = 2
 # batches; then 2 more iterations resumed from the folder
 DRIVER_OVERRIDES = {"num_iterations": 6, "save_rate": 3, "logging_rate": 3,
                     "compute_test_loss": True, "compute_test_loss_rate": 6,
                     "test_loss_num_iterations": 8, "use_tensorboard": False,
-                    "steps_per_dispatch": 10, "seed": 1}
+                    "steps_per_dispatch": 3, "seed": 1}
 DRIVER_RESUME_ITERATIONS = 2
-ROUTE_STEPS = 3  # the timed run of each route
+ROUTE_STEPS = 3  # the timed steps of each route (the device sampler's: one call)
 # a reloaded network against the live one: the same weights, the same
 # cuDNN algorithm on the same input
 RELOAD_TOL = 1e-6
@@ -778,24 +804,25 @@ def driver_config(tmp, name, **overrides):
     return cfg
 
 
-def timed_route_run(torch, ph, train_mod, dev, tmp, name, ds, **overrides):
-    """ROUTE_STEPS iterations of ``run`` with a synchronising callback, so
-    the host clock between two callbacks is one whole step (the sampler
-    thread's wait included). Returns (route, [ms of steps 2.. ], K1/K2
-    launches, the run's per-call host ms)."""
-    cfg = driver_config(tmp, name, num_iterations=ROUTE_STEPS, save_rate=1000,
+def timed_route_run(torch, ph, train_mod, dev, tmp, name, ds, iterations=ROUTE_STEPS,
+                    **overrides):
+    """``iterations`` of ``run`` with a synchronising callback at the end of
+    every call, so the host clock between two callbacks is whole calls (the
+    sampler thread's wait included). Returns (route, [ms a step of each
+    call after the first], K1/K2 launches, the run's per-call host ms)."""
+    cfg = driver_config(tmp, name, num_iterations=iterations, save_rate=1000,
                         logging_rate=1000, compute_test_loss=False, **overrides)
     trainer = train_mod.DenseCorrespondenceTraining(cfg, ds, device=dev)
     marks = []
 
     def mark(it, metrics):
         torch.cuda.synchronize(dev)
-        marks.append(time.perf_counter())
+        marks.append((it, time.perf_counter()))
 
     ph.forward_launches = ph.backward_launches = 0
     trainer.run(progress_callback=mark)
     launches = (ph.forward_launches, ph.backward_launches)
-    step_ms = [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
+    step_ms = [1e3 * (b - a) / (j - i) for (i, a), (j, b) in zip(marks, marks[1:])]
     return trainer.route, step_ms, launches, [1e3 * s for s in trainer.step_seconds]
 
 
@@ -839,10 +866,11 @@ def check_training_driver(torch, np, dev, here, bm, ph):
             f"(3 checkpoints and the test loss included)")
         if trainer.route != train_mod.ROUTE_DEVICE_SAMPLER:
             fail(f"the driver took the {trainer.route!r} route, not the device sampler")
-        # (b) launches: 2 per train step, 2 per eval batch (K1 only)
-        log(f"training driver launches: K1 {k1} (expected 2 x {n_iter} steps + 2 x {n_eval} "
-            f"eval batches = {2 * n_iter + 2 * n_eval}), K2 {k2} (expected {2 * n_iter})")
-        if k1 != 2 * n_iter + 2 * n_eval or k2 != 2 * n_iter:
+        # (b) launches: 2 per train step and warm-up step, 2 per eval batch (K1 only)
+        want = scanned_launches(n_iter, eval_batches=n_eval)
+        log(f"training driver launches: K1 {k1}, K2 {k2} (expected {want}: 2 x {n_iter} steps, "
+            f"2 x the capture's warm-up steps, and K1 2 x {n_eval} eval batches)")
+        if (k1, k2) != want:
             fail(f"K1/K2 launched {k1}/{k2} times in the driver's run")
         # (c) finite metrics, moved weights
         tl, te = trainer._logging_dict["train"], trainer._logging_dict["test"]
@@ -895,7 +923,7 @@ def check_training_driver(torch, np, dev, here, bm, ph):
             f"{resumed._logging_dict['train']['iteration']}, Adam steps {sorted(steps)}, "
             f"launches K1 {k1_r}, K2 {k2_r}")
         if (resumed._start_iteration != n_iter or steps != {end} or resumed.state.step != end
-                or (k1_r, k2_r) != (2 * DRIVER_RESUME_ITERATIONS,) * 2):
+                or (k1_r, k2_r) != scanned_launches(DRIVER_RESUME_ITERATIONS)):
             fail("run_from_pretrained did not resume at 6 and end with every Adam step at 8")
         # (g) the folder's network against the live one, and one K3 query on it
         reloaded, out["k3_err"] = check_reload(torch, np, bm, dev, folder, trainer,
@@ -911,15 +939,21 @@ def check_training_driver(torch, np, dev, here, bm, ph):
         if not same_ds:
             fail("load_training_dataset did not rebuild the training dataset")
 
-        # each route, timed: 3 iterations each
+        # each route, timed: ROUTE_STEPS steps after the first call (the device
+        # sampler's first call of ROUTE_STEPS steps captures its graph)
         routes = {}
-        for name, overrides in (("device", {}), ("cached", {"steps_per_dispatch": 1}),
-                                ("streaming", {"cache_dataset_on_device": False})):
+        for name, iterations, overrides in (
+                ("device", 2 * ROUTE_STEPS, {"steps_per_dispatch": ROUTE_STEPS}),
+                ("cached", ROUTE_STEPS + 1, {"steps_per_dispatch": 1}),
+                ("streaming", ROUTE_STEPS + 1, {"cache_dataset_on_device": False})):
             route, step_ms, launches, call_ms = timed_route_run(
-                torch, ph, train_mod, dev, tmp, name, ds_train, **overrides)
+                torch, ph, train_mod, dev, tmp, name, ds_train, iterations, **overrides)
             routes[route] = {"step_ms": step_ms, "call_ms": call_ms, "launches": launches}
-            if launches != (2 * ROUTE_STEPS, 2 * ROUTE_STEPS):
-                fail(f"the {route} route launched K1/K2 {launches} times in {ROUTE_STEPS} steps")
+            want = (scanned_launches(iterations) if name == "device"
+                    else (2 * iterations, 2 * iterations))
+            if launches != want:
+                fail(f"the {route} route launched K1/K2 {launches} times in {iterations} steps "
+                     f"({want} expected)")
         if set(routes) != {train_mod.ROUTE_DEVICE_SAMPLER, train_mod.ROUTE_CACHED_HOST_SAMPLER,
                            train_mod.ROUTE_HOST_STREAMING}:
             fail(f"the timed runs took the routes {sorted(routes)}")
@@ -1149,9 +1183,10 @@ def check_on_disk_training(torch, np, dev, bm, ph, tmp):
         f"{trainer.route!r}, {n_iter} iterations in {run_s:.2f} s (the scenes' decode, 3 "
         f"checkpoints and the test loss included)")
     # (a) launches
-    log(f"on-disk launches: K1 {k1} (expected 2 x {n_iter} steps + 2 x {n_eval} eval "
-        f"batches = {2 * n_iter + 2 * n_eval}), K2 {k2} (expected {2 * n_iter})")
-    if k1 != 2 * n_iter + 2 * n_eval or k2 != 2 * n_iter:
+    want = scanned_launches(n_iter, eval_batches=n_eval)
+    log(f"on-disk launches: K1 {k1}, K2 {k2} (expected {want}: 2 x {n_iter} steps, 2 x the "
+        f"capture's warm-up steps, and K1 2 x {n_eval} eval batches)")
+    if (k1, k2) != want:
         fail(f"K1/K2 launched {k1}/{k2} times in the on-disk run")
     # (b) finite metrics, moved weights
     tl, te = trainer._logging_dict["train"], trainer._logging_dict["test"]
@@ -1524,23 +1559,29 @@ def per_pair_config(**training):
 class _AssemblySpy:
     """Within the block, counts the rows (and the synthetic multi-object rows)
     that ``name`` of the train module assembles, and keeps the first batch
-    that holds a synthetic multi-object row, with its assembly and config."""
+    that holds a synthetic multi-object row, with its assembly and config.
+    It never waits on the card, so a CUDA graph captures it with the step:
+    its counts are device tensors that every replay adds to, and a batch
+    assembled in a capture is kept as the graph's buffers, which hold the
+    last replay's batch when the block ends."""
 
     def __init__(self, train_mod, name):
         self.mod, self.name = train_mod, name
-        self.rows = self.smo_rows = 0
-        self.kept = None
+        self.counts = None  # [rows, synthetic multi-object rows], on the device
+        self.batches = []
 
     def __enter__(self):
         self.real = real = getattr(self.mod, self.name)
 
-        def spy(batch, cfg, generator, device="cuda"):
-            out = real(batch, cfg, generator, device=device)
-            n = int((out[2].match_type == 4).sum())
-            self.rows += len(out[2].match_type)
-            self.smo_rows += n
-            if n and self.kept is None:
-                self.kept = (batch, out, cfg)
+        def spy(batch, cfg, generator, device="cuda", **options):
+            out = real(batch, cfg, generator, device=device, **options)
+            mt = out[2].match_type
+            if self.counts is None:
+                self.counts = mt.new_zeros(2)
+            self.counts[0] += mt.numel()
+            self.counts[1] += (mt == 4).sum()
+            if len(self.batches) < 2:  # the first eager one and the captured one
+                self.batches.append((batch, out, cfg))
             return out
 
         setattr(self.mod, self.name, spy)
@@ -1548,6 +1589,10 @@ class _AssemblySpy:
 
     def __exit__(self, *exc):
         setattr(self.mod, self.name, self.real)
+        self.rows, self.smo_rows = (0, 0) if self.counts is None else (
+            int(self.counts[0]), int(self.counts[1]))
+        self.kept = next((b for b in self.batches if bool((b[1][2].match_type == 4).any())),
+                         None)
 
 
 def smo_occlusion(torch, asm, kept):
@@ -1679,14 +1724,14 @@ def check_per_pair_and_smo(torch, np, dev, here, bm, ph, frames_t, folder):
         k = (ph.forward_launches, ph.backward_launches)
         losses = trainer._logging_dict["train"]["loss"]
         log(f"synthetic multi-object, matrix route: route {trainer.route!r}, {n_iter} "
-            f"iterations in {run_s:.2f} s, {spy.smo_rows} of {spy.rows} rows of type 4; "
-            f"launches K1 {k[0]}, K2 {k[1]} (expected {2 * n_iter} each); losses "
-            + ", ".join(f"{x:.5g}" for x in losses))
+            f"iterations in {run_s:.2f} s, {spy.smo_rows} of {spy.rows} rows of type 4 (the "
+            f"capture's warm-up step's included); launches K1 {k[0]}, K2 {k[1]} (expected "
+            f"{scanned_launches(n_iter)}); losses " + ", ".join(f"{x:.5g}" for x in losses))
         if trainer.route != train_mod.ROUTE_DEVICE_SAMPLER:
             fail(f"the synthetic multi-object run took the {trainer.route!r} route")
-        if not spy.smo_rows:
-            fail("no synthetic multi-object row was drawn")
-        if k != (2 * n_iter, 2 * n_iter):
+        if not spy.smo_rows or spy.kept is None:
+            fail("no synthetic multi-object row was drawn, or none in a kept batch")
+        if k != scanned_launches(n_iter):
             fail(f"K1/K2 launched {k} times in {n_iter} steps with synthetic multi-object rows")
         if len(losses) != n_iter or not all(np.isfinite(x) for x in losses):
             fail("a synthetic multi-object training metric is missing or not finite")
@@ -2848,7 +2893,7 @@ def check_bf16_driver(torch, np, dev, ph, tmp):
     if (not ckpt_fp32 or d32.module.dtype != torch.float32 or d16.module.dtype != torch.bfloat16
             or r16.dtype != torch.bfloat16 or not rms <= BF16_FWD_RMS
             or not all(np.isfinite(float(x)) for x in losses)
-            or launches != (2 * BF16_DRIVER_ITERATIONS, 2 * BF16_DRIVER_ITERATIONS)):
+            or launches != scanned_launches(BF16_DRIVER_ITERATIONS)):
         fail("the bf16 training driver failed its checks")
     return {"launches": launches, "run_s": run_s}
 
@@ -3052,11 +3097,12 @@ def check_compute_dtype_and_preprocess(torch, np, dev, ph, frames_t, tmp):
 # -- dataset tooling and experiments ------------------------------------------------------
 
 # experiment caterpillar at Scale.full() (640x480, ResNet-34-8s, D=3, B=4) on the
-# synthetic stand-in: the protocol's 2 runs of EXP_STEPS steps, checkpoints every
-# EXP_SAVE_RATE; each network scored on EXP_PAIRS test pairs of EXP_MATCHES matches
-# (the protocol's 100 pairs cut to 8, one sweep chunk, to keep the phase near a
-# minute). From disk (e): 1 run of EXP_DISK_STEPS steps.
-EXP_STEPS, EXP_SAVE_RATE, EXP_PAIRS, EXP_MATCHES, EXP_DISK_STEPS = 6, 3, 8, EVAL_MATCHES, 3
+# synthetic stand-in: the protocol's 2 runs of EXP_STEPS steps (2 calls of 6 steps
+# at the default steps_per_dispatch), checkpoints every EXP_SAVE_RATE; each network
+# scored on EXP_PAIRS test pairs of EXP_MATCHES matches (the protocol's 100 pairs
+# cut to 8, one sweep chunk, to keep the phase near a minute). From disk (e): 1 run
+# of EXP_DISK_STEPS steps.
+EXP_STEPS, EXP_SAVE_RATE, EXP_PAIRS, EXP_MATCHES, EXP_DISK_STEPS = 12, 12, 8, EVAL_MATCHES, 3
 # the keys of pdc_tpu's result.json (tests/test_torch_port_experiments.py holds the
 # port's runner to pdc_tpu's on the CPU)
 RESULT_KEYS = {"protocol", "reference_dir", "description", "dataset", "scale",
@@ -3106,11 +3152,11 @@ class _ExperimentSpy:
         self._cls.run, self._dce.evaluate_single_network = self._run, self._score
 
     def step_ms(self, save_rate):
-        """ms between the events of consecutive steps, leaving out each
-        interval that holds a checkpoint write."""
+        """ms a step between the events of consecutive calls, leaving out
+        each interval that holds a checkpoint write."""
         self._torch.cuda.synchronize()
-        return [a.elapsed_time(b) for _, events in self.runs
-                for (i, a), (_, b) in zip(events, events[1:]) if i % save_rate]
+        return [a.elapsed_time(b) / (j - i) for _, events in self.runs
+                for (i, a), (j, b) in zip(events, events[1:]) if i % save_rate]
 
 
 def _same_scenes(np, a, b):
@@ -3130,16 +3176,17 @@ def _same_scenes(np, a, b):
 
 
 def _check_experiment_run(torch, np, spy, k1, k2, n_runs, steps, what):
-    """K1 and K2 launched 2 per step of each run (the runner computes no
-    test loss), every metric finite, every run's weights moved, and the
-    folders' checkpoints. Returns the model folders."""
+    """K1 and K2 launched 2 per step and per warm-up step of each run (the
+    runner computes no test loss), every metric finite, every run's weights
+    moved, and the folders' checkpoints. Returns the model folders."""
     from pdc_tpu_torch.models.checkpoint import read_checkpoint
     from pdc_tpu_torch.models.convert import flax_to_state_dict
 
+    want = scanned_launches(steps * n_runs, captures=n_runs)
     log(f"{what}: {len(spy.runs)} runs trained, routes "
-        f"{[tr.route for tr, _ in spy.runs]}; launches K1 {k1}, K2 {k2} (expected "
-        f"2 x {steps} steps x {n_runs} runs = {2 * steps * n_runs} each)")
-    if len(spy.runs) != n_runs or k1 != 2 * steps * n_runs or k2 != 2 * steps * n_runs:
+        f"{[tr.route for tr, _ in spy.runs]}; launches K1 {k1}, K2 {k2} (expected {want}: "
+        f"2 x {steps} steps x {n_runs} runs and 2 x each capture's warm-up steps)")
+    if len(spy.runs) != n_runs or (k1, k2) != want:
         fail(f"{what}: K1/K2 did not launch twice per train step")
     folders = []
     for trainer, _ in spy.runs:
@@ -3312,7 +3359,7 @@ def check_tooling_and_experiments(torch, np, dev, bm, ph, on_disk, tmp, smi):
     k1, k2, k3 = ph.forward_launches, ph.backward_launches, bm.launches
     folders = _check_experiment_run(torch, np, spy, k1, k2, len(protocol.runs), EXP_STEPS,
                                     "experiment (d)")
-    missing = [f for f in folders for c in ("000003.ckpt", "000006.ckpt")
+    missing = [f for f in folders for c in ("000000.ckpt", f"{EXP_STEPS:06d}.ckpt")
                if not os.path.exists(os.path.join(f, c))]
     if missing:
         fail(f"experiment (d): checkpoints missing in {missing}")
@@ -3381,10 +3428,11 @@ def check_tooling_and_experiments(torch, np, dev, bm, ph, on_disk, tmp, smi):
     log(smi)
     log("tooling and experiments, seconds per command: " + ", ".join(
         f"{k} {v:.2f}" for k, v in seconds.items()))
-    log(f"experiment (d) train step, CUDA events between consecutive steps (checkpoint "
-        f"intervals left out), ResNet-34-8s 640x480 B=4: mean {np.mean(step_ms):.3f} ms over "
-        f"{len(step_ms)} steps ({', '.join(f'{x:.1f}' for x in step_ms)}); host seconds per "
-        f"step call {', '.join(f'{1e3 * s:.1f}' for tr, _ in spy.runs for s in tr.step_seconds)}"
+    log(f"experiment (d) train step, CUDA events between consecutive calls over their steps "
+        f"(checkpoint intervals left out), ResNet-34-8s 640x480 B=4: mean "
+        f"{np.mean(step_ms):.3f} ms over {len(step_ms)} calls "
+        f"({', '.join(f'{x:.1f}' for x in step_ms)}); host ms per call "
+        f"{', '.join(f'{1e3 * s:.1f}' for tr, _ in spy.runs for s in tr.step_seconds)}"
         f" ms; scoring seconds per network (evaluate_single_network, {len(pairs)} pairs x "
         f"{EXP_MATCHES} matches): {', '.join(f'{s:.3f}' for s in score_s)}")
     return {"k1": k1, "k2": k2, "k3": k3, "k1_disk": k1d, "k2_disk": k2d, "k3_disk": k3d,
@@ -3958,6 +4006,230 @@ def check_model_axes(torch, np, dev, bm, ph, frames_t, tmp, smi):
     return out
 
 
+# -- K steps per dispatch --------------------------------------------------------------
+
+# phase 18: one call of the scanned step (SCAN_K steps: one CUDA graph replayed
+# SCAN_K times) against SCAN_K eager DeviceSampledTrainStep calls from clones of the
+# same state and generator. The card's step is not bit-reproducible (F4), so the bar
+# is F4's spread read in the same call from two eager runs, as phase 16 (b) reads it
+# (AXIS_SPREAD_X times it, or the floors)
+SCAN_K = 10
+SCAN_SMO_MIX = {"SINGLE_OBJECT_WITHIN_SCENE": 0.5, "SINGLE_OBJECT_ACROSS_SCENE": 0,
+                "DIFFERENT_OBJECT": 0, "MULTI_OBJECT": 0, "SYNTHETIC_MULTI_OBJECT": 0.5}
+# (c): the trainer at the default steps_per_dispatch over two dispatches
+SCAN_DRIVER = {"num_iterations": 20, "steps_per_dispatch": 10, "save_rate": 10,
+               "logging_rate": 10, "compute_test_loss": False}
+SCAN_DP_K = 2  # (d): the data-parallel route's steps a call
+
+
+def scanned_launches(steps, captures=1, eval_batches=0):
+    """(K1, K2) launches of ``steps`` train steps on the device-sampler route:
+    2 each a step, 2 each a warm-up step of every capture (the WARMUP_STEPS
+    eager steps before a graph is captured, then undone), and K1 2 a
+    test-loss batch."""
+    from pdc_tpu_torch.training.scanned import WARMUP_STEPS
+
+    k2 = 2 * steps + 2 * WARMUP_STEPS * captures
+    return k2 + 2 * eval_batches, k2
+
+
+def _clone_generator(torch, gen):
+    out = torch.Generator(device=gen.device)
+    out.set_state(gen.get_state())
+    return out
+
+
+def _scan_case(torch, np, dev, ph, tc, ds, cache, what):
+    """(a)/(b) for the training config ``tc``: the graph's call against the
+    eager steps. Returns the case's numbers."""
+    import copy
+
+    from pdc_tpu_torch.data.assembler import AssemblerConfig
+    from pdc_tpu_torch.losses.pixelwise_contrastive import LossConfig
+    from pdc_tpu_torch.training.scanned import (
+        make_device_sampled_train_step,
+        make_scanned_train_step,
+    )
+
+    loss_cfg = LossConfig.from_dict(tc["loss_function"])
+    asm_cfg = AssemblerConfig.from_training_config(tc)
+    Wt, Bt = tc["dense_correspondence_network"]["image_width"], tc["training"]["batch_size"]
+    ds.set_parameters_from_training_config(tc)
+    probs = tuple(sorted(ds._data_type_probabilities.items()))
+    state = new_train_state(torch, tc)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    scan = make_scanned_train_step(tc, loss_cfg, asm_cfg, Wt, cache, Bt, SCAN_K,
+                                   type_probs=probs)
+    if not scan.graphed:
+        fail(f"scanned {what}: the step on the card is not graphed")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    scan.capture(state, gen)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t
+    clones = [(copy.deepcopy(state), _clone_generator(torch, gen)) for _ in range(2)]
+    eager = make_device_sampled_train_step(tc, loss_cfg, asm_cfg, Wt, cache, Bt, probs)
+    runs = []
+    for s, g in clones:
+        metrics, events, host = [], [], []
+        for _ in range(SCAN_K):
+            e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            e[0].record()
+            h = time.perf_counter()
+            metrics.append(eager(s, g)["loss"])
+            host.append(time.perf_counter() - h)
+            e[1].record()
+            events.append(e)
+        torch.cuda.synchronize()
+        runs.append({"losses": [float(x) for x in metrics], "state": s, "gen": g,
+                     "ms": [a.elapsed_time(b) for a, b in events],
+                     "host_ms": [1e3 * x for x in host]})
+    ph.forward_launches = ph.backward_launches = 0
+    e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    e[0].record()
+    h = time.perf_counter()
+    m = scan(state, gen)
+    host_ms = 1e3 * (time.perf_counter() - h)
+    e[1].record()
+    torch.cuda.synchronize()
+    launches = (ph.forward_launches, ph.backward_launches)
+    graph_ms = e[0].elapsed_time(e[1]) / SCAN_K
+    losses = [float(x) for x in m["loss"]]
+
+    def spread(losses_a, sa, losses_b, sb):
+        worst, rel = _param_spread(torch, sa.module, sb.module)
+        return worst, rel, max(abs(x - y) / abs(y) for x, y in zip(losses_a, losses_b))
+
+    f4 = spread(runs[1]["losses"], runs[1]["state"], runs[0]["losses"], runs[0]["state"])
+    got = spread(losses, state, runs[0]["losses"], runs[0]["state"])
+    same_gen = torch.equal(gen.get_state(), runs[0]["gen"].get_state())
+    shapes = {k: tuple(v.shape) for k, v in m.items()}
+    eager_ms = float(np.mean(runs[0]["ms"][1:]))
+    log(f"scanned {what}: capture {capture_s:.2f} s; one call of {SCAN_K} steps, losses "
+        f"{['%.6g' % x for x in losses]}; eager {['%.6g' % x for x in runs[0]['losses']]}; "
+        f"graph vs eager: parameters max|diff| {got[0]:.3g}, relative L2 {got[1]:.3g}, losses "
+        f"max relative {got[2]:.3g}; F4's spread (two eager runs): {f4[0]:.3g}, {f4[1]:.3g}, "
+        f"{f4[2]:.3g} (bar {AXIS_SPREAD_X} x the spread, floors {AXIS_PARAM_FLOOR} and "
+        f"{AXIS_LOSS_FLOOR}); generator as the eager run leaves it: {same_gen}; steps "
+        f"{state.step} and {runs[0]['state'].step}; metrics {shapes}; K1/K2 launches {launches} "
+        f"({2 * SCAN_K} each expected)")
+    log(f"scanned {what}: ms per step by CUDA events, eager {eager_ms:.3f} (steps 2-{SCAN_K}; "
+        f"{', '.join(f'{x:.1f}' for x in runs[0]['ms'])}) against the graph's {graph_ms:.3f} "
+        f"({graph_ms / eager_ms:.3f} x); host ms per call: eager "
+        f"{float(np.mean(runs[0]['host_ms'][1:])):.3f} a step, the graph {host_ms:.3f} a "
+        f"dispatch of {SCAN_K} steps")
+    if (launches != (2 * SCAN_K, 2 * SCAN_K) or not same_gen
+            or state.step != runs[0]["state"].step
+            or any(v != (SCAN_K,) for v in shapes.values())
+            or not all(np.isfinite(x) for x in losses)
+            or got[1] > max(AXIS_SPREAD_X * f4[1], AXIS_PARAM_FLOOR)
+            or got[2] > max(AXIS_SPREAD_X * f4[2], AXIS_LOSS_FLOOR)):
+        fail(f"scanned {what}: the graph's {SCAN_K} steps disagree with {SCAN_K} eager steps")
+    return {"capture_s": capture_s, "eager_ms": eager_ms, "graph_ms": graph_ms,
+            "host_ms": host_ms, "eager_host_ms": float(np.mean(runs[0]["host_ms"][1:])),
+            "launches": launches, "spread": got, "f4": f4}
+
+
+def check_scanned(torch, np, dev, bm, ph, tmp, smi):
+    """The phase "K steps per dispatch": (a)-(d) of the module docstring.
+    Returns the launches and timings."""
+    import copy
+
+    from pdc_tpu_torch.data.assembler import AssemblerConfig
+    from pdc_tpu_torch.data.dataset import SpartanDataset
+    from pdc_tpu_torch.data.device_cache import DeviceCache
+    from pdc_tpu_torch.losses.pixelwise_contrastive import LossConfig
+    from pdc_tpu_torch.parallel import distributed, make_mesh
+    from pdc_tpu_torch.training import train as train_mod
+    from pdc_tpu_torch.training.scanned import make_scanned_train_step
+    from pdc_tpu_torch.training.schedule import host_lr
+
+    out = {}
+    ds = SpartanDataset.make_synthetic(**DATASET_RECORD["synthetic"])
+    ds.set_parameters_from_training_config(TRAINING_CONFIG)
+    cache = DeviceCache.from_dataset(ds, device=dev)
+    # (a) fp32, (b) bf16 and a type-4 mix
+    bf16 = copy.deepcopy(TRAINING_CONFIG)
+    bf16["dense_correspondence_network"]["compute_dtype"] = "bfloat16"
+    smo = copy.deepcopy(TRAINING_CONFIG)
+    smo["training"]["data_type_probabilities"] = SCAN_SMO_MIX
+    for name, tc in (("fp32", TRAINING_CONFIG), ("bf16", bf16), ("type-4 mix", smo)):
+        out[name] = _scan_case(torch, np, dev, ph, tc, ds, cache, name)
+        torch.cuda.empty_cache()
+
+    # (c) the trainer on the default steps_per_dispatch: pdc_tpu's cadence
+    cfg = driver_config(tmp, "scanned", **SCAN_DRIVER)
+    ds.set_parameters_from_training_config(cfg)
+    trainer = train_mod.DenseCorrespondenceTraining(cfg, ds, device=dev)
+    called = []
+    ph.forward_launches = ph.backward_launches = 0
+    t = time.perf_counter()
+    folder = trainer.run(progress_callback=lambda it, m: called.append(it))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t
+    launches = (ph.forward_launches, ph.backward_launches)
+    n_iter, k = SCAN_DRIVER["num_iterations"], SCAN_DRIVER["steps_per_dispatch"]
+    tl = trainer._logging_dict["train"]
+    ckpts = sorted(f for f in os.listdir(folder) if f.endswith(".ckpt"))
+    want_ckpts = [f"{i:06d}.ckpt" for i in range(0, n_iter + 1, SCAN_DRIVER["save_rate"])]
+    lr_ok = tl["learning_rate"] == [host_lr(cfg, i) for i in range(1, n_iter + 1)]
+    log(f"scanned (c): DenseCorrespondenceTraining.run, {n_iter} iterations at "
+        f"steps_per_dispatch {k}: route {trainer.route!r}, callback at {called}, iterations "
+        f"logged {tl['iteration'][0]}..{tl['iteration'][-1]} ({len(tl['loss'])} losses, LRs as "
+        f"host_lr: {lr_ok}), checkpoints {ckpts}, host seconds a call "
+        f"{[round(x, 3) for x in trainer.step_seconds]}, whole run {run_s:.2f} s; K1/K2 "
+        f"launches {launches} ({scanned_launches(n_iter)} expected)")
+    if (trainer.route != train_mod.ROUTE_DEVICE_SAMPLER or called != list(range(k, n_iter + 1, k))
+            or tl["iteration"] != list(range(1, n_iter + 1)) or not lr_ok
+            or len(tl["loss"]) != n_iter or not all(np.isfinite(x) for x in tl["loss"])
+            or ckpts != want_ckpts or len(trainer.step_seconds) != n_iter // k
+            or launches != scanned_launches(n_iter)):
+        fail("scanned (c): the trainer did not keep pdc_tpu's cadence on the device sampler")
+    _, out["k3_err"] = check_reload(torch, np, bm, dev, folder, trainer,
+                                    ds.scenes["scene_000"], "scanned (c)")
+    out["driver"] = {"launches": launches, "run_s": run_s, "call_s": trainer.step_seconds}
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (d) the data-parallel route on a world of one over NCCL
+    distributed.ensure_initialized(coordinator_address="file://" + os.path.join(tmp, "store18"),
+                                   num_processes=1, process_id=0, device="cuda")
+    try:
+        mesh = make_mesh()
+        tc = TRAINING_CONFIG
+        ds.set_parameters_from_training_config(tc)
+        scan = make_scanned_train_step(
+            tc, LossConfig.from_dict(tc["loss_function"]),
+            AssemblerConfig.from_training_config(tc),
+            tc["dense_correspondence_network"]["image_width"], cache,
+            tc["training"]["batch_size"], SCAN_DP_K, mesh=mesh, type_probs=((0, 1.0),))
+        state = new_train_state(torch, tc)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+        ph.forward_launches = ph.backward_launches = 0
+        m = scan(state, gen)
+        torch.cuda.synchronize()
+        dp = (ph.forward_launches, ph.backward_launches)
+        log(f"scanned (d): the data-parallel route over NCCL (world of one): "
+            f"{'one CUDA graph' if scan.graphed else 'not captured: its K steps run eagerly in the one call'}"
+            f"; {SCAN_DP_K} steps, losses {[round(float(x), 6) for x in m['loss']]}, K1/K2 "
+            f"launches {dp}, recorded {scan.launches_per_dispatch}")
+        if (scan.graphed or dp != (2 * SCAN_DP_K,) * 2 or tuple(m["loss"].shape) != (SCAN_DP_K,)
+                or not bool(torch.isfinite(m["loss"]).all())):
+            fail("scanned (d): the data-parallel route failed")
+        out["dp"] = {"launches": dp, "graphed": scan.graphed}
+    finally:
+        distributed.shutdown()
+    log(smi)
+    for name in ("fp32", "bf16", "type-4 mix"):
+        c = out[name]
+        log(f"scanned {name} (ResNet-34-8s 640x480 B=4): eager {c['eager_ms']:.3f} ms a step, "
+            f"graph {c['graph_ms']:.3f} ms a step (CUDA events); host {c['eager_host_ms']:.3f} "
+            f"ms a step call against {c['host_ms']:.3f} ms a dispatch of {SCAN_K}; capture "
+            f"{c['capture_s']:.2f} s")
+    return out
+
+
 def flatten(tree, prefix=""):
     """{'a/b': leaf} of a nested dict."""
     out = {}
@@ -4331,6 +4603,12 @@ def main():
         axes = check_model_axes(torch, np, dev, bm, ph, frames_t, tree, smi)
         torch.cuda.empty_cache()
         phase("the model axes", t0)
+
+        # 18. K steps per dispatch: the scanned step's CUDA graph against eager steps
+        t0 = time.perf_counter()
+        scan18 = check_scanned(torch, np, dev, bm, ph, tree, smi)
+        torch.cuda.empty_cache()
+        phase("K steps per dispatch", t0)
     finally:
         shutil.rmtree(tree, ignore_errors=True)
 
@@ -4474,15 +4752,16 @@ def main():
     log("train step split (separate steps, CUDA events): " + ", ".join(
         f"{k} {v:.3f} ms ({100 * v / sum(split.values()):.1f}%)" for k, v in split.items()))
     # the driver's steps on each route, host clock, against make_train_step's
-    log(f"training driver, device sampler, {len(driver['step_ms'])} iterations: host ms per "
-        f"step call (no synchronisation; the queue fills) "
+    log(f"training driver, device sampler, {len(driver['step_ms'])} calls of "
+        f"{DRIVER_OVERRIDES['steps_per_dispatch']} steps: host ms per call (no "
+        f"synchronisation; the first captures the graph) "
         f"[{', '.join(f'{x:.1f}' for x in driver['step_ms'])}], whole run {driver['run_s']:.2f} s; "
         f"checkpoint writes (.ckpt {driver['sizes']['000006.ckpt'] / 1e6:.1f} MB + .ckpt.opt "
         f"{driver['sizes']['000006.ckpt.opt'] / 1e6:.1f} MB + the yaml files) "
         f"[{', '.join(f'{x:.0f}' for x in driver['save_ms'])}] ms")
     disk_ms, drv_ms = on_disk["step_ms"], driver["step_ms"]
     log(f"on-disk training ({on_disk['route']!r}, decoder {on_disk['decoder']}): host ms per "
-        f"step call [{', '.join(f'{x:.1f}' for x in disk_ms)}], steps 2-{len(disk_ms)} mean "
+        f"call [{', '.join(f'{x:.1f}' for x in disk_ms)}], calls 2-{len(disk_ms)} mean "
         f"{sum(disk_ms[1:]) / len(disk_ms[1:]):.1f} ms against the training driver's "
         f"{sum(drv_ms[1:]) / len(drv_ms[1:]):.1f} ms on the in-memory dataset; whole run "
         f"{on_disk['run_s']:.2f} s against {driver['run_s']:.2f} s; tree written in "
@@ -4511,8 +4790,8 @@ def main():
         f"{evaluation['phase_s']:.2f} s")
     for route, r in driver["routes"].items():
         mean_route = sum(r["step_ms"]) / len(r["step_ms"])
-        log(f"training driver route {route!r}, {ROUTE_STEPS} iterations: host wall clock per "
-            f"step (synchronised, steps 2-{ROUTE_STEPS}) "
+        log(f"training driver route {route!r}: host wall clock per step of the calls after the "
+            f"first (synchronised at each call's end; {ROUTE_STEPS} steps) "
             f"[{', '.join(f'{x:.2f}' for x in r['step_ms'])}] ms, mean {mean_route:.2f} ms = "
             f"{mean_route / mean_step:.3f} x make_train_step's {mean_step:.3f} ms of CUDA-event "
             f"step time; K1/K2 launches {r['launches']}")
@@ -4632,7 +4911,13 @@ def main():
                                         if isinstance(v, tuple)},
                                      **{f"model axes: {k}": v[0]
                                         for k, v in axes["launches"].items()
-                                        if isinstance(v, tuple)}},
+                                        if isinstance(v, tuple)},
+                                     "scanned": f"{scan18['fp32']['launches'][0]} in "
+                                                f"{SCAN_K} steps",
+                                     "scanned bf16": scan18["bf16"]["launches"][0],
+                                     "scanned type-4 mix": scan18["type-4 mix"]["launches"][0],
+                                     "scanned driver": scan18["driver"]["launches"][0],
+                                     "scanned data-parallel": scan18["dp"]["launches"][0]},
                 "max_abs_err": k1_err, "ms": k1_ms, "device_ms": k1_ms,
                 "wrapper_ms": k1_wrapper, "plain_ms": p1_ms, "bound_ms": b1_ms,
                 "bound_by": b1_by, "library_ms": None}
@@ -4653,7 +4938,13 @@ def main():
                                         if isinstance(v, tuple)},
                                      **{f"model axes: {k}": v[1]
                                         for k, v in axes["launches"].items()
-                                        if isinstance(v, tuple)}},
+                                        if isinstance(v, tuple)},
+                                     "scanned": f"{scan18['fp32']['launches'][1]} in "
+                                                f"{SCAN_K} steps",
+                                     "scanned bf16": scan18["bf16"]["launches"][1],
+                                     "scanned type-4 mix": scan18["type-4 mix"]["launches"][1],
+                                     "scanned driver": scan18["driver"]["launches"][1],
+                                     "scanned data-parallel": scan18["dp"]["launches"][1]},
                 "max_abs_err": k2_err, "ms": k2_ms, "device_ms": k2_ms,
                 "wrapper_ms": k2_wrapper, "plain_ms": p2_ms, "bound_ms": b2_ms,
                 "bound_by": b2_by, "library_ms": None}

@@ -747,20 +747,37 @@ int pdc_pooled_hinge_bwd(const float* da, const float* db, const float* mu, cons
   by_d(D, [&](auto maxd) {
     constexpr int MAXD = decltype(maxd)::value;
     nblk = walk_blocks<MAXD>(Nm);
+    // above the 48 KB default: pdc_pooled_hinge_prepare allowed it on this device
     const int smem = bwd_smem_floats<MAXD>() * (int)sizeof(float);
-    // above the 48 KB default: allowed per launch, on the current device
-    err = (int)cudaFuncSetAttribute(hinge_bwd<MAXD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    smem);
-    if (err) return;
     hinge_bwd<MAXD><<<dim3(nblk, B), kThreads, smem, s>>>(
         da, db, mu, mv, mvalid, pu, pv, pvalid, g_loss, gda, part_gdb, Nm, P, D, T, h);
   });
-  if (err) return err;
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   hinge_bwd_final<<<dim3((P + 31) / 32, B), kThreads, 0, s>>>(part_gdb, db, g_loss, gdb, P, D,
                                                               nblk);
   return (int)cudaGetLastError();
+}
+
+// Lets every template of hinge_bwd use the dynamic shared memory it launches
+// with (above the 48 KB default) on `device`. Called once per device before
+// the first launch there, so that no launch sets a function attribute: a
+// launch may be captured into a CUDA graph. Returns the first error, or 0.
+int pdc_pooled_hinge_prepare(int device) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  const int templates[] = {1, 2, 3, 4, 8, 16};  // by_d's MAXD values
+  int err = 0;
+  for (int D : templates) {
+    by_d(D, [&](auto maxd) {
+      constexpr int MAXD = decltype(maxd)::value;
+      if (!err)
+        err = (int)cudaFuncSetAttribute(hinge_bwd<MAXD>,
+                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                        bwd_smem_floats<MAXD>() * (int)sizeof(float));
+    });
+  }
+  return err;
 }
 
 // K2's scratch: the floats part_gdb needs for these shapes, B * nblk * D * P

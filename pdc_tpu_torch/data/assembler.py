@@ -68,7 +68,7 @@ from pdc_tpu_torch.ops.correspondence import (
     make_blind_non_matches_perm,
 )
 from pdc_tpu_torch.utils.constants import DEFAULT_IMAGE_MEAN, DEFAULT_IMAGE_STD
-from pdc_tpu_torch.utils.device import resolve_device
+from pdc_tpu_torch.utils.device import device_constant, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,8 +130,8 @@ def _to_device(x, device, dtype=None):
 
 
 def _normalize(rgb, cfg: AssemblerConfig):
-    mean = torch.tensor(cfg.image_mean, dtype=torch.float32, device=rgb.device)
-    std = torch.tensor(cfg.image_std, dtype=torch.float32, device=rgb.device)
+    mean = device_constant(cfg.image_mean, torch.float32, rgb.device)
+    std = device_constant(cfg.image_std, torch.float32, rgb.device)
     return (rgb.to(torch.float32) / 255.0 - mean) / std
 
 
@@ -202,7 +202,7 @@ def _blind_by_mask(match_type, mask_a, mask_b, matches_a, match_valid, nbl: int,
 
 
 def assemble_batch_matrix(batch: dict, cfg: AssemblerConfig, generator: torch.Generator,
-                          device="cuda"):
+                          device="cuda", composite_every_row: bool = False):
     """Assemble one batch of pairs on ``device`` for the matrix loss.
 
     :param batch: host (numpy) or device arrays with a leading batch axis B:
@@ -213,6 +213,8 @@ def assemble_batch_matrix(batch: dict, cfg: AssemblerConfig, generator: torch.Ge
         and with ``cfg.enable_synthetic_multi_object`` the second pairs
         (the same keys with ``_2``, no ``perm``)
     :param generator: every draw comes from it
+    :param composite_every_row: synthetic multi-object rows as the device
+        sampler makes them (:func:`_with_smo_rows`)
     :return: ``(img_a [B, H, W, 3] float32, img_b, MatrixSampleIndices)``
     """
     dev = resolve_device(device)
@@ -290,7 +292,7 @@ def assemble_batch_matrix(batch: dict, cfg: AssemblerConfig, generator: torch.Ge
     out = (_normalize(rgb_a, cfg), _normalize(rgb_b, cfg), indices)
     if cfg.enable_synthetic_multi_object:
         out = _with_smo_rows(out, batch, f, dev, cfg, g,
-                             assemble_synthetic_multi_object_sample_matrix)
+                             assemble_synthetic_multi_object_sample_matrix, composite_every_row)
     return out
 
 
@@ -325,7 +327,7 @@ def _per_pair_indices(matches_a, matches_b, match_valid, masked_uv, background_u
 
 
 def assemble_batch(batch: dict, cfg: AssemblerConfig, generator: torch.Generator,
-                   device="cuda"):
+                   device="cuda", composite_every_row: bool = False):
     """Assemble one batch of pairs on ``device`` for the per-pair loss.
 
     Stages 1-3 and 6 as :func:`assemble_batch_matrix`'s without
@@ -337,7 +339,8 @@ def assemble_batch(batch: dict, cfg: AssemblerConfig, generator: torch.Generator
     :func:`~pdc_tpu_torch.ops.correspondence.create_non_correspondences`;
     the match indices are replicated to each multiplicity.
 
-    :param batch: as :func:`assemble_batch_matrix`'s
+    :param batch: as :func:`assemble_batch_matrix`'s, and
+        ``composite_every_row``
     :return: ``(img_a [B, H, W, 3] float32, img_b, SampleIndices)``
     """
     dev = resolve_device(device)
@@ -368,7 +371,8 @@ def assemble_batch(batch: dict, cfg: AssemblerConfig, generator: torch.Generator
                                 *blind, match_type, W, cfg)
     out = (_normalize(rgb_a, cfg), _normalize(rgb_b, cfg), indices)
     if cfg.enable_synthetic_multi_object:
-        out = _with_smo_rows(out, batch, f, dev, cfg, g, assemble_synthetic_multi_object_sample)
+        out = _with_smo_rows(out, batch, f, dev, cfg, g, assemble_synthetic_multi_object_sample,
+                             composite_every_row)
     return out
 
 
@@ -468,14 +472,30 @@ def _put_rows(x, rows, new):
     return out
 
 
+def _select_rows(is_smo, x, new):
+    """``x`` with the rows where ``is_smo [B]`` is set taken from ``new``."""
+    return torch.where(is_smo.view((-1,) + (1,) * (x.dim() - 1)), new.to(x.dtype), x)
+
+
 def _with_smo_rows(out, batch: dict, f: dict, dev, cfg: AssemblerConfig, g: torch.Generator,
-                   assemble_smo):
+                   assemble_smo, every_row: bool):
     """The synthetic multi-object rows of an assembled batch ``out`` replaced
     by ``assemble_smo`` of their two pairs (``f`` and the batch's ``*_2``
-    arrays), computed for those rows only; ``match_type`` stays the
-    batch's."""
+    arrays); ``match_type`` stays the batch's. With ``every_row`` every row
+    is composited and the type-4 ones are selected
+    (``pdc_tpu/data/assembler.py:439-448``), with no host sync, so a CUDA
+    graph can capture it; otherwise only those rows are composited, found
+    with one host sync, and the draws that follow depend on how many there
+    are."""
     img_a, img_b, indices = out
-    rows = torch.nonzero(indices.match_type == MATCH_TYPE_SYNTHETIC_MULTI_OBJECT).flatten()
+    is_smo = indices.match_type == MATCH_TYPE_SYNTHETIC_MULTI_OBJECT
+    if every_row:
+        smo_a, smo_b, smo = assemble_smo(f, _frames(batch, dev, "_2"), cfg, g)
+        merged = type(indices)(*[
+            x if name == "match_type" else _select_rows(is_smo, x, y)
+            for name, x, y in zip(indices._fields, indices, smo)])
+        return _select_rows(is_smo, img_a, smo_a), _select_rows(is_smo, img_b, smo_b), merged
+    rows = torch.nonzero(is_smo).flatten()
     if rows.numel() == 0:
         return out
     second = _frames(batch, dev, "_2")

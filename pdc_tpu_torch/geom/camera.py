@@ -90,7 +90,9 @@ def unproject_to_camera(uv, z, K):
     z = torch.as_tensor(z, device=uv.device).to(torch.float32)
     K = torch.as_tensor(K, device=uv.device).to(torch.float32)
     uv1 = torch.cat([uv, torch.ones_like(uv[..., :1])], dim=-1)
-    rays = uv1 @ torch.linalg.inv(K).transpose(-1, -2)
+    # inv_ex: the inverse without the singularity check, whose host sync a
+    # CUDA graph cannot capture (as jnp.linalg.inv, it does not raise)
+    rays = uv1 @ torch.linalg.inv_ex(K)[0].transpose(-1, -2)
     return rays * z[..., None]
 
 

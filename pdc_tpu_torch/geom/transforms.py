@@ -108,7 +108,7 @@ def invert_se3(T):
         out = torch.zeros_like(T)
         out[..., :3, :3] = Rt
         out[..., :3, 3] = -(Rt @ t[..., None])[..., 0]
-        out[..., 3, 3] = 1.0
+        out[..., 3, 3].fill_(1.0)  # in place, no tensor made from host memory
         return out
     T = np.asarray(T)
     Rt = np.swapaxes(T[..., :3, :3], -1, -2)

@@ -221,12 +221,15 @@ def load_adam_state_from_flax(module: torch.nn.Module, optimizer: torch.optim.Ad
     if set(mu) != set(named) or set(nu) != set(named):
         raise ValueError("optimizer state does not match the module's parameters: "
                          f"{sorted(set(mu) ^ set(named))[:5]}")
+    # a capturable Adam keeps its counts on the parameters' device
+    on_device = bool(optimizer.defaults.get("capturable"))
     for name, p in named.items():
         if mu[name].shape != p.shape:
             raise ValueError(f"{name}: moment of shape {tuple(mu[name].shape)}, "
                              f"parameter {tuple(p.shape)}")
         optimizer.state[p] = {
-            "step": torch.tensor(float(count), dtype=torch.float32),
+            "step": torch.tensor(float(count), dtype=torch.float32,
+                                 device=p.device if on_device else None),
             "exp_avg": mu[name].to(device=p.device, dtype=p.dtype),
             "exp_avg_sq": nu[name].to(device=p.device, dtype=p.dtype),
         }

@@ -46,6 +46,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import math
 import threading
 from typing import Optional, Sequence
@@ -322,6 +323,15 @@ def _resize_weights(n_in: int, n_out: int, device) -> torch.Tensor:
     return (w / w.sum(dim=0, keepdim=True)).to(device)
 
 
+@functools.lru_cache(maxsize=None)
+def _resize_weights_as(n_in: int, n_out: int, device, dtype) -> torch.Tensor:
+    """:func:`_resize_weights` in ``dtype``, made once per shape and device
+    (a CUDA graph cannot capture the copy from host memory), usable by
+    autograd whatever mode made it first."""
+    with torch.inference_mode(False):
+        return _resize_weights(n_in, n_out, device).to(dtype)
+
+
 def resize_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """Bilinear resize of ``[B, C, h0, w0]`` to ``[B, C, h, w]``
     (``align_corners=False``), in ``x``'s dtype.
@@ -335,8 +345,8 @@ def resize_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     bfloat16 ulp on about a quarter of the outputs."""
     if x.dtype == torch.float32:
         return F.interpolate(x, size=(h, w), mode="bilinear", align_corners=False)
-    ww = _resize_weights(x.shape[-1], w, x.device).to(x.dtype)
-    wh = _resize_weights(x.shape[-2], h, x.device).to(x.dtype)
+    ww = _resize_weights_as(x.shape[-1], w, x.device, x.dtype)
+    wh = _resize_weights_as(x.shape[-2], h, x.device, x.dtype)
     return torch.matmul(wh.t(), torch.matmul(x, ww))
 
 

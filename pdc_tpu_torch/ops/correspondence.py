@@ -22,6 +22,7 @@ from pdc_tpu_torch.geom.camera import project_to_image, unproject_to_camera
 from pdc_tpu_torch.geom.transforms import invert_se3, transform_points
 from pdc_tpu_torch.ops import sampling
 from pdc_tpu_torch.utils.constants import DEPTH_IM_SCALE, OCCLUSION_MARGIN
+from pdc_tpu_torch.utils.device import device_constant
 
 
 def _depth_to_metres(depth):
@@ -150,7 +151,7 @@ def create_non_correspondences(uv_b_matches, image_shape, generator: torch.Gener
     noise = sampling.normal(batch + (N, M), generator, dev) * 10.0 + minimal
     out = cand + torch.where(too_close, noise, torch.zeros_like(noise))[..., None]
 
-    ub = torch.tensor([W - 1.0, H - 1.0], dtype=torch.float32, device=dev)
+    ub = device_constant((W - 1.0, H - 1.0), torch.float32, dev)
     out = torch.where(out > ub, out - ub, out)
     out = torch.where(out < 0.0, out + ub, out)
     return torch.minimum(torch.clamp(out, min=0.0), ub)

@@ -28,10 +28,16 @@ where ``0 * NaN`` or ``0 * inf`` reaches them (the kernels' header).
 
 On CPU tensors both passes run the plain version; on CUDA tensors they
 launch the kernels or raise. There is no fallback.
+
+The kernels may be captured into a CUDA graph, but only inside
+:func:`recording_launches`: a capture launches nothing, so the wrapper
+records each pass there, and whoever replays the graph adds what it
+recorded to the launch counts, once per replay (:func:`count_replays`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -42,9 +48,56 @@ from pdc_tpu_torch.ops import _build
 MAX_D = 16
 _MAX_BATCH = 65535
 
-# kernel launches on CUDA tensors (read by chip_smoke.py)
+# kernel launches on CUDA tensors, replays of captured launches included
+# (read by chip_smoke.py)
 forward_launches = 0
 backward_launches = 0
+# the passes recorded by recording_launches, or None outside it
+_recorded = None
+# devices on which pdc_pooled_hinge_prepare has run
+_prepared = set()
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Yields ``{"forward": n, "backward": n}``: the passes of the pooled
+    hinge made in the block, kernel launches or (on CPU tensors) plain
+    ones. A CUDA graph captures the kernels only inside this block; their
+    launches are then counted by :func:`count_replays` when the graph is
+    replayed, not at the capture."""
+    global _recorded
+    outer, _recorded = _recorded, {"forward": 0, "backward": 0}
+    try:
+        yield _recorded
+    finally:
+        _recorded = outer
+
+
+def count_replays(recorded: dict, replays: int = 1):
+    """Add the launches of a captured graph that :func:`recording_launches`
+    recorded, ``replays`` times, to the launch counts."""
+    global forward_launches, backward_launches
+    forward_launches += recorded["forward"] * replays
+    backward_launches += recorded["backward"] * replays
+
+
+def _record(kind: str):
+    if _recorded is not None:
+        _recorded[kind] += 1
+
+
+def _count_launch(kind: str):
+    """Count one kernel launch of ``kind``; a capture only records it."""
+    global forward_launches, backward_launches
+    _record(kind)
+    if torch.cuda.is_current_stream_capturing():
+        if _recorded is None:
+            raise RuntimeError("the pooled hinge was captured into a CUDA graph outside "
+                               "recording_launches(): its replays would go uncounted")
+    elif kind == "forward":
+        forward_launches += 1
+    else:
+        backward_launches += 1
 
 
 def _tables(da, db, mu, mv, mvalid, pu, pv, pvalid, M, use_pix, M_pixel):
@@ -123,11 +176,23 @@ def _check(da, db, mu, mv, mvalid, pu, pv, pvalid):
         raise ValueError(f"pooled_hinge runs on cpu or cuda tensors, not {da.device}")
 
 
+def _prepared_for(lib, device: torch.device):
+    """``lib``, with ``hinge_bwd``'s shared memory allowed on ``device``:
+    once a device, at its first launch, which is never a capture (a graph
+    is captured after eager warm-up steps)."""
+    if device.index not in _prepared:
+        _raise_on(lib, lib.pdc_pooled_hinge_prepare(device.index), "prepare")
+        _prepared.add(device.index)
+    return lib
+
+
 @functools.cache
 def _library():
     """The kernels' library, built on first use, with its C signatures."""
     lib = _build.load("pooled_hinge")
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.pdc_pooled_hinge_prepare.argtypes = [i]
+    lib.pdc_pooled_hinge_prepare.restype = i
     lib.pdc_pooled_hinge_fwd.argtypes = [vp] * 12 + [i, i, i, i, f, i, f, i, vp]
     lib.pdc_pooled_hinge_fwd.restype = i
     lib.pdc_pooled_hinge_bwd.argtypes = [vp] * 12 + [i, i, i, i, f, i, f, i, vp]
@@ -145,16 +210,15 @@ def _library():
 
 def _raise_on(lib, err, which):
     if err != 0:
-        raise RuntimeError(f"pooled_hinge {which} kernel launch failed: "
+        raise RuntimeError(f"pooled_hinge {which} failed: "
                            f"{lib.pdc_error_string(err).decode()} (cudaError {err})")
 
 
 def _forward_kernel(da, db, mu, mv, mvalid, pu, pv, pvalid, M, use_pix, M_pixel):
-    global forward_launches
     B, Nm, D = da.shape
     P = db.shape[1]
     dev = da.device
-    lib = _library()
+    lib = _prepared_for(_library(), dev)
     n_part = lib.pdc_pooled_hinge_fwd_partials(B, Nm, D)
     part_loss = torch.empty((n_part,), dtype=torch.float32, device=dev)
     part_hard = torch.empty((n_part,), dtype=torch.int32, device=dev)
@@ -166,17 +230,16 @@ def _forward_kernel(da, db, mu, mv, mvalid, pu, pv, pvalid, M, use_pix, M_pixel)
         pu.data_ptr(), pv.data_ptr(), pvalid.data_ptr(), part_loss.data_ptr(),
         part_hard.data_ptr(), loss.data_ptr(), hard.data_ptr(),
         B, Nm, P, D, M, int(use_pix), M_pixel, dev.index, stream)
-    _raise_on(lib, err, "forward")
-    forward_launches += 1
+    _raise_on(lib, err, "forward kernel launch")
+    _count_launch("forward")
     return loss, hard
 
 
 def _backward_kernel(g_loss, da, db, mu, mv, mvalid, pu, pv, pvalid, M, use_pix, M_pixel):
-    global backward_launches
     B, Nm, D = da.shape
     P = db.shape[1]
     dev = da.device
-    lib = _library()
+    lib = _prepared_for(_library(), dev)
     part_gdb = torch.empty((lib.pdc_pooled_hinge_bwd_partials(B, Nm, P, D),),
                            dtype=torch.float32, device=dev)
     gda = torch.empty_like(da)
@@ -187,8 +250,8 @@ def _backward_kernel(g_loss, da, db, mu, mv, mvalid, pu, pv, pvalid, M, use_pix,
         pu.data_ptr(), pv.data_ptr(), pvalid.data_ptr(), g_loss.data_ptr(),
         part_gdb.data_ptr(), gda.data_ptr(), gdb.data_ptr(),
         B, Nm, P, D, M, int(use_pix), M_pixel, dev.index, stream)
-    _raise_on(lib, err, "backward")
-    backward_launches += 1
+    _raise_on(lib, err, "backward kernel launch")
+    _count_launch("backward")
     return gda, gdb
 
 
@@ -204,6 +267,7 @@ class _PooledHinge(torch.autograd.Function):
             loss = da.new_zeros(da.shape[0])
             hard = torch.zeros(da.shape[0], dtype=torch.int64, device=da.device)
         elif da.device.type == "cpu":
+            _record("forward")
             loss, hard = pooled_hinge_reference(da, db, mu, mv, mvalid, pu, pv, pvalid,
                                                 M, use_pix, M_pixel)
         else:
@@ -220,6 +284,7 @@ class _PooledHinge(torch.autograd.Function):
         if da.shape[1] == 0 or db.shape[1] == 0:
             gda, gdb = torch.zeros_like(da), torch.zeros_like(db)
         elif da.device.type == "cpu":
+            _record("backward")
             gda, gdb = pooled_hinge_backward_reference(g_loss, da, db, mu, mv, mvalid,
                                                        pu, pv, pvalid, M, use_pix, M_pixel)
         else:

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from pdc_tpu_torch.utils.device import device_constant
+
 
 def uniform(shape, generator: torch.Generator, device=None, dtype=torch.float32):
     """Uniform draws in [0, 1) from ``generator`` (made on the generator's
@@ -64,7 +66,7 @@ def sample_uniform_pixels(width: int, height: int, num_samples: int,
     """Pixels uniform over the whole image, ``floor(U * (W, H))``:
     ``[*batch_shape, S, 2]`` int64 (u, v)."""
     u = uniform(tuple(batch_shape) + (num_samples, 2), generator, device)
-    scale = torch.tensor([width, height], dtype=torch.float32, device=u.device)
+    scale = device_constant((width, height), torch.float32, u.device)
     return torch.floor(u * scale).to(torch.int64)
 
 
@@ -73,13 +75,21 @@ def perm_gather(perm, lo, hi, u):
     from ``perm[..., lo:hi]`` for float64 uniforms ``u [..., S]``.
     ``lo``/``hi`` are ints or ``[...]`` tensors. Returns ``(idx [..., S]
     int64, valid [...] = hi > lo)``."""
-    lo = torch.as_tensor(lo, device=perm.device).to(torch.int64)
-    hi = torch.as_tensor(hi, device=perm.device).to(torch.int64)
+    lo, hi = _index(lo, perm.device), _index(hi, perm.device)
     n = torch.clamp(hi - lo, min=1)
     r = torch.floor(u.to(torch.float64) * n[..., None].to(torch.float64)).to(torch.int64)
     r = lo[..., None] + torch.minimum(r, n[..., None] - 1)
     r = r.expand(perm.shape[:-1] + r.shape[-1:])
     return torch.gather(perm.to(torch.int64), -1, r), hi > lo
+
+
+def _index(x, device) -> torch.Tensor:
+    """An int or a tensor as int64 on ``device``; an int is filled in
+    there, with no copy from host memory (which a CUDA graph cannot
+    capture)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.int64)
+    return torch.full((), int(x), dtype=torch.int64, device=device)
 
 
 def sample_flat_from_perm(perm, lo, hi, num_samples: int, generator: torch.Generator):

@@ -1,4 +1,5 @@
-"""Pair sampling on the device, over the frames of a device cache.
+"""Pair sampling on the device, over the frames of a device cache, and K
+train steps per call.
 
 Port of the type-mixed sampler of :mod:`pdc_tpu.training.scanned`:
 ``POSE_*`` and ``NUM_POSE_CANDIDATES`` (:37-39), ``build_sampling_tables``
@@ -7,8 +8,8 @@ Port of the type-mixed sampler of :mod:`pdc_tpu.training.scanned`:
 ``torch.Generator`` on the cache's device. Within-scene pairs take frame a
 uniformly in a uniform scene and frame b as the first of 16 candidates of
 that scene whose pose differs from a's by more than 0.2 m or 20 degrees
-(the empty pair, type -1, when none does). The JAX package's within-scene
-sampler ``device_sample_pairs`` (:322) is this sampler's type-0 case.
+(the empty pair, type -1, when none does). ``device_sample_pairs`` (:322)
+is this sampler's type-0 case.
 
 The bounded samplers ``device_sample_pairs_bounded`` (:189) and
 ``device_sample_pairs_mixed_bounded`` (:218) draw from one rank's
@@ -16,13 +17,19 @@ zero-padded tables of a
 :class:`~pdc_tpu_torch.data.device_cache.ShardedDeviceCache`, and
 :func:`make_sharded_cache_train_step` (:359) trains over such a cache.
 
-What is not ported: the ``lax.scan`` loop of ``make_scanned_train_step``
-(:517), K train steps per dispatch, which exists for the dispatch latency
-of a remote TPU runtime. Here :func:`make_device_sampled_train_step` takes
-one step per call: sample, gather, assemble, update, all on the device.
-The training config's ``steps_per_dispatch`` only selects this route
-(:class:`~pdc_tpu_torch.training.train.DenseCorrespondenceTraining`).
-Its ``mesh``/``fsdp`` semantics (:570-700) are ported: with a mesh each
+:func:`make_scanned_train_step` (:517) takes ``steps_per_dispatch`` (K)
+train steps per call, as the JAX package's ``lax.scan`` does, and returns
+their metrics as ``[K]`` tensors (:class:`ScannedTrainStep`). One step is
+:class:`DeviceSampledTrainStep`: sample, gather, assemble, forward, the
+pooled hinge (K1), backward (K2) and Adam, all on the device with no host
+sync. On a card the first call captures that step into one CUDA graph,
+after eager warm-up steps whose effects it undoes, and every call replays
+the graph K times. Adam is then the capturable one (:func:`to_capturable`),
+its LR read from :func:`~pdc_tpu_torch.training.schedule.make_lr_schedule`
+of a device count. On the CPU, and with a mesh, a call runs the K steps
+eagerly: the collectives of a process group are not captured.
+
+The ``mesh``/``fsdp`` semantics (:570-700) are ported: with a mesh each
 rank samples its own ``batch_size`` pairs (from a generator seeded per
 rank, :func:`~pdc_tpu_torch.parallel.sharded_train.rank_seed`), runs its
 own BatchNorm, and the gradients (reduce-scattered under ``fsdp``), the
@@ -33,6 +40,8 @@ Adam step (:func:`~pdc_tpu_torch.parallel.sharded_train.data_parallel_update`).
 from __future__ import annotations
 
 import dataclasses
+import logging
+from typing import Optional
 
 import numpy as np
 import torch
@@ -43,14 +52,23 @@ from pdc_tpu_torch.losses.composer import (
     MATCH_TYPE_SINGLE_OBJECT_WITHIN_SCENE,
     MATCH_TYPE_SYNTHETIC_MULTI_OBJECT,
 )
+from pdc_tpu_torch.ops.pooled_hinge import count_replays, recording_launches
 from pdc_tpu_torch.parallel.sharded_train import data_parallel_update
 from pdc_tpu_torch.parallel.tensor_parallel import to_fsdp_state
-from pdc_tpu_torch.training.train import TrainState, TrainStep
+from pdc_tpu_torch.training.schedule import make_lr_schedule
+from pdc_tpu_torch.training.train import TrainState, TrainStep, build_loss_fn, make_optimizer
+from pdc_tpu_torch.utils.device import device_constant
+
+logger = logging.getLogger(__name__)
 
 POSE_DIST_THRESHOLD = 0.2     # metres (reference threshold)
 POSE_ANGLE_THRESHOLD = 20.0   # degrees
 NUM_POSE_CANDIDATES = 16      # rejection-sampling candidates per pair
 SAMPLED_TYPES = (0, 1, 2, 4)  # the types this sampler draws
+# eager steps before a CUDA graph is captured (cuDNN's and the allocator's
+# first calls, Adam's state, the library's preparation); their effects on
+# the state and the generator are undone before the capture
+WARMUP_STEPS = 1
 
 
 def build_sampling_tables(cache) -> dict:
@@ -89,8 +107,13 @@ def draw_below(u: torch.Tensor, n) -> torch.Tensor:
     """Integers uniform in ``[0, n)`` from float64 uniforms ``u`` in
     ``[0, 1)``: ``floor(u * n)``, clamped to ``n - 1`` because the product
     can round up to ``n``. ``n`` is an int or a tensor broadcast against
-    ``u`` (a bound per row); a bound below 1 is taken as 1."""
-    n = torch.clamp(torch.as_tensor(n, device=u.device).to(torch.int64), min=1)
+    ``u`` (a bound per row); a bound below 1 is taken as 1. An int bound
+    makes no tensor (no copy from host memory, which a CUDA graph cannot
+    capture)."""
+    if not isinstance(n, torch.Tensor):
+        n = max(int(n), 1)
+        return torch.clamp(torch.floor(u * float(n)).to(torch.int64), max=n - 1)
+    n = torch.clamp(n.to(device=u.device, dtype=torch.int64), min=1)
     r = torch.floor(u * n.to(torch.float64)).to(torch.int64)
     return torch.minimum(r, n - 1)
 
@@ -153,11 +176,7 @@ def device_sample_pairs_mixed(generator: torch.Generator, tables: dict, poses: t
     u = {k: uniform() for k in (0, 1, 2, 3, 4, 5, 6, 7, 9)}
     u_cand = {k: uniform(K) for k in (3, 8, 10)}
 
-    types = torch.as_tensor([t for t, _ in type_probs], dtype=torch.int64, device=dev)
-    cdf = torch.cumsum(torch.as_tensor([p for _, p in type_probs], dtype=torch.float64,
-                                       device=dev), 0)
-    pick = torch.searchsorted(cdf, (u[0] * cdf[-1])[:, None], right=True)[:, 0]
-    mt = types[torch.clamp(pick, max=len(type_probs) - 1)]
+    mt = _draw_types(u[0], type_probs, dev)
 
     def frame_in_scene(uf, s):
         return _frame_in_scene(offsets, lengths, s, uf)
@@ -208,6 +227,33 @@ def device_sample_pairs_mixed(generator: torch.Generator, tables: dict, poses: t
         mt_out = torch.where(is_smo & ~(ok_m1 & ok_2), -1, mt_out)
     is_pair2 = mt_out == MATCH_TYPE_SYNTHETIC_MULTI_OBJECT
     return (fa, fb, torch.where(is_pair2, fa2, fa), torch.where(is_pair2, fb2, fb), mt_out)
+
+
+def _draw_types(u, type_probs, dev):
+    """Each row's match type from its uniform ``u``, by the mix's CDF (its
+    tables of types and probabilities made once a device)."""
+    types = device_constant([t for t, _ in type_probs], torch.int64, dev)
+    cdf = torch.cumsum(device_constant([p for _, p in type_probs], torch.float64, dev), 0)
+    pick = torch.searchsorted(cdf, (u * cdf[-1])[:, None], right=True)[:, 0]
+    return types[torch.clamp(pick, max=len(type_probs) - 1)]
+
+
+def device_sample_pairs(generator: torch.Generator, scene_offsets, scene_lengths,
+                        poses: torch.Tensor, batch_size: int):
+    """Within-scene pairs, the type-0 case of :func:`device_sample_pairs_mixed`
+    (the same draws): ``(frame_a [B], frame_b [B], match_type [B])`` int64,
+    the type 0, or -1 where no candidate's pose differs enough.
+
+    :param scene_offsets, scene_lengths: ``[S]`` int64 first frame and frame
+        count of each scene, on the generator's device
+    """
+    S = scene_offsets.shape[0]
+    dev = scene_offsets.device
+    tables = {"scene_offsets": scene_offsets, "scene_lengths": scene_lengths,
+              "scenes_by_object": torch.arange(S, device=dev)[None],
+              "scenes_per_object": torch.full((1,), S, dtype=torch.int64, device=dev)}
+    return device_sample_pairs_mixed(generator, tables, poses, batch_size,
+                                     ((MATCH_TYPE_SINGLE_OBJECT_WITHIN_SCENE, 1.0),))
 
 
 def _frame_in_scene(offsets, lengths, s, uf):
@@ -278,11 +324,7 @@ def device_sample_pairs_mixed_bounded(generator: torch.Generator, offsets, lengt
 
     u = {k: uniform() for k in (0, 1, 2, 3, 4, 5, 6, 7, 9)}
     u_cand = {k: uniform(K) for k in (3, 8, 10)}
-    types = torch.as_tensor([t for t, _ in type_probs], dtype=torch.int64, device=dev)
-    cdf = torch.cumsum(torch.as_tensor([p for _, p in type_probs], dtype=torch.float64,
-                                       device=dev), 0)
-    pick = torch.searchsorted(cdf, (u[0] * cdf[-1])[:, None], right=True)[:, 0]
-    mt = types[torch.clamp(pick, max=len(type_probs) - 1)]
+    mt = _draw_types(u[0], type_probs, dev)
     if int(num_obj) < 2:  # different-object needs two objects on this rank
         mt = torch.where(mt == MATCH_TYPE_DIFFERENT_OBJECT, 0, mt)
 
@@ -349,7 +391,13 @@ class DeviceSampledTrainStep(_DataParallelStep):
     gathered from the cache, then
     :class:`~pdc_tpu_torch.training.train.TrainStep`'s assembly and update
     (the data-parallel update with a mesh); every draw from ``generator``,
-    which lives on the cache's device."""
+    which lives on the cache's device. Synthetic multi-object rows are
+    composited in every row and selected (the assembly's
+    ``composite_every_row``), so nothing in the step waits on the host.
+
+    With a capturable Adam (:func:`to_capturable`) the update is
+    :meth:`device_update`, whose LR is the schedule of a device count; that
+    is the form a CUDA graph captures (:class:`ScannedTrainStep`)."""
 
     def __init__(self, *args, cache, batch_size: int, type_probs, **kwargs):
         super().__init__(*args, **kwargs)
@@ -365,6 +413,9 @@ class DeviceSampledTrainStep(_DataParallelStep):
         self.tables = build_sampling_tables(cache)
         self.poses = torch.as_tensor(cache.poses, dtype=torch.float32, device=cache.device)
         self.Ks = torch.as_tensor(cache.Ks, dtype=torch.float32, device=cache.device)
+        self.lr_schedule = make_lr_schedule(self.training_config)
+        # the schedule's count on the device, read by device_update
+        self.count = torch.zeros((), dtype=torch.int64, device=cache.device)
 
     def sample(self, generator: torch.Generator) -> dict:
         """One batch of pairs: frame indices, poses and intrinsics on the
@@ -381,9 +432,43 @@ class DeviceSampledTrainStep(_DataParallelStep):
                           "K" + sfx: self.Ks[fa]})
         return index
 
+    def update(self, state: TrainState, img_a, img_b, indices):
+        if self.mesh is not None or not _is_capturable(state.optimizer):
+            return super().update(state, img_a, img_b, indices)
+        self.count.fill_(state.step - state.schedule_start)
+        metrics = self.device_update(state, img_a, img_b, indices)
+        state.step += 1
+        return metrics
+
+    def device_update(self, state: TrainState, img_a, img_b, indices):
+        """One update with a capturable Adam that reads and writes only the
+        device: forward, backward, the LR of :attr:`count` written into
+        Adam's LR tensor, Adam's step, and the count advanced. The
+        gradients stay allocated (zeroed, not set to None); the host count
+        ``state.step`` is the caller's to advance."""
+        optimizer = state.optimizer
+        loss_fn = build_loss_fn(state.module, self.loss_cfg, self.image_width, self.compose)
+        optimizer.zero_grad(set_to_none=False)
+        loss, metrics = loss_fn(img_a, img_b, indices)
+        loss.backward()
+        lr = self.lr_schedule(self.count)
+        for group in optimizer.param_groups:
+            group["lr"].copy_(lr)
+        optimizer.step()
+        self.count += 1
+        return metrics
+
+    def sampled_update(self, state: TrainState, generator: torch.Generator):
+        """Sample, gather, assemble and :meth:`device_update`: the step that
+        :class:`ScannedTrainStep` captures."""
+        batch = self.cache.gather(self.sample(generator))
+        return self.device_update(
+            state, *self.assemble(state, batch, generator, composite_every_row=True))
+
     def __call__(self, state: TrainState, generator: torch.Generator):
         batch = self.cache.gather(self.sample(generator))
-        return self.update(state, *self.assemble(state, batch, generator))
+        return self.update(state,
+                           *self.assemble(state, batch, generator, composite_every_row=True))
 
 
 def make_device_sampled_train_step(training_config: dict, loss_cfg, assembler_cfg,
@@ -399,6 +484,166 @@ def make_device_sampled_train_step(training_config: dict, loss_cfg, assembler_cf
     return DeviceSampledTrainStep(training_config, loss_cfg, assembler_cfg, image_width,
                                   cache=cache, batch_size=batch_size, type_probs=type_probs,
                                   mesh=mesh, data_axis=data_axis, fsdp=fsdp)
+
+
+def _is_capturable(optimizer) -> bool:
+    return bool(optimizer.defaults.get("capturable"))
+
+
+def to_capturable(state: TrainState, training_config: dict):
+    """Switch ``state`` to a capturable Adam (:func:`make_optimizer` with
+    ``capturable=True``) holding the same moments, its step counts moved
+    to the parameters' device; the parameters are not touched."""
+    old = state.optimizer
+    if _is_capturable(old):
+        return
+    params = list(state.module.parameters())
+    new = make_optimizer(training_config, params, capturable=True)
+    for p in params:
+        st = old.state.get(p)
+        if st:
+            new.state[p] = dict(st, step=torch.tensor(float(st["step"]), dtype=torch.float32,
+                                                      device=p.device))
+    state.optimizer = new
+
+
+def _state_tensors(state: TrainState):
+    """Every tensor a captured step reads or writes in place: the module's
+    parameters, gradients and buffers, Adam's state and its LR tensor."""
+    params = list(state.module.parameters())
+    out = params + [p.grad for p in params if p.grad is not None]
+    out += list(state.module.buffers())
+    out += [t for st in state.optimizer.state.values() for t in st.values()
+            if isinstance(t, torch.Tensor)]
+    return out + [g["lr"] for g in state.optimizer.param_groups]
+
+
+def _binding(state: TrainState, generator: torch.Generator):
+    """What a captured graph is bound to: the state's objects and the
+    addresses of its tensors."""
+    return (id(state.module), id(state.optimizer), id(generator),
+            tuple(t.data_ptr() for t in _state_tensors(state)))
+
+
+class ScannedTrainStep:
+    """``step(state, generator) -> metrics``: ``steps_per_dispatch`` (K)
+    calls of ``step`` (a :class:`DeviceSampledTrainStep`) per call, as the
+    JAX package's scanned step; the metrics as ``[K]`` float32 tensors on
+    the device, ``state.step`` advanced by K and ``generator`` as K calls
+    leave it.
+
+    Whether a call replays a CUDA graph is decided here, once: on a card
+    without a mesh (:attr:`graphed`). The first call then switches the
+    state to a capturable Adam (:func:`to_capturable`), runs
+    :data:`WARMUP_STEPS` eager steps on a side stream and undoes them
+    (state and generator restored in place), and captures one
+    :meth:`DeviceSampledTrainStep.sampled_update` into a
+    ``torch.cuda.CUDAGraph`` with the generator registered; every call
+    replays it K times, each replay writing its metrics into slot k of
+    ``[K]`` buffers through a device counter. A call on another state, or
+    on a state whose tensors were replaced, captures anew. A capture that
+    fails raises. Otherwise (the CPU, a mesh) a call runs the K steps
+    eagerly. :attr:`launches_per_dispatch` gives the pooled hinge's
+    launches of a call, recorded at the capture (replays count them) or in
+    the eager call."""
+
+    def __init__(self, step: DeviceSampledTrainStep, steps_per_dispatch: int):
+        if steps_per_dispatch < 1:
+            raise ValueError(f"steps_per_dispatch must be at least 1, got {steps_per_dispatch}")
+        self.step = step
+        self.steps_per_dispatch = int(steps_per_dispatch)
+        self.graphed = step.cache.device.type == "cuda" and step.mesh is None
+        self.launches_per_dispatch: Optional[dict] = None
+        self._graph = None
+        logger.info("%d train steps a call, %s", self.steps_per_dispatch,
+                    "one CUDA graph replayed" if self.graphed else
+                    "run eagerly (collectives over a process group are not captured)"
+                    if step.mesh is not None else "run eagerly on the CPU")
+
+    def __call__(self, state: TrainState, generator: torch.Generator) -> dict:
+        if self.graphed:
+            return self._replay(state, generator)
+        with recording_launches() as recorded:
+            metrics = [self.step(state, generator) for _ in range(self.steps_per_dispatch)]
+        self.launches_per_dispatch = dict(recorded)
+        return {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
+
+    def _replay(self, state: TrainState, generator: torch.Generator) -> dict:
+        step, k = self.step, self.steps_per_dispatch
+        if self._graph is None or self._bound != _binding(state, generator):
+            self.capture(state, generator)
+        step.count.fill_(state.step - state.schedule_start)
+        self._slot.zero_()
+        for _ in range(k):
+            self._graph.replay()
+        count_replays(self._recorded, k)
+        state.step += k
+        return {name: buf.clone() for name, buf in self._metrics.items()}
+
+    def capture(self, state: TrainState, generator: torch.Generator):
+        """Capture the graph for ``state`` and ``generator`` (the first call
+        does it if nothing was captured for them); leaves both as they
+        were, but for the capturable Adam."""
+        if not self.graphed:
+            raise RuntimeError("this scanned step runs eagerly: nothing to capture")
+        step, k = self.step, self.steps_per_dispatch
+        dev = step.cache.device
+        self._graph = None  # the previous graph, and the generator's registration with it
+        to_capturable(state, step.training_config)
+        saved_generator = generator.get_state()
+        had_state = {id(p) for p in state.optimizer.state}
+        saved = [(t, t.detach().clone()) for t in _state_tensors(state)]
+        step.count.fill_(state.step - state.schedule_start)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_STEPS):
+                metrics = step.sampled_update(state, generator)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        # undo the warm-up: the saved tensors in place; Adam's state that the
+        # warm-up created is zeros at step 0, as Adam makes it
+        with torch.no_grad():
+            for t, value in saved:
+                t.copy_(value)
+            for p, st in state.optimizer.state.items():
+                if id(p) not in had_state:
+                    for t in st.values():
+                        t.zero_()
+        generator.set_state(saved_generator)
+        self._metrics = {name: torch.zeros(k, dtype=torch.float32, device=dev)
+                         for name in metrics}
+        self._slot = torch.zeros(1, dtype=torch.int64, device=dev)
+        # the gradients are allocated by the captured backward, in the graph's pool
+        state.optimizer.zero_grad(set_to_none=True)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(generator)
+        with recording_launches() as recorded, torch.cuda.graph(graph):
+            metrics = step.sampled_update(state, generator)
+            for name, value in metrics.items():
+                self._metrics[name].index_copy_(0, self._slot, value.reshape(1).float())
+            self._slot += 1
+        self._graph, self._recorded = graph, dict(recorded)
+        self._bound = _binding(state, generator)
+        self.launches_per_dispatch = {kind: n * k for kind, n in recorded.items()}
+        logger.info("captured the train step into a CUDA graph: pooled hinge %s per step",
+                    self._recorded)
+
+
+def make_scanned_train_step(training_config: dict, loss_cfg, assembler_cfg, image_width: int,
+                            cache, batch_size: int, steps_per_dispatch: int, mesh=None,
+                            data_axis: str = "data", type_probs=None,
+                            fsdp: bool = False) -> ScannedTrainStep:
+    """``step(state, generator) -> metrics dict of [K] tensors``: K =
+    ``steps_per_dispatch`` device-sampled train steps a call
+    (:class:`ScannedTrainStep` over :class:`DeviceSampledTrainStep`), as
+    ``pdc_tpu/training/scanned.py:517`` builds them. ``type_probs`` over {0,
+    1, 2, 4} (default within-scene only); ``mesh`` and ``fsdp`` as in
+    :func:`make_device_sampled_train_step`."""
+    step = make_device_sampled_train_step(
+        training_config, loss_cfg, assembler_cfg, image_width, cache, batch_size,
+        type_probs or ((MATCH_TYPE_SINGLE_OBJECT_WITHIN_SCENE, 1.0),), mesh=mesh,
+        data_axis=data_axis, fsdp=fsdp)
+    return ScannedTrainStep(step, steps_per_dispatch)
 
 
 class ShardedCacheTrainStep(_DataParallelStep):
@@ -438,17 +683,24 @@ class ShardedCacheTrainStep(_DataParallelStep):
 
     def __call__(self, state: TrainState, generator: torch.Generator):
         batch = self.cache.gather(self.sample(generator))
-        return self.update(state, *self.assemble(state, batch, generator))
+        return self.update(state,
+                           *self.assemble(state, batch, generator, composite_every_row=True))
 
 
 def make_sharded_cache_train_step(training_config: dict, loss_cfg, assembler_cfg,
                                   image_width: int, cache, batch_size: int,
-                                  type_probs=None, fsdp: bool = False) -> ShardedCacheTrainStep:
+                                  type_probs=None, fsdp: bool = False,
+                                  steps_per_dispatch: Optional[int] = None):
     """Data-parallel training over a sharded cache; see
     :class:`ShardedCacheTrainStep`. ``type_probs`` over {0, 1, 2, 4}
     (default within-scene only; build the cache ``by_object`` for the other
     types); ``fsdp`` adds ZeRO storage of the state, so each rank holds 1/n
-    of the frames and 1/n of the state."""
-    return ShardedCacheTrainStep(training_config, loss_cfg, assembler_cfg, image_width,
+    of the frames and 1/n of the state. With ``steps_per_dispatch`` K, a
+    call takes K steps and returns ``[K]`` metrics, as
+    ``pdc_tpu/training/scanned.py:359`` does (:class:`ScannedTrainStep`;
+    eagerly, since its collectives are not captured); without it, one
+    step."""
+    step = ShardedCacheTrainStep(training_config, loss_cfg, assembler_cfg, image_width,
                                  cache=cache, batch_size=batch_size, type_probs=type_probs,
                                  fsdp=fsdp)
+    return step if steps_per_dispatch is None else ScannedTrainStep(step, steps_per_dispatch)

@@ -96,12 +96,19 @@ class TrainState:
     tp: Optional[object] = None
 
 
-def make_optimizer(training_config: dict, params) -> torch.optim.Adam:
+def make_optimizer(training_config: dict, params, capturable: bool = False) -> torch.optim.Adam:
     """Adam (betas 0.9/0.999, eps 1e-8) with additive weight decay, at the
-    LR of step 0."""
+    LR of step 0. With ``capturable`` (the scanned route on a card,
+    :func:`~pdc_tpu_torch.training.scanned.to_capturable`) Adam keeps its
+    step counts on the parameters' device and reads its LR from a 0-dim
+    float32 tensor there, so a CUDA graph can capture its step."""
     t = training_config["training"]
-    return torch.optim.Adam(params, lr=host_lr(training_config, 0), betas=(0.9, 0.999),
-                            eps=1e-8, weight_decay=float(t["weight_decay"]))
+    lr = host_lr(training_config, 0)
+    if capturable:
+        params = list(params)
+        lr = torch.tensor(lr, dtype=torch.float32, device=params[0].device)
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=float(t["weight_decay"]), capturable=capturable)
 
 
 def create_train_state(module: torch.nn.Module, training_config: dict,
@@ -180,9 +187,10 @@ class _BatchStep:
         self.image_width = image_width
         self.assemble_fn, self.compose = pick_assembly(assembler_cfg, hinge)
 
-    def assemble(self, state: TrainState, batch: dict, generator: torch.Generator):
+    def assemble(self, state: TrainState, batch: dict, generator: torch.Generator, **options):
+        """``options`` go to the assembly function (``composite_every_row``)."""
         device = next(state.module.parameters()).device
-        return self.assemble_fn(batch, self.assembler_cfg, generator, device=device)
+        return self.assemble_fn(batch, self.assembler_cfg, generator, device=device, **options)
 
 
 class TrainStep(_BatchStep):
@@ -317,8 +325,11 @@ class DenseCorrespondenceTraining:
         sampled there (:mod:`pdc_tpu_torch.training.scanned`), when the type
         mix is within {0, 1, 2, 4}, the loss is the matrix loss and
         ``steps_per_dispatch`` leaves ``k_eff > 1`` (the largest divisor of
-        ``num_iterations`` not above it). Where the JAX package takes
-        ``k_eff`` steps per dispatch, this route takes one step per call;
+        ``num_iterations`` not above it). Each call takes ``k_eff`` steps,
+        as the JAX package's dispatch does
+        (:func:`~pdc_tpu_torch.training.scanned.make_scanned_train_step`:
+        one CUDA graph replayed ``k_eff`` times on a card, eager steps on
+        the CPU and with a mesh);
       * cached host sampler: the frames cached, pairs sampled on the host
         (:meth:`DeviceCache.sample_index_batch` in a prefetch thread),
         frames gathered on the device;
@@ -332,10 +343,15 @@ class DenseCorrespondenceTraining:
     :meth:`_setup_model_parallel_step`): global host batches streamed on
     every rank, each data rank stepping on its block.
 
-    Metrics stay on the device and are fetched at logging, saving and
-    test-loss boundaries. Logging, saving and the test loss are checked
-    after every step. SIGTERM ends the run at the next step boundary with a
-    checkpoint (``self.preempted``); ``run_from_pretrained`` resumes it.
+    Metrics stay on the device (a call's ``[K]`` tensors queued whole) and
+    are fetched in one copy at logging, saving and test-loss boundaries.
+    The iteration advances by the steps of a call (``k_eff`` on the
+    device-sampler route, else 1), and everything else happens between
+    calls, as in the JAX package: ``progress_callback(it, metrics)`` once a
+    call, logging, saving and the test loss where ``it`` is a multiple of
+    their rates, and SIGTERM ending the run at the call's end with a
+    checkpoint (``self.preempted``; ``run_from_pretrained`` resumes it).
+    ``step_seconds`` holds the host seconds of each call.
     """
 
     def __init__(self, config: Optional[dict] = None, dataset=None,
@@ -361,7 +377,8 @@ class DenseCorrespondenceTraining:
         self._model_parallel = None
         self._pp_meta = None
         self.preempted = False
-        # host seconds of each step call and of each save_network
+        # host seconds of each train-step call (k_eff steps on the
+        # device-sampler route) and of each save_network
         self.step_seconds = []
         self.save_seconds = []
 
@@ -627,7 +644,7 @@ class DenseCorrespondenceTraining:
         """(route, step, cache) as the JAX package chooses its route."""
         # imported here: both modules build on this one's TrainStep
         from pdc_tpu_torch.data.device_cache import DeviceCache, make_cached_train_step
-        from pdc_tpu_torch.training.scanned import SAMPLED_TYPES, make_device_sampled_train_step
+        from pdc_tpu_torch.training.scanned import SAMPLED_TYPES, make_scanned_train_step
 
         t = self._config["training"]
         if t.get("cache_dataset_on_device", True):
@@ -653,9 +670,10 @@ class DenseCorrespondenceTraining:
                                     "%d)%s", mesh.shape["data"],
                                     self._batch_size * mesh.shape["data"],
                                     " + fsdp state sharding" if fsdp else "")
-                    step = make_device_sampled_train_step(
+                    step = make_scanned_train_step(
                         self._config, loss_cfg, assembler_cfg, W, cache, self._batch_size,
-                        tuple(sorted(type_probs.items())), mesh=mesh, fsdp=fsdp)
+                        k_eff, mesh=mesh, type_probs=tuple(sorted(type_probs.items())),
+                        fsdp=fsdp)
                     return ROUTE_DEVICE_SAMPLER, step, cache
                 step = make_cached_train_step(self._config, loss_cfg, assembler_cfg, W, cache)
                 return ROUTE_CACHED_HOST_SAMPLER, step, cache
@@ -766,27 +784,35 @@ class DenseCorrespondenceTraining:
 
         tl = self._logging_dict["train"]
         it = loss_current_iteration
+        profile_from = None  # the iteration the trace started at
         try:
             while it < max_iterations:
-                if profile_dir and it == loss_current_iteration + 1 and profiler is None:
-                    profiler = self._start_profiler()
-                if profiler is not None and it >= loss_current_iteration + 1 + profile_steps:
+                # the trace starts after the first call (its set-up and, on
+                # the scanned route, the graph's capture)
+                if profile_dir and profile_from is None and it > loss_current_iteration:
+                    profiler, profile_from = self._start_profiler(), it
+                if profiler is not None and it >= profile_from + profile_steps:
                     self._stop_profiler(profiler, profile_dir)
                     profiler = None
                 t0 = time.perf_counter()
                 if self.route == ROUTE_DEVICE_SAMPLER:
+                    # K steps a call; the [K] metrics are queued whole
                     metrics = train_step(self._state, generator)
+                    k_steps = int(metrics["loss"].shape[0])
                 elif self.route == ROUTE_MODEL_PARALLEL:
                     metrics = train_step(self._state, shard_host_batch(prefetch.next(),
                                                                        self._mesh), generator)
+                    k_steps = 1
                 else:
                     metrics = train_step(self._state, prefetch.next(), generator)
+                    k_steps = 1
                 elapsed = time.perf_counter() - t0
                 self.step_seconds.append(elapsed)
-                it += 1
                 self._pending_metrics.append(metrics)
-                tl["iteration"].append(it)
-                tl["learning_rate"].append(host_lr(self._config, it))
+                for _ in range(k_steps):
+                    it += 1
+                    tl["iteration"].append(it)
+                    tl["learning_rate"].append(host_lr(self._config, it))
 
                 if progress_callback is not None:
                     progress_callback(it, metrics)
@@ -862,11 +888,12 @@ class DenseCorrespondenceTraining:
         profiler.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
 
     def _materialize_metrics(self):
-        """Fetch the queued per-step metrics in one device-to-host copy."""
+        """Fetch the queued metrics, one step's or a call's ``[K]``, in one
+        device-to-host copy."""
         if not self._pending_metrics:
             return
-        values = torch.stack([torch.stack([m[k] for k in TRAIN_METRICS])
-                              for m in self._pending_metrics]).cpu().numpy()
+        values = torch.cat([torch.stack([m[k].reshape(-1) for k in TRAIN_METRICS], dim=1)
+                            for m in self._pending_metrics]).cpu().numpy()
         tl = self._logging_dict["train"]
         for j, k in enumerate(TRAIN_METRICS):
             tl[k].extend(float(x) for x in values[:, j])

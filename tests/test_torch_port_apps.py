@@ -24,6 +24,7 @@ Tolerances, and why:
 """
 
 import os
+import shutil
 import sys
 
 import jax
@@ -67,6 +68,15 @@ from pdc_tpu_torch.utils.yaml_io import load_yaml, save_yaml
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture(autouse=True)
+def _free_the_folders(tmp_path):
+    """The apps' tests write model folders, scene trees and their outputs: remove them when the
+    test ends, so that a whole run leaves no large files in the temporary directory."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 W, H, D = 64, 48, 3
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN_DIR = os.path.join(ROOT, "tests", "fixtures", "goldens")
@@ -96,9 +106,10 @@ def datasets():
 @pytest.fixture(scope="module")
 def folder(nets, tmp_path_factory):
     """A model folder the port wrote: training.yaml, 000000.ckpt and
-    descriptor statistics."""
+    descriptor statistics (removed with the module)."""
     _, dcn = nets
-    path = str(tmp_path_factory.mktemp("models") / "net")
+    root = tmp_path_factory.mktemp("models")
+    path = str(root / "net")
     os.makedirs(path)
     save_yaml({"dense_correspondence_network": NET_CFG}, os.path.join(path, "training.yaml"))
     dcn.save_checkpoint(os.path.join(path, "000000.ckpt"))
@@ -108,7 +119,8 @@ def folder(nets, tmp_path_factory):
              "mean": res.mean(axis=(0, 1, 2)).tolist(), "std": res.std(axis=(0, 1, 2)).tolist()}
     save_yaml({"entire_image": entry, "mask_image": entry, "background_image": entry},
               os.path.join(path, "descriptor_statistics.yaml"))
-    return path
+    yield path
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def _scene_kw(seed):
@@ -117,7 +129,8 @@ def _scene_kw(seed):
 
 @pytest.fixture(scope="module")
 def tree(tmp_path_factory):
-    """Two scenes in the pdc layout and a composite config naming them."""
+    """Two scenes in the pdc layout and a composite config naming them
+    (removed with the module)."""
     root = tmp_path_factory.mktemp("data")
     for i in range(2):
         SyntheticScene(**_scene_kw(i)).write_scene(str(root / "logs_proto" / f"scene_{i}"))
@@ -126,7 +139,8 @@ def tree(tmp_path_factory):
     composite = str(root / "config" / "composite.yaml")
     save_yaml({"logs_root_path": "logs_proto", "single_object_scenes_config_files": ["disc.yaml"]},
               composite)
-    return {"root": str(root), "composite": composite}
+    yield {"root": str(root), "composite": composite}
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def _descriptors(x):

@@ -3,6 +3,8 @@ pdc_tpu_torch.models.checkpoint) against flax: flax variables <-> the port's
 state_dict round-trips bit-exactly, and the port's pure-Python msgpack reader
 and writer agree with flax.serialization byte for byte."""
 
+import shutil
+
 import flax
 import jax
 import jax.numpy as jnp
@@ -18,6 +20,15 @@ from pdc_tpu_torch.models.convert import flax_to_state_dict, state_dict_to_flax
 from pdc_tpu_torch.models.resnet import ResNet18_8s
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True)
+def _free_the_folders(tmp_path):
+    """These tests write checkpoints: remove them when the test ends, so that a whole run leaves
+    no large files in the temporary directory."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
 
 W, H, D = 32, 24, 3
 

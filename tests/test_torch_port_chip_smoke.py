@@ -4,6 +4,7 @@ host-paced reading, with a stand-in for ``torch.cuda`` whose events say
 whether the queue drained. Also the on-disk phase's scene tree and its
 Paeth-filtered timing file, at 64x48."""
 
+import shutil
 from types import SimpleNamespace
 
 import pytest
@@ -11,6 +12,14 @@ import torch
 
 import chip_smoke
 from pdc_tpu_torch.ops import _build
+
+
+@pytest.fixture(autouse=True)
+def _free_the_folders(tmp_path):
+    """The on-disk check writes scene trees: remove them when the test ends, so that a whole run
+    leaves no large files in the temporary directory."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def test_time_device_raises_without_cuda_and_never_falls_back():

@@ -27,6 +27,7 @@ remat is bit-equal to no remat on the CPU.
 
 import copy
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -64,6 +65,15 @@ from pdc_tpu_torch.ops.scatter_free import take_rows
 from pdc_tpu_torch.training.train import create_train_state, make_train_step
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True)
+def _free_the_folders(tmp_path):
+    """The bf16 and remat runs write model folders (checkpoints and Adam states): remove them when
+    the test ends, so that a whole run leaves no large files in the temporary directory."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
 
 H, W, D = 48, 64, 3
 TINY = (1, 1, 1, 1)

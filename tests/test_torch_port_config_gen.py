@@ -30,6 +30,15 @@ from pdc_tpu_torch.data.dataset import SpartanDataset
 from pdc_tpu_torch.data.synthetic import SyntheticScene
 from pdc_tpu_torch.utils.yaml_io import load_yaml, parse_yaml
 
+
+@pytest.fixture(autouse=True)
+def _free_the_folders(tmp_path):
+    """These tests write scene trees and dataset configs: remove them when the test ends, so that
+    a whole run leaves no large files in the temporary directory."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCENES = ["2020-01-01-caterpillar-a", "2020-01-02-caterpillar-b", "2020-01-03-caterpillar-c",
           "2020-02-01-shoe-a", "2020-02-02-shoe-b"]
@@ -44,7 +53,8 @@ def data_root(tmp_path_factory):
             str(root / "logs_proto" / name))
     # an invalid entry that must be skipped (no pose data)
     os.makedirs(root / "logs_proto" / "broken_scene" / "processed" / "images")
-    return str(root)
+    yield str(root)
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def _files(d):
@@ -214,7 +224,9 @@ def published(tmp_path_factory):
     jax_out = str(tmp_path_factory.mktemp("published_jax"))
     res = cg.write_published_corpus(port_out)
     assert res == {**jax_cg.write_published_corpus(jax_out), "out_dir": port_out}
-    return port_out, jax_out, res
+    yield port_out, jax_out, res
+    for out in (port_out, jax_out):
+        shutil.rmtree(out, ignore_errors=True)
 
 
 def test_write_published_corpus_equals_jax(published):

@@ -15,6 +15,7 @@ on a GPU host without the JAX package's dependencies:
 """
 
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -22,8 +23,18 @@ import torch
 
 from pdc_tpu_torch.ops import best_match as bm
 from pdc_tpu_torch.ops import pooled_hinge as ph
+from pdc_tpu_torch.training.scanned import WARMUP_STEPS
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True)
+def _free_the_folders(tmp_path):
+    """The card's training runs write model folders (checkpoints and Adam states): remove them
+    when the test ends, so that a whole run leaves no large files in the temporary
+    directory."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.fixture
@@ -467,6 +478,70 @@ def test_device_sampler_on_the_card_keeps_its_invariants(cuda):
     assert (obj[fa2[smo]] != obj[fa[smo]]).all()
 
 
+def _param_rel(a, b):
+    """Relative L2 distance of two modules' parameters."""
+    pairs = [(p.detach(), q.detach()) for p, q in zip(a.parameters(), b.parameters())]
+    num = sum(float(((p - q) ** 2).sum()) for p, q in pairs)
+    den = sum(float((q ** 2).sum()) for _, q in pairs)
+    return (num / den) ** 0.5
+
+
+@pytest.mark.parametrize("mix", [((0, 1.0),), ((0, 0.5), (4, 0.5))],
+                         ids=["within_scene", "synthetic_multi_object"])
+def test_scanned_step_replays_one_graph_as_eager_steps(cuda, mix):
+    """make_scanned_train_step on the card (64x48, ResNet-18-8s, K=4): the
+    first call captures one CUDA graph; a call equals K eager
+    DeviceSampledTrainStep calls from clones of the state and generator
+    (losses and parameters within 4 times the spread of two eager runs, or
+    1e-6: the card's step is not bit-reproducible, ROADMAP F4), leaves the
+    generator as they do, returns [K] metrics, and launches K1 and K2 2K
+    times a call once captured (the replays counted)."""
+    import copy
+
+    from pdc_tpu_torch.data.assembler import AssemblerConfig
+    from pdc_tpu_torch.losses.pixelwise_contrastive import LossConfig
+    from pdc_tpu_torch.models.resnet import ResNet18_8s, init_weights_
+    from pdc_tpu_torch.training import scanned
+    from pdc_tpu_torch.training.train import create_train_state
+
+    K = 4
+    tc = {"training": {"learning_rate": 1e-4, "learning_rate_decay": 0.9,
+                       "steps_between_learning_rate_decay": 250, "weight_decay": 1e-4}}
+    cache = _synthetic_cache(cuda)
+    asm = AssemblerConfig(num_matching_attempts=500, masked_pool_size=128,
+                          background_pool_size=128, num_blind_samples=200)
+    state = create_train_state(init_weights_(ResNet18_8s(3), torch.Generator().manual_seed(0)),
+                               tc)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    call = scanned.make_scanned_train_step(tc, LossConfig(), asm, 64, cache, 2, K,
+                                           type_probs=mix)
+    assert call.graphed
+    call.capture(state, gen)
+    eager = scanned.make_device_sampled_train_step(tc, LossConfig(), asm, 64, cache, 2, mix)
+    runs = []
+    for _ in range(2):
+        s, g = copy.deepcopy(state), torch.Generator(device=cuda)
+        g.set_state(gen.get_state())
+        runs.append((s, g, [float(eager(s, g)["loss"]) for _ in range(K)]))
+    f0, b0 = ph.forward_launches, ph.backward_launches
+    m = call(state, gen)
+    assert (ph.forward_launches - f0, ph.backward_launches - b0) == (2 * K, 2 * K)
+    assert call.launches_per_dispatch == {"forward": 2 * K, "backward": 2 * K}
+    assert all(v.shape == (K,) for v in m.values())
+    losses = m["loss"].tolist()
+    (s1, g1, l1), (s2, _, l2) = runs
+    assert torch.equal(gen.get_state(), g1.get_state()) and state.step == s1.step == K
+
+    def worst(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+    spread_l, spread_p = worst(l2, l1), _param_rel(s2.module, s1.module)
+    print(f"graph vs eager: losses {worst(losses, l1):.3g}, parameters "
+          f"{_param_rel(state.module, s1.module):.3g}; two eager runs {spread_l:.3g}, "
+          f"{spread_p:.3g}")
+    assert worst(losses, l1) <= max(4 * spread_l, 1e-6)
+    assert _param_rel(state.module, s1.module) <= max(4 * spread_p, 1e-6)
+
+
 def test_device_cache_on_the_card_gathers_what_the_cpu_cache_gathers(cuda):
     mix = {0: 0.5, 1: 0.25, 2: 0.25}
     on_card, on_cpu = _synthetic_cache(cuda, mix), _synthetic_cache("cpu", mix)
@@ -501,7 +576,9 @@ def test_training_driver_runs_three_iterations_on_the_card(cuda, tmp_path):
     f0, b0 = ph.forward_launches, ph.backward_launches
     folder = trainer.run()
     assert trainer.route == ROUTE_DEVICE_SAMPLER
-    assert (ph.forward_launches - f0, ph.backward_launches - b0) == (6, 6)
+    # one call of 3 steps: 2 launches a step and a warm-up step of the capture
+    want = 2 * 3 + 2 * WARMUP_STEPS
+    assert (ph.forward_launches - f0, ph.backward_launches - b0) == (want, want)
     assert np.isfinite(trainer._logging_dict["train"]["loss"]).all()
     assert trainer.state.step == 3
     assert {"000000.ckpt", "000003.ckpt", "000003.ckpt.opt"} <= set(os.listdir(folder))
@@ -681,7 +758,8 @@ def test_cli_trains_two_iterations_from_disk_on_the_card(cuda, tmp_path):
     assert cli.main(["train", "--config", cfg_file, "--dataset_config", composite, "--data_dir",
                      str(tmp_path), "--name", "card", "--logging_dir", str(tmp_path / "models"),
                      "--num_iterations", "2"]) == 0  # default device: cuda
-    assert (ph.forward_launches - f0, ph.backward_launches - b0) == (4, 4)
+    want = 2 * 2 + 2 * WARMUP_STEPS  # one call of 2 steps, and the capture's warm-up
+    assert (ph.forward_launches - f0, ph.backward_launches - b0) == (want, want)
     history = load_yaml(str(tmp_path / "models" / "card" / "000002_log_history.yaml"))
     assert history["train"]["iteration"] == [1, 2]
     assert np.isfinite(history["train"]["loss"]).all()
@@ -1017,9 +1095,10 @@ def test_trained_tpu_journey_int8_pck_on_the_card(cuda):
 
 def test_smoke_experiment_on_the_card_runs_k1_k2_and_k3(cuda, tmp_path):
     """``experiment caterpillar --smoke --run_filter 0.500`` (64x48,
-    ResNet-34-8s, 4 steps of B=2) on the card: K1 and K2 launch twice per
-    step, K3 once for the network's sweep (one chunk of 2 pairs), and the
-    statistics are PCKs in [0, 1] with a finite area."""
+    ResNet-34-8s, 4 steps of B=2, 2 a call) on the card: K1 and K2 launch
+    twice per step and per warm-up step of the capture, K3 once for the
+    network's sweep (one chunk of 2 pairs), and the statistics are PCKs in
+    [0, 1] with a finite area."""
     import json
     import math
 
@@ -1029,7 +1108,9 @@ def test_smoke_experiment_on_the_card_runs_k1_k2_and_k3(cuda, tmp_path):
     f0, b0, k0 = ph.forward_launches, ph.backward_launches, bm.launches
     assert cli.main(["experiment", "caterpillar", "--smoke", "--run_filter", "0.500",
                      "--logging_dir", str(tmp_path)]) == 0  # default device: cuda
-    assert (ph.forward_launches - f0, ph.backward_launches - b0, bm.launches - k0) == (8, 8, 1)
+    want = 2 * 4 + 2 * WARMUP_STEPS
+    assert (ph.forward_launches - f0, ph.backward_launches - b0, bm.launches - k0) == (want, want,
+                                                                                       1)
     result = json.load(open(tmp_path / "result.json"))
     (info,) = result["networks"].values()
     assert set(info["test"]) == set(runner._STAT_KEYS)

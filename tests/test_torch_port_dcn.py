@@ -4,6 +4,7 @@ written by either package load in the other; entry points default to CUDA."""
 
 import inspect
 import os
+import shutil
 
 import jax
 import numpy as np
@@ -17,6 +18,15 @@ from pdc_tpu_torch.models.dcn import DenseCorrespondenceNetwork, build_backbone
 from pdc_tpu_torch.models.dcn import find_latest_checkpoint
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True)
+def _free_the_folders(tmp_path):
+    """These tests write model folders: remove them when the test ends, so that a whole run leaves
+    no large files in the temporary directory."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
 
 W, H, D = 64, 48, 3
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

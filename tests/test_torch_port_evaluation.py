@@ -32,6 +32,7 @@ import copy
 import itertools
 import json
 import os
+import shutil
 import sys
 
 import jax
@@ -64,6 +65,15 @@ from pdc_tpu_torch.ops import sampling
 from pdc_tpu_torch.utils import visualization
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True)
+def _free_the_folders(tmp_path):
+    """The evaluation tests write model folders and their analysis: remove them when the test
+    ends, so that a whole run leaves no large files in the temporary directory."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
 
 W, H, D = 64, 48, 3
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -576,7 +586,8 @@ def test_table_edge_cases(tmp_path):
 
 @pytest.fixture(scope="module")
 def port_folder(tmp_path_factory):
-    """A model folder trained by the port's command, 2 iterations at 64x48."""
+    """A model folder trained by the port's command, 2 iterations at 64x48
+    (removed with the module)."""
     from pdc_tpu_torch.training.train import DenseCorrespondenceTraining
     from pdc_tpu_torch.utils.yaml_io import save_yaml
 
@@ -591,7 +602,8 @@ def port_folder(tmp_path_factory):
     cfg["dense_correspondence_network"]["backbone"]["resnet_name"] = "Resnet18_8s"
     trainer = DenseCorrespondenceTraining(cfg, SpartanDataset.make_synthetic(**SYNTH),
                                           device="cpu")
-    return trainer.run()
+    yield trainer.run()
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def _tree(d):

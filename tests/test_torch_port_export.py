@@ -10,6 +10,7 @@ operations, traced or not, and across frameworks within 2e-5 of the scale
 """
 
 import os
+import shutil
 import subprocess
 import sys
 
@@ -29,6 +30,15 @@ from pdc_tpu_torch.utils.yaml_io import save_yaml
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture(autouse=True)
+def _free_the_folders(tmp_path):
+    """These tests write model folders and exported programs: remove them when the test ends, so
+    that a whole run leaves no large files in the temporary directory."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 W, H, D = 64, 48, 3
 NET_CFG = {"descriptor_dimension": D, "image_width": W, "image_height": H,
            "backbone": {"model_class": "Resnet", "resnet_name": "Resnet18_8s"}}
@@ -46,11 +56,13 @@ def nets():
 
 @pytest.fixture(scope="module")
 def artifact(nets, tmp_path_factory):
-    """The port's program at B=2, saved once."""
+    """The port's program at B=2, saved once (removed with the module)."""
     _, dcn = nets
-    path = str(tmp_path_factory.mktemp("export") / "net_b2.pt2")
+    root = tmp_path_factory.mktemp("export")
+    path = str(root / "net_b2.pt2")
     exported = export.export_inference(dcn, batch_size=2)
-    return exported, path, export.save_exported(exported, path)
+    yield exported, path, export.save_exported(exported, path)
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def _frames(seed, n=2):
@@ -121,13 +133,15 @@ def test_the_loaded_program_needs_only_torch(artifact):
 
 @pytest.fixture(scope="module")
 def folder(nets, tmp_path_factory):
-    """A model folder the port wrote."""
+    """A model folder the port wrote (removed with the module)."""
     _, dcn = nets
-    path = tmp_path_factory.mktemp("models") / "net"
+    root = tmp_path_factory.mktemp("models")
+    path = root / "net"
     path.mkdir()
     save_yaml({"dense_correspondence_network": NET_CFG}, str(path / "training.yaml"))
     dcn.save_checkpoint(str(path / "000100.ckpt"))
-    return str(path)
+    yield str(path)
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def test_export_model_folder_and_the_cli(nets, folder, tmp_path, capsys):

@@ -129,3 +129,23 @@ def test_parallel_package_holds_the_data_axis_without_sync_batchnorm():
                 or (isinstance(n, ast.Name) and n.id == "SyncBatchNorm")
                 or (isinstance(n, ast.alias) and n.name.endswith("SyncBatchNorm"))]
         assert not used, f"{path} uses SyncBatchNorm"
+
+
+def test_scanned_training_imports_without_jax_and_touches_no_card():
+    """The K-steps-a-call route (training/scanned.py, training/schedule.py)
+    imports with jax, optax and pdc_tpu made unimportable, and importing it
+    initialises no CUDA: the graph is captured at the first call on a
+    card."""
+    code = ("import sys\n"
+            "for m in ('jax', 'flax', 'optax', 'pdc_tpu'):\n"
+            "    sys.modules[m] = None\n"
+            "import torch\n"
+            "from pdc_tpu_torch.training import scanned, schedule\n"
+            "assert callable(scanned.make_scanned_train_step)\n"
+            "assert callable(scanned.device_sample_pairs)\n"
+            "assert callable(schedule.make_lr_schedule)\n"
+            "assert not torch.cuda.is_initialized()\n"
+            "print('ok')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr

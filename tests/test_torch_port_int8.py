@@ -30,6 +30,7 @@ Tolerances:
 import dataclasses
 import json
 import os
+import shutil
 
 import jax
 import numpy as np
@@ -58,6 +59,15 @@ from pdc_tpu_torch.ops import int8_conv as ic
 from pdc_tpu_torch.utils.yaml_io import save_yaml
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True)
+def _free_the_folders(tmp_path):
+    """These tests write model folders: remove them when the test ends, so that a whole run leaves
+    no large files in the temporary directory."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
 
 W, H, D = 64, 48, 3
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -368,14 +378,17 @@ def test_grasp_stream_on_a_quantized_network(nets):
 
 @pytest.fixture(scope="module")
 def folder(nets, tmp_path_factory):
-    """A model folder the port wrote, with a synthetic dataset record."""
+    """A model folder the port wrote, with a synthetic dataset record
+    (removed with the module)."""
     _, dcn = nets
-    path = str(tmp_path_factory.mktemp("models") / "net")
+    root = tmp_path_factory.mktemp("models")
+    path = str(root / "net")
     os.makedirs(path)
     save_yaml({"dense_correspondence_network": NET_CFG}, os.path.join(path, "training.yaml"))
     save_yaml({"synthetic": SYNTH}, os.path.join(path, "dataset.yaml"))
     dcn.save_checkpoint(os.path.join(path, "000010.ckpt"))
-    return path
+    yield path
+    shutil.rmtree(root, ignore_errors=True)
 
 
 @pytest.mark.parametrize("flag", ["--int8", "--int8_static"])

@@ -58,6 +58,15 @@ from pdc_tpu_torch.training.train import DenseCorrespondenceTraining, create_tra
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture(autouse=True)
+def _free_the_folders(tmp_path):
+    """The trainer's runs write model folders (checkpoints and Adam states): remove them when the
+    test ends, so that a whole run leaves no large files in the temporary directory."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 H, W, D = 48, 64, 3
 R18 = (2, 2, 2, 2)
 UNET_BASE = 8

@@ -20,6 +20,7 @@
 """
 
 import os
+import shutil
 import struct
 import zlib
 
@@ -59,6 +60,16 @@ from pdc_tpu_torch.utils.yaml_io import load_yaml, parse_yaml, save_yaml
 from tests.fixtures.real_layout import write_miniature_scene
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True)
+def _free_the_folders(tmp_path):
+    """These tests write scene trees and model folders (checkpoints and Adam states): remove them
+    when the test ends, so that a whole run leaves no large files in the temporary
+    directory."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
 
 W, H, D = 64, 48, 3
 DECODERS = ("zlib", "libpng")
@@ -110,7 +121,8 @@ def layout(tmp_path_factory):
     """Three published-layout scenes (non-contiguous ids 3, 20, 37, 54;
     orphan pose keys 1 and 29; the ROS camera_info) under
     <root>/logs_proto, two objects' scene lists in config/single_object
-    and a composite in config/composite that names them bare."""
+    and a composite in config/composite that names them bare; removed with
+    the module."""
     root = tmp_path_factory.mktemp("layout")
     for i in range(3):
         write_miniature_scene(str(root / "logs_proto" / f"scene_{i}" / "processed"),
@@ -123,8 +135,9 @@ def layout(tmp_path_factory):
     composite = {"logs_root_path": "logs_proto",
                  "single_object_scenes_config_files": ["disc_a.yaml", "disc_b.yaml"]}
     save_yaml(composite, str(cfg / "composite" / "composite.yaml"))
-    return {"root": str(root), "config_dir": str(cfg / "composite"), "composite": composite,
-            "composite_file": str(cfg / "composite" / "composite.yaml")}
+    yield {"root": str(root), "config_dir": str(cfg / "composite"), "composite": composite,
+           "composite_file": str(cfg / "composite" / "composite.yaml")}
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def _datasets(layout, mode="train"):

@@ -50,6 +50,15 @@ from pdc_tpu_torch.training.train import (
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture(autouse=True)
+def _free_the_folders(tmp_path):
+    """The trainer's runs write model folders (checkpoints and Adam states): remove them when the
+    test ends, so that a whole run leaves no large files in the temporary directory."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 H, W, D = 48, 64, 3
 R18 = (2, 2, 2, 2)
 LR = 1e-4
@@ -220,7 +229,9 @@ def _rank_body(rank, world, p):
         # (h) the trainer, data-parallel and with ZeRO storage
         out["trainer"] = {}
         for name, extra in (("dp", {}), ("fsdp", {"fsdp": True})):
-            cfg = train_config(p["root"], name, iters=4, data_parallel=True, **extra)
+            # 2 steps a call, so that the checkpoints of iteration 2 lie on a call's end
+            cfg = train_config(p["root"], name, iters=4, data_parallel=True, steps_per_dispatch=2,
+                               **extra)
             trainer = DenseCorrespondenceTraining(cfg, SpartanDataset.make_synthetic(**SYNTH),
                                                   device="cpu")
             folder = trainer.run()

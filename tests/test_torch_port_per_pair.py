@@ -27,6 +27,7 @@ on the CPU at 64x48, D=3, ResNet-18-8s:
 import copy
 import dataclasses
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -65,6 +66,15 @@ from pdc_tpu_torch.ops import sampling as tsamp
 from pdc_tpu_torch.training import train as port_train
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True)
+def _free_the_folders(tmp_path):
+    """The trainer's runs write model folders (checkpoints and Adam states): remove them when the
+    test ends, so that a whole run leaves no large files in the temporary directory."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
 
 H, W, D = 48, 64, 3
 HW = H * W
@@ -627,6 +637,8 @@ def test_driver_takes_the_jax_route(tmp_path, monkeypatch, training):
         LossConfig.from_dict(cfg["loss_function"]),
         tasm.AssemblerConfig.from_training_config(cfg), W)
     assert route == want
+    if route == port_train.ROUTE_DEVICE_SAMPLER:  # K steps a call of one device-sampled step
+        step = step.step
     assert step.assemble_fn is (tasm.assemble_batch_matrix
                                 if cfg["training"].get("use_matrix_loss", True)
                                 else tasm.assemble_batch)

@@ -35,6 +35,15 @@ from pdc_tpu_torch.pipeline import segmentation as seg
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture(autouse=True)
+def _free_the_folders(tmp_path):
+    """These tests write scene trees and fusion meshes: remove them when the test ends, so that a
+    whole run leaves no large files in the temporary directory."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 H, W = 48, 64
 CPU = "cpu"
 

@@ -195,3 +195,42 @@ def test_sharded_cache_training_on_two_ranks(fsdp):
         assert o["nbytes"] == outs[0]["nbytes"] == total * 17 // 24
         for k, v in o["params"].items():
             assert torch.equal(v, outs[0]["params"][k]), k
+
+
+def _scanned_ranks(rank, world):
+    """One call of 2 steps a call over a sharded cache against 2 one-step
+    calls from a copy of the state and the generator."""
+    import copy
+
+    mesh = make_mesh(device="cpu")
+    ds = _truncate(SpartanDataset.make_synthetic(**SYNTH))
+    cache = ShardedDeviceCache.from_dataset(ds, mesh, by_object=True)
+    module = init_weights_(ResNetFCN(3, stage_sizes=(2, 2, 2, 2)), torch.Generator().manual_seed(0))
+    state = create_train_state(module, TC, device="cpu")
+    twin = copy.deepcopy(state)
+    args = (TC, LossConfig(), AssemblerConfig(**ASM), W, cache)
+    call = scanned.make_sharded_cache_train_step(*args, batch_size=2, type_probs=MIXES["mixed"],
+                                                 steps_per_dispatch=2)
+    one = scanned.make_sharded_cache_train_step(*args, batch_size=2, type_probs=MIXES["mixed"])
+    gen, gen_twin = (torch.Generator().manual_seed(100 + rank) for _ in range(2))
+    got = call(state, gen)
+    want = [one(twin, gen_twin) for _ in range(2)]
+    return dict(graphed=call.graphed, launches=call.launches_per_dispatch, steps=state.step,
+                same_metrics=all(torch.equal(v, torch.stack([m[k] for m in want]))
+                                 for k, v in got.items()),
+                shapes={k: tuple(v.shape) for k, v in got.items()},
+                same_state=all(torch.equal(a, b) for a, b in zip(
+                    state.module.state_dict().values(), twin.module.state_dict().values())),
+                same_generator=torch.equal(gen.get_state(), gen_twin.get_state()))
+
+
+def test_sharded_cache_takes_k_steps_a_call_on_two_ranks():
+    """make_sharded_cache_train_step with steps_per_dispatch=2 (JAX's K-step
+    scan) on 2 gloo ranks: one call is 2 steps of the one-step route, bit for
+    bit (metrics [2], weights, generator), run eagerly (a process group's
+    collectives are not captured), 4 pooled-hinge passes each way."""
+    for o in spawn(_scanned_ranks, 2, "cpu"):
+        assert not o["graphed"] and o["steps"] == 2
+        assert o["same_metrics"] and o["same_state"] and o["same_generator"]
+        assert set(o["shapes"].values()) == {(2,)}
+        assert o["launches"] == {"forward": 4, "backward": 4}

@@ -21,6 +21,7 @@ against pdc_tpu, on the CPU at 64x48 with ResNet-18-8s.
 import copy
 import logging
 import os
+import shutil
 import signal
 import sys
 import types
@@ -68,6 +69,16 @@ from pdc_tpu_torch.training.train import (
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture(autouse=True)
+def _free_the_folders(tmp_path):
+    """Each run writes model folders of checkpoints and Adam states (a few hundred MB a test):
+    remove them when the test ends, so that a whole run leaves no large files in the
+    temporary directory."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 W, H, D = 64, 48, 3
 SYNTH = dict(num_scenes=2, width=W, height=H, num_frames=6)
 
@@ -105,9 +116,10 @@ def _assert_trees_equal(a, b):
 @pytest.fixture(scope="module")
 def jax_folder(tmp_path_factory):
     """A model folder written by pdc_tpu's save_network after 3 Adam steps
-    (seeded random gradients; no JAX train step is compiled)."""
-    cfg = tiny_config(tmp_path_factory.mktemp("jax"), "jax_run",
-                      steps_between_learning_rate_decay=2)
+    (seeded random gradients; no JAX train step is compiled), removed with
+    the module."""
+    root = tmp_path_factory.mktemp("jax")
+    cfg = tiny_config(root, "jax_run", steps_between_learning_rate_decay=2)
     trainer = JaxTraining(config=cfg, dataset=JaxSpartanDataset.make_synthetic(**SYNTH))
     model, _ = trainer.build_network()
     # the state _ensure_state makes, with the init jitted (op by op it is slow)
@@ -128,7 +140,8 @@ def jax_folder(tmp_path_factory):
     trainer.setup_logging_dir()
     trainer.save_configs()
     trainer.save_network(3)
-    return trainer.logging_dir, cfg, _np_tree(params), _np_tree(opt_state), trainer
+    yield trainer.logging_dir, cfg, _np_tree(params), _np_tree(opt_state), trainer
+    shutil.rmtree(root, ignore_errors=True)
 
 
 # -- the test-loss step ----------------------------------------------------------
@@ -243,10 +256,14 @@ def test_pdc_tpu_folder_resumes_in_the_port(tmp_path, jax_folder):
 
 @pytest.fixture(scope="module")
 def port_run(tmp_path_factory):
-    cfg = tiny_config(tmp_path_factory.mktemp("port"), "port_run", iters=4, save_rate=2)
+    """A folder of 4 iterations, checkpoints every 2 (2 steps a call; the
+    JAX cadence), removed with the module."""
+    root = tmp_path_factory.mktemp("port")
+    cfg = tiny_config(root, "port_run", iters=4, save_rate=2, steps_per_dispatch=2)
     trainer = DenseCorrespondenceTraining(cfg, SpartanDataset.make_synthetic(**SYNTH),
                                           device="cpu")
-    return trainer, trainer.run()
+    yield trainer, trainer.run()
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def test_port_folder_holds_the_model_folder_contract(port_run):
@@ -363,7 +380,8 @@ def test_budget_fallback_test_loss_tensorboard_and_profiler(tmp_path, monkeypatc
 
 
 def test_sigterm_writes_a_checkpoint_and_returns(tmp_path):
-    cfg = tiny_config(tmp_path, "preempt", iters=6)
+    # 2 steps a call: the checkpoint lands on the end of the first call, at 2
+    cfg = tiny_config(tmp_path, "preempt", iters=6, steps_per_dispatch=2)
     trainer = DenseCorrespondenceTraining(cfg, SpartanDataset.make_synthetic(**SYNTH),
                                           device="cpu")
     before = signal.getsignal(signal.SIGTERM)

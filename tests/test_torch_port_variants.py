@@ -17,6 +17,7 @@ float64 ones where the port's fp32 ones are within 7e-6.
 """
 
 import copy
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -44,6 +45,15 @@ from pdc_tpu_torch.models.unet import UNet
 from pdc_tpu_torch.training.train import DenseCorrespondenceTraining
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True)
+def _free_the_folders(tmp_path):
+    """The trainer's runs write model folders (checkpoints and Adam states): remove them when the
+    test ends, so that a whole run leaves no large files in the temporary directory."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
 
 D = 3
 TINY_BOTTLENECK = (1, 1, 2, 1)
