@@ -3471,7 +3471,7 @@ def check_data_axis(torch, np, dev, bm, ph, frames_t, on_disk, render_inputs, tm
     """The phase "the data axis": (a)-(g) of the module docstring, on a world
     of one process over NCCL. Returns the launches of each path and the
     timings."""
-    from pdc_tpu_torch.apps.serve import DescriptorServer, _Request
+    from pdc_tpu_torch.apps.serve import DescriptorServer, _Laps, _Request
     from pdc_tpu_torch.data.assembler import AssemblerConfig
     from pdc_tpu_torch.data.dataset import SpartanDataset
     from pdc_tpu_torch.data.device_cache import DeviceCache
@@ -3672,7 +3672,7 @@ def check_data_axis(torch, np, dev, bm, ph, frames_t, on_disk, render_inputs, tm
                 batch = [_Request(f, queries if i % 2 == 0 else None)
                          for i, f in enumerate(frames)]
                 bm.launches = 0
-                server._run_batch(batch)
+                server._run_batch(batch, _Laps())
                 if devices is not None:
                     out["launches"]["data-parallel server"] = bm.launches
                 if any(r.error for r in batch):
@@ -3768,7 +3768,7 @@ def check_model_axes(torch, np, dev, bm, ph, frames_t, tmp, smi):
     timings."""
     import torch.distributed as dist
 
-    from pdc_tpu_torch.apps.serve import DescriptorServer, _Request
+    from pdc_tpu_torch.apps.serve import DescriptorServer, _Laps, _Request
     from pdc_tpu_torch.data.assembler import AssemblerConfig
     from pdc_tpu_torch.losses.pixelwise_contrastive import LossConfig
     from pdc_tpu_torch.models.dcn import DenseCorrespondenceNetwork
@@ -3965,7 +3965,7 @@ def check_model_axes(torch, np, dev, bm, ph, frames_t, tmp, smi):
             try:
                 batch = [_Request(f, queries if i % 2 else None) for i, f in enumerate(frames)]
                 bm.launches = 0
-                server._run_batch(batch)
+                server._run_batch(batch, _Laps())
                 if kw:
                     out["launches"]["tp server"] = bm.launches
                     (_, module), = server._replicas
@@ -4255,7 +4255,7 @@ def main():
         fail(f"pdc_tpu_torch not importable ({e}): run from the root of a checkout")
     if os.path.dirname(os.path.dirname(os.path.abspath(pdc_tpu_torch.__file__))) != here:
         fail(f"pdc_tpu_torch imported from {pdc_tpu_torch.__file__}, not from this checkout")
-    from pdc_tpu_torch.apps.serve import DescriptorClient, DescriptorServer, _Request
+    from pdc_tpu_torch.apps.serve import DescriptorClient, DescriptorServer, _Laps, _Request
     from pdc_tpu_torch.models.dcn import DenseCorrespondenceNetwork
     from pdc_tpu_torch.ops import _build
     from pdc_tpu_torch.ops import best_match as bm
@@ -4695,7 +4695,7 @@ def main():
             for _ in range(5):
                 batch = [_Request(frames[i], plan[1][1] if with_q else None) for i in range(n)]
                 t = time.perf_counter()
-                server._run_batch(batch)
+                server._run_batch(batch, _Laps())
                 times.append(time.perf_counter() - t)
                 if any(r.error for r in batch):
                     fail(f"dispatch failed: {batch[0].error}")

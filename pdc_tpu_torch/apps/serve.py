@@ -15,6 +15,23 @@ of clients over TCP, with cross-request microbatching.
   or ``max_wait_ms`` of arrivals into one dispatch.
 - Like the JAX server, the served descriptors skip the network's
   ``normalize`` option (``pdc_tpu/apps/serve.py:239-242``).
+- A dispatch queues all of its device work (the forward, the best match,
+  the gathered descriptors made contiguous, the ``uv``/``dist``
+  arithmetic), waits on one CUDA event, and only then copies the answers
+  to the host, so the wait for the card is told apart from the copies.
+  The descriptors arrive C-contiguous, so a reply is encoded without a
+  transposition on the host.
+
+- Tracing: ``stats`` counts requests, dispatches and frames, and sums the
+  seconds of the batcher's phases (``starved_s``, ``gather_s``,
+  ``upload_s``, ``device_wait_s``, ``download_s``, ``batcher_host_s``:
+  together its wall time) and of the handlers' work on frame requests
+  (``queue_wait_s``, ``handler_s``); ``info`` returns them. Each phase is
+  also a ``record_function`` range (``serve.*``) while a profiler runs,
+  and nothing at all otherwise. The ranges of the batcher and handler
+  threads reach a trace only from a profiler that records every thread
+  (``_ExperimentalConfig(profile_all_threads=True)``), as
+  ``portbench/alltrace.py`` runs a benchmark cell.
 
 - int8 serving plugs in unchanged: ``--int8`` serves ``dcn.quantized()``
   (dynamic scales: a frame's descriptors vary slightly with the rest of its
@@ -61,16 +78,40 @@ import socket
 import socketserver
 import threading
 import time
+from contextlib import contextmanager, nullcontext
 from typing import Optional
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from pdc_tpu_torch.apps import add_int8_flags, first_frames, quantize_arg, serving_clone
 from pdc_tpu_torch.ops.best_match import best_match
 from pdc_tpu_torch.parallel.tensor_parallel import LocalChannels, shard_channels
 
 _JOIN_TIMEOUT_S = 10.0
+# the batcher's phases, ``stats`` keys in seconds: together its wall time
+_BATCHER_PHASES = ("starved_s", "gather_s", "upload_s", "device_wait_s", "download_s",
+                   "batcher_host_s")
+# each span of the batcher, and the phase its time is summed in
+_PHASE_OF = {"serve.starved": "starved_s", "serve.gather": "gather_s",
+             "serve.assemble": "batcher_host_s", "serve.upload": "upload_s",
+             "serve.launch": "batcher_host_s", "serve.device_wait": "device_wait_s",
+             "serve.download": "download_s", "serve.fanout": "batcher_host_s"}
+# the handlers' seconds on frame requests, ``stats`` keys
+_HANDLER_TIMES = ("queue_wait_s", "handler_s")
+_NO_SPAN = nullcontext()
+
+
+def _span(name: str):
+    """A ``record_function`` range ``name`` while a profiler runs, on the
+    profiler's timeline beside the device's kernels and copies; otherwise
+    nothing, at the cost of reading one flag. (The flag is set process-wide
+    by any ``torch.profiler`` run; ``torch.autograd._profiler_enabled()``
+    reads False under one, on its own thread too.)"""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 class _DesyncError(ValueError):
@@ -167,14 +208,50 @@ def _same_device(a: torch.device, b: torch.device) -> bool:
 
 
 class _Request:
-    __slots__ = ("rgb", "queries", "event", "result", "error")
+    """One frame request. ``t_read``, ``t_put``, ``t_taken``, ``t_answered``
+    and ``t_sent`` are the ``time.perf_counter()`` readings of the start of
+    its frame's read, its put on the queue, the batcher taking it, its
+    answer being set and its reply being sent."""
 
-    def __init__(self, rgb, queries=None):
+    __slots__ = ("rgb", "queries", "event", "result", "error",
+                 "t_read", "t_put", "t_taken", "t_answered", "t_sent")
+
+    def __init__(self, rgb, queries=None, t_read=None):
         self.rgb = rgb
         self.queries = queries  # [Q, D] float32 or None (descriptors op)
         self.event = threading.Event()
         self.result = None  # (descriptors [H, W, D] or None, uv [Qmax, 2], dist [Qmax])
         self.error: Optional[str] = None
+        self.t_read = t_read
+        self.t_put = self.t_taken = self.t_answered = self.t_sent = None
+
+
+class _Laps:
+    """The batcher's seconds by phase, adding up to its wall time: the time
+    inside a :meth:`phase` goes to its span's phase (``_PHASE_OF``), the
+    time between phases to ``batcher_host_s``."""
+
+    def __init__(self):
+        self.seconds = dict.fromkeys(_BATCHER_PHASES, 0.0)
+        self.last = time.perf_counter()  # the end of the last lap
+
+    def _lap(self, phase: str):
+        now = time.perf_counter()
+        self.seconds[phase] += now - self.last
+        self.last = now
+
+    @contextmanager
+    def phase(self, span: str):
+        """Time the body as ``span``'s phase, inside the span ``span``."""
+        self._lap("batcher_host_s")
+        with _span(span):
+            yield
+        self._lap(_PHASE_OF[span])
+
+    def take(self) -> dict:
+        """The seconds since the last take."""
+        out, self.seconds = self.seconds, dict.fromkeys(_BATCHER_PHASES, 0.0)
+        return out
 
 
 class DescriptorServer:
@@ -229,9 +306,13 @@ class DescriptorServer:
         self._max_batch = self._buckets[-1]
         self._max_wait_s = max_wait_ms / 1000.0
         self._queue: "queue.Queue[_Request]" = queue.Queue()
-        # match_dispatches: dispatches that launched the best-match kernel
-        self.stats = {"requests": 0, "dispatches": 0, "frames": 0, "match_dispatches": 0}
+        # match_dispatches: dispatches that launched the best-match kernel;
+        # the seconds: see the module docstring
+        self.stats = {"requests": 0, "dispatches": 0, "frames": 0, "match_dispatches": 0,
+                      **dict.fromkeys(_BATCHER_PHASES + _HANDLER_TIMES, 0.0)}
         self._stats_lock = threading.Lock()  # handler threads race on stats
+        # marks the end of a dispatch's device work
+        self._done = torch.cuda.Event() if self._device.type == "cuda" else None
         self._mean = torch.as_tensor(dcn.image_mean, dtype=torch.float32, device=self._device)
         self._std = torch.as_tensor(dcn.image_std_dev, dtype=torch.float32, device=self._device)
 
@@ -267,40 +348,45 @@ class DescriptorServer:
 
     # -- the batched step ------------------------------------------------------
 
-    def _forward_one(self, device, module, frames: np.ndarray, queries, n: int):
-        """One replica's step on its frames; queries [n, Q, D] (n <= its
+    def _forward_one(self, device, module, frames: torch.Tensor, queries, n: int):
+        """One replica's step on its uint8 frames; queries [n, Q, D] (n <= its
         frames) or None."""
-        x = torch.from_numpy(frames).to(device).to(torch.float32)
+        x = frames.to(torch.float32)
         x = (x / 255.0 - self._mean.to(device)) / self._std.to(device)
         # float32 whatever the compute dtype, as pdc_tpu's server returns it
         out = module(x.permute(0, 3, 1, 2).contiguous()).to(torch.float32)
         if queries is None or n == 0:
             return out, None, None
-        q = torch.from_numpy(queries).to(device)
-        idx, dist = best_match(out[:n].reshape(n, self._D, self._H * self._W), q)
+        idx, dist = best_match(out[:n].reshape(n, self._D, self._H * self._W), queries)
         return out, idx, dist
 
-    def _forward(self, frames: np.ndarray, queries: Optional[np.ndarray], n: int):
+    def _forward(self, frames: np.ndarray, queries: Optional[np.ndarray], n: int, laps: _Laps):
         """frames [b, H, W, 3] uint8 (b = bucket), queries [n, Q, D] float32
         or None -> (descriptors [b, D, H, W], idx [n, Q] int32 or None,
         dist [n, Q] or None), all on the first replica's device. Each
-        replica takes a contiguous block of the frames; every replica's
-        work is queued before any result is collected."""
+        replica takes a contiguous block of the frames, uploaded
+        (``serve.upload``) and its work queued (``serve.launch``) before the
+        next replica's upload; every replica's work is queued before any
+        result is collected."""
         k = frames.shape[0] // len(self._replicas)
         runs = []
         for r, (device, module) in enumerate(self._replicas):
             m = min(max(n - r * k, 0), k)  # requests in this block
-            runs.append(self._forward_one(
-                device, module, frames[r * k:(r + 1) * k],
-                None if queries is None else queries[r * k:r * k + m], m))
+            with laps.phase("serve.upload"):
+                x = torch.from_numpy(frames[r * k:(r + 1) * k]).to(device)
+                q = (None if queries is None or m == 0
+                     else torch.from_numpy(queries[r * k:r * k + m]).to(device))
+            with laps.phase("serve.launch"):
+                runs.append(self._forward_one(device, module, x, q, m))
         if len(runs) == 1:
             return runs[0]
-        out = torch.cat([o.to(self._device) for o, _, _ in runs])
-        if queries is None:
-            return out, None, None
-        idx = torch.cat([i.to(self._device) for _, i, _ in runs if i is not None])
-        dist = torch.cat([d.to(self._device) for _, _, d in runs if d is not None])
-        return out, idx, dist
+        with laps.phase("serve.launch"):
+            out = torch.cat([o.to(self._device) for o, _, _ in runs])
+            if queries is None:
+                return out, None, None
+            idx = torch.cat([i.to(self._device) for _, i, _ in runs if i is not None])
+            dist = torch.cat([d.to(self._device) for _, _, d in runs if d is not None])
+            return out, idx, dist
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -311,7 +397,7 @@ class DescriptorServer:
             for b in self._buckets:
                 z = np.zeros((b, self._H, self._W, 3), np.uint8)
                 q = np.zeros((b, self._Q, self._D), np.float32)
-                _, idx, _ = self._forward(z, q, b)
+                _, idx, _ = self._forward(z, q, b, _Laps())
                 idx.cpu()
 
     def serve_forever(self):
@@ -362,82 +448,129 @@ class DescriptorServer:
 
     # -- batching core -------------------------------------------------------
 
-    def _batch_loop(self):
-        while not self._stop.is_set():
-            try:
-                first = self._queue.get(timeout=0.1)
-            except queue.Empty:
-                continue
-            batch = [first]
-            deadline = time.monotonic() + self._max_wait_s
-            while len(batch) < self._max_batch:
-                remaining = deadline - time.monotonic()
-                if remaining <= 0:
-                    break
-                try:
-                    batch.append(self._queue.get(timeout=remaining))
-                except queue.Empty:
-                    break
-            self._run_batch(batch)
+    def _count(self, amounts: dict):
+        """Add to ``stats`` in one update: a reader that copies it without
+        the lock sees all of a dispatch's counts or none."""
+        with self._stats_lock:
+            self.stats.update({k: self.stats[k] + v for k, v in amounts.items()})
 
-    def _run_batch(self, batch):
+    def _batch_loop(self):
+        laps = _Laps()
+        while not self._stop.is_set():
+            with laps.phase("serve.starved"):
+                try:
+                    first = self._queue.get(timeout=0.1)
+                except queue.Empty:
+                    first = None
+            if first is None:
+                self._count(laps.take())  # idle time is counted as it passes
+                continue
+            first.t_taken = laps.last
+            batch = [first]
+            with laps.phase("serve.gather"):
+                deadline = first.t_taken + self._max_wait_s
+                while len(batch) < self._max_batch:
+                    remaining = deadline - time.perf_counter()
+                    if remaining <= 0:
+                        break
+                    try:
+                        req = self._queue.get(timeout=remaining)
+                    except queue.Empty:
+                        break
+                    req.t_taken = time.perf_counter()
+                    batch.append(req)
+            self._run_batch(batch, laps)
+        self._count(laps.take())
+
+    def _wait_device(self):
+        """Block until the device's work queued so far on the first
+        replica's device has ended (the other replicas' results are
+        gathered there first)."""
+        if self._done is not None:
+            self._done.record(torch.cuda.current_stream(self._device))
+            self._done.synchronize()
+
+    def _run_batch(self, batch, laps: _Laps):
+        """One dispatch: assemble, upload, queue every kernel, wait for the
+        device, download, answer; ``laps`` (the batcher's) times its
+        phases."""
         try:
             n = len(batch)
-            b = _bucket(n, self._buckets)
-            frames = np.zeros((b, self._H, self._W, 3), np.uint8)
-            queries = np.zeros((n, self._Q, self._D), np.float32)
-            valid = np.zeros((n, self._Q), bool)
-            for i, req in enumerate(batch):
-                frames[i] = req.rgb
-                if req.queries is not None:
-                    q = req.queries.shape[0]
-                    queries[i, :q] = req.queries
-                    valid[i, :q] = True
-            with torch.inference_mode():
-                out, idx, dist = self._forward(frames, queries if valid.any() else None, n)
+            with laps.phase("serve.assemble"):
+                b = _bucket(n, self._buckets)
+                frames = np.zeros((b, self._H, self._W, 3), np.uint8)
+                queries = np.zeros((n, self._Q, self._D), np.float32)
+                valid = np.zeros((n, self._Q), bool)
+                for i, req in enumerate(batch):
+                    frames[i] = req.rgb
+                    if req.queries is not None:
+                        q = req.queries.shape[0]
+                        queries[i, :q] = req.queries
+                        valid[i, :q] = True
+                match = bool(valid.any())
                 need = [i for i, r in enumerate(batch) if r.queries is None]
-                desc_h = None
-                if need:
-                    # one gathered device->host copy for every descriptors request
-                    sel = torch.as_tensor(need, device=self._device)
-                    desc_h = out[sel].permute(0, 2, 3, 1).cpu().numpy()
-                uv_h = dist_h = None
-                if idx is not None:
-                    idx = idx.to(torch.int64)
-                    uv = torch.stack([idx % self._W, idx // self._W], dim=-1)
-                    dist = torch.where(torch.from_numpy(valid).to(self._device), dist,
-                                       torch.full_like(dist, math.inf))
-                    uv_h = uv.to(torch.int32).cpu().numpy()
-                    dist_h = dist.cpu().numpy()
-            desc_pos = {i: k for k, i in enumerate(need)}
-            with self._stats_lock:
-                self.stats["dispatches"] += 1
-                self.stats["frames"] += n
-                self.stats["match_dispatches"] += idx is not None
-            for i, req in enumerate(batch):
-                req.result = (
-                    desc_h[desc_pos[i]] if i in desc_pos else None,
-                    None if uv_h is None else uv_h[i],
-                    None if dist_h is None else dist_h[i])
-                req.event.set()
+            with torch.inference_mode():
+                with laps.phase("serve.upload"):
+                    valid_d = torch.from_numpy(valid).to(self._device) if match else None
+                    sel = torch.as_tensor(need, device=self._device) if need else None
+                out, idx, dist = self._forward(frames, queries if match else None, n, laps)
+                with laps.phase("serve.launch"):
+                    # one gathered copy for every descriptors request
+                    desc = None if sel is None else out[sel].permute(0, 2, 3, 1).contiguous()
+                    uv = None
+                    if idx is not None:
+                        idx = idx.to(torch.int64)
+                        uv = torch.stack([idx % self._W, idx // self._W], dim=-1).to(torch.int32)
+                        dist = torch.where(valid_d, dist, torch.full_like(dist, math.inf))
+                with laps.phase("serve.device_wait"):
+                    self._wait_device()
+                with laps.phase("serve.download"):
+                    desc_h = None if desc is None else desc.cpu().numpy()
+                    uv_h = None if uv is None else uv.cpu().numpy()
+                    dist_h = None if uv is None else dist.cpu().numpy()
+            with laps.phase("serve.fanout"):
+                desc_pos = {i: k for k, i in enumerate(need)}
+                results = [(desc_h[desc_pos[i]] if i in desc_pos else None,
+                            None if uv_h is None else uv_h[i],
+                            None if dist_h is None else dist_h[i]) for i in range(n)]
+                # counted before any answer is out; the fan-out's own time
+                # is counted with the next dispatch's phases
+                self._count(dict(laps.take(), dispatches=1, frames=n,
+                                 match_dispatches=int(uv is not None)))
+                for req, result in zip(batch, results):
+                    req.result = result
+                    req.t_answered = time.perf_counter()
+                    req.event.set()
         except Exception as e:  # surface device errors to every waiter
             for req in batch:
                 req.error = f"{type(e).__name__}: {e}"
+                req.t_answered = time.perf_counter()
                 req.event.set()
 
-    def _submit(self, rgb: np.ndarray, queries=None):
-        """:return: (descriptors [H, W, D] np or None, uv [Qmax, 2],
-        dist [Qmax])"""
+    def _submit(self, rgb: np.ndarray, queries=None, t_read=None) -> _Request:
+        """Queue one frame request and wait for its answer.
+
+        :return: the answered request; its ``result`` is (descriptors
+            [H, W, D] np or None, uv [Qmax, 2], dist [Qmax])
+        """
         if self._stop.is_set():
             raise RuntimeError("server shut down")
-        req = _Request(rgb, queries)
-        self._queue.put(req)
-        while not req.event.wait(0.1):
-            if self._stop.is_set() and not self._batcher.is_alive():
-                self._fail_queued()  # enqueued after shutdown() drained the queue
+        req = _Request(rgb, queries, t_read)
+        with _span("serve.wait"):
+            req.t_put = time.perf_counter()
+            self._queue.put(req)
+            while not req.event.wait(0.1):
+                if self._stop.is_set() and not self._batcher.is_alive():
+                    self._fail_queued()  # enqueued after shutdown() drained the queue
         if req.error is not None:
             raise RuntimeError(req.error)
-        return req.result
+        return req
+
+    def _count_reply(self, req: _Request):
+        """The reply has been sent: add the request's handler times."""
+        req.t_sent = time.perf_counter()
+        self._count({"queue_wait_s": req.t_taken - req.t_put,
+                     "handler_s": (req.t_put - req.t_read) + (req.t_sent - req.t_answered)})
 
     # -- protocol ------------------------------------------------------------
 
@@ -512,8 +645,7 @@ class DescriptorServer:
 
     def _handle_request(self, header, rfile, wfile):
         op = header.get("op")
-        with self._stats_lock:
-            self.stats["requests"] += 1
+        self._count({"requests": 1})
         if op == "ping":
             self._send(wfile, {"ok": True})
         elif op == "info":
@@ -526,28 +658,38 @@ class DescriptorServer:
                 "stats": stats,
             })
         elif op == "descriptors":
-            rgb = self._read_frame(header, rfile)
-            rdtype = header.get("response_dtype", "float32")
-            if rdtype not in ("float32", "float16"):
-                raise ValueError(f"bad response_dtype: {rdtype!r}")
-            res, _, _ = self._submit(rgb)
-            wire = res.astype("<f2" if rdtype == "float16" else "<f4")
-            self._send(wfile, {"ok": True, "shape": list(res.shape),
-                               "dtype": rdtype}, wire.tobytes())
+            t_read = time.perf_counter()
+            with _span("serve.read"):
+                rgb = self._read_frame(header, rfile)
+                rdtype = header.get("response_dtype", "float32")
+                if rdtype not in ("float32", "float16"):
+                    raise ValueError(f"bad response_dtype: {rdtype!r}")
+            req = self._submit(rgb, None, t_read)
+            with _span("serve.reply"):
+                res = req.result[0]
+                wire = res.astype("<f2" if rdtype == "float16" else "<f4")
+                self._send(wfile, {"ok": True, "shape": list(res.shape),
+                                   "dtype": rdtype}, wire.tobytes())
+            self._count_reply(req)
         elif op == "best_match":
-            rgb = self._read_frame(header, rfile)  # drains payload first
-            queries = np.asarray(header.get("queries", []), np.float32)
-            if queries.ndim != 2 or queries.shape[1] != self._D:
-                raise ValueError(f"queries must be [Q, {self._D}]")
-            q = queries.shape[0]
-            if q > self._Q:
-                raise ValueError(
-                    f"too many queries: {q} > max_queries {self._Q}")
-            _, uv, dist = self._submit(rgb, queries)
-            uv, dist = uv[:q], dist[:q]
-            self._send(wfile, {"ok": True, "num_queries": q,
-                               "dtype": "int32+float32"},
-                       uv.astype("<i4").tobytes() + dist.astype("<f4").tobytes())
+            t_read = time.perf_counter()
+            with _span("serve.read"):
+                rgb = self._read_frame(header, rfile)  # drains payload first
+                queries = np.asarray(header.get("queries", []), np.float32)
+                if queries.ndim != 2 or queries.shape[1] != self._D:
+                    raise ValueError(f"queries must be [Q, {self._D}]")
+                q = queries.shape[0]
+                if q > self._Q:
+                    raise ValueError(
+                        f"too many queries: {q} > max_queries {self._Q}")
+            req = self._submit(rgb, queries, t_read)
+            with _span("serve.reply"):
+                _, uv, dist = req.result
+                uv, dist = uv[:q], dist[:q]
+                self._send(wfile, {"ok": True, "num_queries": q,
+                                   "dtype": "int32+float32"},
+                           uv.astype("<i4").tobytes() + dist.astype("<f4").tobytes())
+            self._count_reply(req)
         else:
             raise ValueError(f"unknown op: {op!r}")
 

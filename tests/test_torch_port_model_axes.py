@@ -28,7 +28,7 @@ import numpy as np
 import pytest
 import torch
 
-from pdc_tpu_torch.apps.serve import DescriptorServer, _Request
+from pdc_tpu_torch.apps.serve import DescriptorServer, _Laps, _Request
 from pdc_tpu_torch.data.assembler import AssemblerConfig
 from pdc_tpu_torch.data.dataset import SpartanDataset
 from pdc_tpu_torch.data.synthetic import SyntheticScene
@@ -773,7 +773,7 @@ def test_model_parallel_server_answers_as_the_plain_server(ref):
             assert server._buckets == (1, 2, 4)
             batch = [_Request(frames[0], queries[0]), _Request(frames[1]),
                      _Request(frames[2], queries[2])]
-            server._run_batch(batch)
+            server._run_batch(batch, _Laps())
             assert all(r.error is None for r in batch), [r.error for r in batch]
             answers.append([r.result for r in batch])
         finally:

@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from pdc_tpu_torch.apps.serve import DescriptorServer, _Request
+from pdc_tpu_torch.apps.serve import DescriptorServer, _Laps, _Request
 from pdc_tpu_torch.data.assembler import AssemblerConfig
 from pdc_tpu_torch.data.dataset import SpartanDataset
 from pdc_tpu_torch.data.synthetic import SyntheticScene
@@ -666,7 +666,7 @@ def test_data_parallel_server_answers_in_request_order():
             assert server._buckets == ((1, 2, 4) if devices is None else (2, 4))
             batch = [_Request(frames[0], queries[0]), _Request(frames[1]),
                      _Request(frames[2], queries[2])]
-            server._run_batch(batch)
+            server._run_batch(batch, _Laps())
             assert all(r.error is None for r in batch), [r.error for r in batch]
             answers.append([r.result for r in batch])
         finally:

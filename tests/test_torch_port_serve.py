@@ -17,7 +17,7 @@ from pdc_tpu.apps.serve import DescriptorServer as JaxServer
 from pdc_tpu.models.dcn import DenseCorrespondenceNetwork as JaxDCN
 from pdc_tpu_torch import __main__ as cli
 from pdc_tpu_torch.apps import serve
-from pdc_tpu_torch.apps.serve import DescriptorClient, DescriptorServer, _Request
+from pdc_tpu_torch.apps.serve import DescriptorClient, DescriptorServer, _Laps, _Request
 from pdc_tpu_torch.models.convert import flax_to_state_dict
 from pdc_tpu_torch.models.dcn import DenseCorrespondenceNetwork
 from pdc_tpu_torch.ops import best_match as bm
@@ -351,7 +351,7 @@ def test_run_batch_direct_invalid_query_slots_are_inf(dcn):
 
         serve.best_match = counting
         try:
-            s._run_batch(batch)
+            s._run_batch(batch, _Laps())
         finally:
             serve.best_match = real
         assert calls == [(2, D, H * W)]
@@ -373,7 +373,7 @@ def test_device_errors_reach_every_waiter(dcn, monkeypatch):
             raise RuntimeError("kernel launch failed")
         monkeypatch.setattr(serve, "best_match", boom)
         batch = [_Request(_frame(1), np.zeros((1, D), np.float32)), _Request(_frame(2))]
-        s._run_batch(batch)
+        s._run_batch(batch, _Laps())
         assert all(r.event.is_set() and "kernel launch failed" in r.error for r in batch)
     finally:
         s.shutdown()
