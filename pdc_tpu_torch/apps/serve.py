@@ -12,7 +12,11 @@ of clients over TCP, with cross-request microbatching.
   answer ``dist = inf``.
 - Batches are padded to power-of-two buckets up to ``max_batch``, as in
   ``pdc_tpu``; a single batcher thread coalesces up to ``max_batch`` frames
-  or ``max_wait_ms`` of arrivals into one dispatch.
+  or ``max_wait_ms`` of arrivals into one dispatch. A connection has at
+  most one request in flight, so the batcher closes a batch at once when
+  nothing is queued and every open connection's frame is already in it:
+  ``max_wait_ms`` bounds the wait only while another connection could
+  still send.
 - Like the JAX server, the served descriptors skip the network's
   ``normalize`` option (``pdc_tpu/apps/serve.py:239-242``).
 - A dispatch queues all of its device work (the forward, the best match,
@@ -22,7 +26,8 @@ of clients over TCP, with cross-request microbatching.
   The descriptors arrive C-contiguous, so a reply is encoded without a
   transposition on the host.
 
-- Tracing: ``stats`` counts requests, dispatches and frames, and sums the
+- Tracing: ``stats`` counts requests, dispatches, frames and the
+  dispatches closed early by the rule above (``closed_early``), and sums the
   seconds of the batcher's phases (``starved_s``, ``gather_s``,
   ``upload_s``, ``device_wait_s``, ``download_s``, ``batcher_host_s``:
   together its wall time) and of the handlers' work on frame requests
@@ -213,12 +218,15 @@ class _Request:
     its frame's read, its put on the queue, the batcher taking it, its
     answer being set and its reply being sent."""
 
-    __slots__ = ("rgb", "queries", "event", "result", "error",
+    __slots__ = ("rgb", "queries", "via_connection", "event", "result", "error",
                  "t_read", "t_put", "t_taken", "t_answered", "t_sent")
 
-    def __init__(self, rgb, queries=None, t_read=None):
+    def __init__(self, rgb, queries=None, t_read=None, via_connection=False):
         self.rgb = rgb
         self.queries = queries  # [Q, D] float32 or None (descriptors op)
+        # sent by a connection's handler, which waits for it before reading
+        # that connection's next request
+        self.via_connection = via_connection
         self.event = threading.Event()
         self.result = None  # (descriptors [H, W, D] or None, uv [Qmax, 2], dist [Qmax])
         self.error: Optional[str] = None
@@ -262,7 +270,10 @@ class DescriptorServer:
         stats.
     :param max_batch: largest fused batch (power-of-two buckets below it).
     :param max_wait_ms: how long the batcher waits for more requests once
-        one arrives; it bounds the added latency.
+        one arrives, while another open connection could still send one; it
+        bounds the added latency. A batch of requests from connections
+        alone closes at once when every open connection's request is in it
+        and none is queued.
     :param max_queries: per-request best-match query budget.
     :param devices: one replica of the network per device (data
         parallelism); None serves on the network's device alone.
@@ -309,7 +320,7 @@ class DescriptorServer:
         # match_dispatches: dispatches that launched the best-match kernel;
         # the seconds: see the module docstring
         self.stats = {"requests": 0, "dispatches": 0, "frames": 0, "match_dispatches": 0,
-                      **dict.fromkeys(_BATCHER_PHASES + _HANDLER_TIMES, 0.0)}
+                      "closed_early": 0, **dict.fromkeys(_BATCHER_PHASES + _HANDLER_TIMES, 0.0)}
         self._stats_lock = threading.Lock()  # handler threads race on stats
         # marks the end of a dispatch's device work
         self._done = torch.cuda.Event() if self._device.type == "cuda" else None
@@ -455,6 +466,9 @@ class DescriptorServer:
             self.stats.update({k: self.stats[k] + v for k, v in amounts.items()})
 
     def _batch_loop(self):
+        """Take the first queued request, gather more up to ``max_batch`` or
+        ``max_wait_ms`` after it, and dispatch them. ``max_wait_ms`` bounds the
+        wait only while another open connection could still send a frame."""
         laps = _Laps()
         while not self._stop.is_set():
             with laps.phase("serve.starved"):
@@ -467,9 +481,22 @@ class DescriptorServer:
                 continue
             first.t_taken = laps.last
             batch = [first]
+            closed_early = False
             with laps.phase("serve.gather"):
                 deadline = first.t_taken + self._max_wait_s
                 while len(batch) < self._max_batch:
+                    # Each connection has at most one request in flight: once
+                    # every open one's is in the batch and none is queued, no
+                    # frame can join before the deadline. A request from no
+                    # connection (``_submit`` in-process) keeps the window, as
+                    # its callers are unknown. A connection accepted but not yet
+                    # registered by its handler is missed here: that costs its
+                    # frame this batch, never an answer. (No lock: the size of
+                    # a dict and ``empty()`` are single reads.)
+                    if (len(batch) >= len(self._connections) and self._queue.empty()
+                            and all(r.via_connection for r in batch)):
+                        closed_early = True
+                        break
                     remaining = deadline - time.perf_counter()
                     if remaining <= 0:
                         break
@@ -479,7 +506,7 @@ class DescriptorServer:
                         break
                     req.t_taken = time.perf_counter()
                     batch.append(req)
-            self._run_batch(batch, laps)
+            self._run_batch(batch, laps, closed_early)
         self._count(laps.take())
 
     def _wait_device(self):
@@ -490,10 +517,11 @@ class DescriptorServer:
             self._done.record(torch.cuda.current_stream(self._device))
             self._done.synchronize()
 
-    def _run_batch(self, batch, laps: _Laps):
+    def _run_batch(self, batch, laps: _Laps, closed_early: bool = False):
         """One dispatch: assemble, upload, queue every kernel, wait for the
         device, download, answer; ``laps`` (the batcher's) times its
-        phases."""
+        phases; ``closed_early``: its gather ended before the batch was full
+        and before the deadline, every open connection's frame in it."""
         try:
             n = len(batch)
             with laps.phase("serve.assemble"):
@@ -536,7 +564,8 @@ class DescriptorServer:
                 # counted before any answer is out; the fan-out's own time
                 # is counted with the next dispatch's phases
                 self._count(dict(laps.take(), dispatches=1, frames=n,
-                                 match_dispatches=int(uv is not None)))
+                                 match_dispatches=int(uv is not None),
+                                 closed_early=int(closed_early)))
                 for req, result in zip(batch, results):
                     req.result = result
                     req.t_answered = time.perf_counter()
@@ -547,15 +576,17 @@ class DescriptorServer:
                 req.t_answered = time.perf_counter()
                 req.event.set()
 
-    def _submit(self, rgb: np.ndarray, queries=None, t_read=None) -> _Request:
-        """Queue one frame request and wait for its answer.
+    def _submit(self, rgb: np.ndarray, queries=None, t_read=None,
+                via_connection: bool = False) -> _Request:
+        """Queue one frame request and wait for its answer; a connection's
+        handler passes ``via_connection`` (see :meth:`_batch_loop`).
 
         :return: the answered request; its ``result`` is (descriptors
             [H, W, D] np or None, uv [Qmax, 2], dist [Qmax])
         """
         if self._stop.is_set():
             raise RuntimeError("server shut down")
-        req = _Request(rgb, queries, t_read)
+        req = _Request(rgb, queries, t_read, via_connection)
         with _span("serve.wait"):
             req.t_put = time.perf_counter()
             self._queue.put(req)
@@ -664,7 +695,7 @@ class DescriptorServer:
                 rdtype = header.get("response_dtype", "float32")
                 if rdtype not in ("float32", "float16"):
                     raise ValueError(f"bad response_dtype: {rdtype!r}")
-            req = self._submit(rgb, None, t_read)
+            req = self._submit(rgb, None, t_read, via_connection=True)
             with _span("serve.reply"):
                 res = req.result[0]
                 wire = res.astype("<f2" if rdtype == "float16" else "<f4")
@@ -682,7 +713,7 @@ class DescriptorServer:
                 if q > self._Q:
                     raise ValueError(
                         f"too many queries: {q} > max_queries {self._Q}")
-            req = self._submit(rgb, queries, t_read)
+            req = self._submit(rgb, queries, t_read, via_connection=True)
             with _span("serve.reply"):
                 _, uv, dist = req.result
                 uv, dist = uv[:q], dist[:q]
@@ -807,7 +838,9 @@ def main(argv=None):
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=7863)
     p.add_argument("--max_batch", type=int, default=8)
-    p.add_argument("--max_wait_ms", type=float, default=5.0)
+    p.add_argument("--max_wait_ms", type=float, default=5.0,
+                   help="how long a batch waits for more frames while another open "
+                        "connection could still send one")
     p.add_argument("--max_queries", type=int, default=16,
                    help="per-request best-match query budget")
     p.add_argument("--iteration", type=int, default=None)

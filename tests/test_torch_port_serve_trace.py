@@ -5,13 +5,15 @@ in order, the batcher's phases add up to its wall time, no
 range is recorded under one that records all threads, each phase's spans
 cover the time its counter sums, replicas upload in turn with their
 forwards, ``info`` returns the counters, and the answers are those of the
-dispatch before the phases were split, bit for bit."""
+dispatch before the phases were split, bit for bit. The batcher closes a
+gather at once when every open connection's frame is in it, and only then."""
 
 import json
 import math
 import sys
 import threading
 import time
+from contextlib import contextmanager
 
 import numpy as np
 import pytest
@@ -75,9 +77,11 @@ def test_counters_grow_by_the_expected_counts(server):
         assert c.ping()
     d = _delta(dict(server.stats), before)
     assert d["requests"] == n + 1 and d["frames"] == n
-    # one closed-loop client: a dispatch a request, each waiting out max_wait_ms
+    # one closed-loop client: a dispatch a request, each closed at once, as
+    # the only open connection's frame is in it: no wait for max_wait_ms
     assert d["dispatches"] == n and d["match_dispatches"] == n // 2
-    assert d["gather_s"] >= n * 0.010
+    assert d["closed_early"] == n
+    assert d["gather_s"] < n * 0.010 / 2
     assert d["upload_s"] > 0 and d["download_s"] > 0 and d["batcher_host_s"] > 0
     assert d["device_wait_s"] >= 0 and d["starved_s"] >= 0
     assert d["queue_wait_s"] >= 0 and d["handler_s"] > 0
@@ -112,6 +116,84 @@ def test_concurrent_counting_loses_no_update(server):
     d = _delta(dict(server.stats), before)
     assert d["requests"] == d["frames"] == threads_n * each
     assert d["dispatches"] < threads_n * each, "no cross-request batching"
+
+
+@contextmanager
+def _serving(dcn, **kwargs):
+    s = DescriptorServer(dcn, port=0, **kwargs)
+    s.start()
+    try:
+        yield s
+    finally:
+        s.shutdown()
+
+
+def _await_connections(s, n):
+    """Until ``n`` connections' handlers have registered them."""
+    deadline = time.monotonic() + 10
+    while len(s._connections) < n:
+        assert time.monotonic() < deadline, len(s._connections)
+        time.sleep(0.005)
+
+
+def test_an_open_idle_connection_keeps_the_window(dcn):
+    """Two clients connected, one sends: the other could still send, so the
+    dispatch waits out max_wait_ms and is not closed early."""
+    with _serving(dcn, max_batch=4, max_wait_ms=50.0) as s:
+        with DescriptorClient(*s.address, timeout=60.0) as c, \
+                DescriptorClient(*s.address, timeout=60.0):
+            _await_connections(s, 2)
+            before = dict(s.stats)
+            c.best_match(_frame(40), _queries(40))
+            d = _delta(dict(s.stats), before)
+    assert d["dispatches"] == d["frames"] == 1 and d["closed_early"] == 0
+    assert d["gather_s"] >= 0.050
+
+
+def test_every_connections_frame_in_the_batch_closes_it(dcn):
+    """Four clients connect and each send one frame at once, with a 2 s
+    max_wait_ms: one dispatch of the four, closed as the last joins."""
+    frames = [_frame(70 + i) for i in range(4)]
+    results, errors = [None] * 4, []
+    with _serving(dcn, max_batch=8, max_wait_ms=2000.0) as s:
+        barrier = threading.Barrier(5)
+
+        def worker(i):
+            try:
+                with DescriptorClient(*s.address, timeout=60.0) as c:
+                    barrier.wait(timeout=30)
+                    results[i] = c.descriptors(frames[i])
+            except Exception as e:  # pragma: no cover - surfaced via errors
+                errors.append(e)
+
+        threads = [threading.Thread(target=worker, args=(i,)) for i in range(4)]
+        for t in threads:
+            t.start()
+        _await_connections(s, 4)
+        before = dict(s.stats)
+        t0 = time.monotonic()
+        barrier.wait(timeout=30)
+        for t in threads:
+            t.join(timeout=60)
+        elapsed = time.monotonic() - t0
+        d = _delta(dict(s.stats), before)
+    assert not errors, errors
+    assert d["dispatches"] == 1 and d["frames"] == 4 and d["closed_early"] == 1
+    assert elapsed < 1.0 and d["gather_s"] < 1.0, (elapsed, d["gather_s"])
+    for got, rgb in zip(results, frames):
+        np.testing.assert_allclose(got, dcn.forward_on_img(rgb).numpy(), atol=1e-4, rtol=1e-4)
+
+
+def test_a_request_from_no_connection_keeps_the_window(dcn):
+    """``_submit`` in-process, no connection open: its callers are unknown,
+    so the dispatch waits out max_wait_ms."""
+    with _serving(dcn, max_batch=4, max_wait_ms=50.0) as s:
+        before = dict(s.stats)
+        req = s._submit(_frame(41), _queries(41))
+        d = _delta(dict(s.stats), before)
+    assert req.error is None and req.result[1].shape == (s._Q, 2)
+    assert d["dispatches"] == d["frames"] == 1 and d["closed_early"] == 0
+    assert d["gather_s"] >= 0.050
 
 
 def test_one_requests_times_are_in_order(server):
