@@ -15,6 +15,12 @@ only:
   * the ``quant_scales`` collection's ``act_scale`` (a static int8 clone's
     calibrated activation scales) <-> the convolutions' ``act_scale``
     buffers
+  * the ViT's (:mod:`pdc_tpu_torch.models.dinov2`, which the JAX package
+    lacks, so the layout is the port's): a linear ``kernel`` ``[in, out]``
+    <-> ``weight`` ``[out, in]``, a LayerNorm's ``scale``/``bias`` <->
+    ``weight``/``bias`` (no ``batch_stats``), and its parameters of no
+    layer (``cls_token``, ``register_tokens``, ``pos_embed``,
+    ``blocks.{i}.ls{1,2}.gamma``) under their own names
 
 The optimizer state of a ``%06d.ckpt.opt`` file is optax's chain state for
 ``add_decayed_weights``, ``scale_by_adam`` and ``scale_by_learning_rate``
@@ -32,10 +38,14 @@ for torchvision names (:mod:`pdc_tpu_torch.models.torch_import`).
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Iterable, Mapping, Tuple
 
 import numpy as np
 import torch
+
+# the ViT's parameters that belong to no layer (pdc_tpu_torch.models.dinov2)
+_FREE_LEAF = re.compile(r"cls_token|register_tokens|pos_embed|blocks\.\d+\.ls[12]\.gamma")
 
 
 def _hwio_to_oihw(k):
@@ -58,27 +68,32 @@ def _numpy(value):
 
 def flax_params_to_torch(params: Mapping) -> Tuple[Dict[str, torch.Tensor], set]:
     """A flax ``params`` tree (or a tree of its layout, such as Adam's
-    ``mu``) -> ``({parameter name: CPU tensor}, BatchNorm module names)``,
-    named as the port module's ``named_parameters``."""
+    ``mu``) -> ``({parameter name: CPU tensor}, names of the BatchNorm and
+    LayerNorm modules)``, named as the port module's ``named_parameters``."""
     out: Dict[str, torch.Tensor] = {}
     bn: set = set()
 
     def walk(prefix, node):
-        if "kernel" in node:  # convolution
-            out[prefix + "weight"] = torch.from_numpy(_hwio_to_oihw(node["kernel"]))
+        if "kernel" in node:  # convolution, or linear layer
+            kernel = np.asarray(node["kernel"])
+            out[prefix + "weight"] = (_tensor(kernel.T) if kernel.ndim == 2
+                                      else torch.from_numpy(_hwio_to_oihw(kernel)))
             if "bias" in node:
                 out[prefix + "bias"] = _tensor(node["bias"])
             extra = set(node) - {"kernel", "bias"}
-        elif "scale" in node:  # batch norm
+        elif "scale" in node:  # batch norm, or layer norm
             out[prefix + "weight"] = _tensor(node["scale"])
             out[prefix + "bias"] = _tensor(node["bias"])
             bn.add(prefix[:-1])
             extra = set(node) - {"scale", "bias"}
         else:
             for name, child in node.items():
-                if not isinstance(child, Mapping):
+                if isinstance(child, Mapping):
+                    walk(prefix + name + ".", child)
+                elif _FREE_LEAF.fullmatch(prefix + name):
+                    out[prefix + name] = _tensor(child)
+                else:
                     raise ValueError(f"unexpected flax leaf {prefix + name}")
-                walk(prefix + name + ".", child)
             return
         if extra:
             raise ValueError(f"unexpected flax leaves under {prefix}: {sorted(extra)}")
@@ -94,17 +109,23 @@ def torch_params_to_flax(named: Mapping, bn_modules: Iterable[str]) -> dict:
     bn_modules = set(bn_modules)
     params: dict = {}
     for key, value in named.items():
-        module, leaf = key.rsplit(".", 1)
+        module, _, leaf = key.rpartition(".")
         node = params
-        for name in module.split("."):
+        for name in module.split(".") if module else ():
             node = node.setdefault(name, {})
         arr = _numpy(value)
         if module in bn_modules and leaf in ("weight", "bias"):
             node["scale" if leaf == "weight" else "bias"] = np.array(arr, copy=True)
         elif leaf == "weight" and arr.ndim == 4:
             node["kernel"] = _oihw_to_hwio(arr)
+        elif leaf == "weight" and arr.ndim == 2:  # linear
+            node["kernel"] = np.ascontiguousarray(arr.T)
+        elif leaf == "weight" and arr.ndim == 1:  # layer norm
+            node["scale"] = np.array(arr, copy=True)
         elif leaf == "bias":
             node["bias"] = np.array(arr, copy=True)
+        elif _FREE_LEAF.fullmatch(key):
+            node[leaf] = np.array(arr, copy=True)
         else:
             raise ValueError(f"unexpected parameter {key}")
     return params
@@ -140,6 +161,8 @@ def flax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
         node = stats
         for name in module.split("."):
             node = node.get(name, {})
+        if not node:  # a layer norm, which has no statistics
+            continue
         sd[module + ".running_mean"] = _tensor(node["mean"])
         sd[module + ".running_var"] = _tensor(node["var"])
         sd[module + ".num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
@@ -154,7 +177,7 @@ def state_dict_to_flax(state_dict: Mapping) -> Dict[str, dict]:
     is_bn = {k.rsplit(".", 1)[0] for k in state_dict if k.endswith(".running_mean")}
     named, stats, scales = {}, {}, {}
     for key, value in state_dict.items():
-        module, leaf = key.rsplit(".", 1)
+        module, _, leaf = key.rpartition(".")
         if leaf == "act_scale":
             node = scales
             for name in module.split("."):

@@ -29,16 +29,17 @@ import torch
 
 from pdc_tpu_torch.models.checkpoint import read_checkpoint, write_checkpoint
 from pdc_tpu_torch.models.convert import flax_to_state_dict, state_dict_to_flax
+from pdc_tpu_torch.models.dinov2 import Dinov2FCN
 from pdc_tpu_torch.models.resnet import (
     ResNet18_8s,
     ResNet34_8s,
     ResNet50_8s,
     ResNet101_8s,
-    init_weights_,
     int8_convs,
     quantized_copy,
     set_quantization,
 )
+from pdc_tpu_torch.models.resnet import init_weights_ as init_conv_weights_
 from pdc_tpu_torch.models.unet import UNet
 from pdc_tpu_torch.ops.matching import (
     best_match_for_descriptor,
@@ -64,8 +65,10 @@ def build_backbone(config: dict, dtype=None):
     """The FCN for a ``dense_correspondence_network`` config block
     (``pdc_tpu/models/dcn.py:51-86``): ``backbone.model_class`` ``Resnet``
     (``resnet_name`` Resnet18/34/50/101_8s, with ``dilated_s2b`` and
-    ``remat``) or ``Unet``, and ``quant_int8`` (the int8 serving
-    convolutions; training runs the float ones). The compute dtype is
+    ``remat``), ``Unet``, or ``Dinov2`` (:class:`Dinov2FCN`, its widths as
+    keys of the block, the published ViT-L/14 with registers by default;
+    with ``remat``), and ``quant_int8`` (the int8 serving convolutions;
+    training runs the float ones; no ``Dinov2``). The compute dtype is
     ``dtype`` when given, else the config's ``compute_dtype`` (``float32``
     or ``bfloat16``); the parameters are float32 either way.
     """
@@ -84,11 +87,30 @@ def build_backbone(config: dict, dtype=None):
                                dtype=dtype, remat=bool(config.get("remat", False)))
     elif backbone["model_class"] == "Unet":
         fcn = UNet(d, dtype=dtype)
+    elif backbone["model_class"] == "Dinov2":
+        for key, what in (("quant_int8", "an int8 serving path"),
+                          ("dilated_s2b", "dilated_s2b (a ResNet layout)")):
+            if config.get(key, False):
+                raise ValueError(f"the Dinov2 backbone has no {what}")
+        if backbone.get("pretrained"):
+            raise ValueError("the Dinov2 backbone loads no pretrained weights: "
+                             "backbone.pretrained is for the ResNets")
+        return Dinov2FCN.from_backbone(backbone, d, dtype=dtype,
+                                       remat=bool(config.get("remat", False)))
     else:
         raise ValueError(f"unknown backbone model_class: {backbone['model_class']}")
     if config.get("quant_int8", False):
         set_quantization(fcn, True)
     return fcn
+
+
+def init_weights_(module: torch.nn.Module, generator: torch.Generator) -> torch.nn.Module:
+    """Seeded initialisation of a :func:`build_backbone` module, drawn on
+    the CPU from ``generator``: :meth:`Dinov2FCN.init_weights_` for the ViT,
+    else the convolutions' (:func:`~pdc_tpu_torch.models.resnet.init_weights_`)."""
+    if isinstance(module, Dinov2FCN):
+        return module.init_weights_(generator)
+    return init_conv_weights_(module, generator)
 
 
 class DenseCorrespondenceNetwork:

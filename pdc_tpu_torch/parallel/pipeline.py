@@ -72,7 +72,8 @@ N_SEGMENTS = 4
 
 def _check_model(module) -> None:
     if not isinstance(module, ResNetFCN):
-        raise ValueError("pipeline parallelism supports ResNetFCN backbones")
+        raise ValueError(f"pipeline parallelism supports ResNetFCN backbones, not "
+                         f"{type(module).__name__}")
     if module.output_stride != 8:
         raise ValueError("pipeline parallelism: only output_stride=8")
     if module.use_s2b or module.quant_int8:

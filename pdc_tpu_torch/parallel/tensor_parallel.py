@@ -52,6 +52,7 @@ from typing import Any, Mapping, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from pdc_tpu_torch.models.dinov2 import Dinov2FCN
 from pdc_tpu_torch.models.resnet import Int8Conv
 from pdc_tpu_torch.parallel.mesh import Mesh, shard_leading
 
@@ -513,7 +514,11 @@ def shard_channels(module: torch.nn.Module, channels) -> torch.nn.Module:
     :class:`ColumnParallelConv` holding this process's block(s); the other
     layers are left replicated. ``channels`` is a :class:`MeshChannels` or
     a :class:`LocalChannels`; the module's replicated layers must be on
-    ``channels.devices[0]``. Returns ``module``."""
+    ``channels.devices[0]``. Returns ``module``. The Dinov2 backbone, whose
+    work is in its linear layers and attention, is refused."""
+    if isinstance(module, Dinov2FCN):
+        raise ValueError("tensor parallelism shards the output channels of convolutions: "
+                         "the Dinov2 backbone is not supported")
     return _swap(module, lambda c: ColumnParallelConv(c, channels),
                  lambda m: _shardable(m, channels.n))
 

@@ -8,7 +8,8 @@ Port of :mod:`pdc_tpu.training.train`: ``make_optimizer`` (:56-66),
 (``use_matrix_loss: false``).
 The JAX step is one jitted program that returns a new state; here the step
 runs eagerly and updates the state in place (the module's parameters and
-BatchNorm statistics, the optimizer's moments, the step count).
+BatchNorm statistics, where the backbone has BatchNorm, the optimizer's
+moments, the step count).
 
 The optimizer is Adam with additive weight decay: ``torch.optim.Adam``'s
 ``weight_decay`` adds ``wd * param`` to the gradient before the moments, as
@@ -67,8 +68,8 @@ from pdc_tpu_torch.models.dcn import (
     DenseCorrespondenceNetwork,
     build_backbone,
     find_latest_checkpoint,
+    init_weights_,
 )
-from pdc_tpu_torch.models.resnet import init_weights_
 from pdc_tpu_torch.ops.pooled_hinge import pooled_hinge
 from pdc_tpu_torch.training.schedule import host_lr
 from pdc_tpu_torch.utils.device import resolve_device
@@ -79,8 +80,9 @@ logger = logging.getLogger(__name__)
 
 @dataclasses.dataclass
 class TrainState:
-    """What a step reads and updates: the backbone (parameters and
-    BatchNorm statistics), its optimizer, and the number of steps taken."""
+    """What a step reads and updates: the backbone (parameters and, for
+    the convolutional backbones, BatchNorm statistics), its optimizer, and
+    the number of steps taken."""
 
     module: torch.nn.Module
     optimizer: torch.optim.Optimizer
@@ -142,7 +144,7 @@ def pick_assembly(assembler_cfg: AssemblerConfig, hinge=pooled_hinge):
 
 def build_loss_fn(module: torch.nn.Module, loss_cfg: LossConfig, image_width: int, compose):
     """The train-mode loss of a batch: one forward of the ``[2B]`` images
-    (a then b, so BatchNorm takes its statistics over both), the per-pair
+    (a then b, so a BatchNorm takes its statistics over both), the per-pair
     terms of ``compose`` (:func:`pick_assembly`'s), and their mean over
     non-empty pairs. ``loss_fn(img_a, img_b, indices) -> (loss,
     metrics)``."""
