@@ -8,7 +8,8 @@ Phases, each fatal on failure:
      CUDA versions; TF32 is switched off for matmuls and cuDNN, since every
      number below is compared in fp32;
   2. build: nvcc compiles ``pdc_tpu_torch/csrc/*.cu`` into
-     ``build/pdc_tpu_torch_kernels/`` (first use only);
+     ``build/pdc_tpu_torch_kernels/`` (first use only; K4's other builds,
+     bfloat16 and other head dims, at their first use);
   3. the best-match kernel against its plain PyTorch version and against
      float64 distances, on random shapes (HW % 4 != 0 among them) and on
      real 640x480 descriptor images of the network, B=8 included;
@@ -310,6 +311,21 @@ Phases, each fatal on failure:
      K steps in one call, eagerly (a process group's collectives are not
      captured), and says so. It prints the eager and the graph's ms a step
      by CUDA events and the host ms a call, fp32 and bf16.
+19. the ViT's attention (K4), "ViT attention" (after phase 18). It fails
+     unless (a) at the ViT cell's block (B=8 frames, 16 heads, N=1615, d=64)
+     the flash-attention kernels' o, dq, dk and dv in float32 part from the
+     plain version (``attention_reference``) computed in float64 on the card
+     by less than ATTN_TOL of each one's largest magnitude, while the same
+     kernels with plain TF32 products (the fault split-fp32 guards against)
+     part by more than it in each; (b) in bfloat16 they part by less than
+     ATTN_BF16_TOL; (c) the main path: a ViT at the published widths (ViT-L,
+     16 heads of 64, 640x480, 1615 tokens a frame, ATTN_VIT_DEPTH blocks)
+     through ``make_scanned_train_step`` holds as phase 18 (a) holds
+     ResNet-34-8s, and the call's replays launch K4's forward and backward
+     once a block a step (its counters zeroed just before the call). It
+     prints K4's device times at (a)'s shape beside its bound, the plain
+     version's times and SDPA's memory-efficient kernels' (the library
+     yardstick, which the port never calls), for the kernels line.
 
 The last lines are a JSON object with every kernel's numbers, the
 nvidia-smi line, and ``{"ok": true, "device": {...}}``. Without CUDA, or when the
@@ -692,8 +708,7 @@ def templates_text(report):
 def new_train_state(torch, tc):
     """The backbone of the training config ``tc``, initialised from SEED, on
     the card with its optimizer."""
-    from pdc_tpu_torch.models.dcn import build_backbone
-    from pdc_tpu_torch.models.resnet import init_weights_
+    from pdc_tpu_torch.models.dcn import build_backbone, init_weights_
     from pdc_tpu_torch.training.train import create_train_state
 
     module = init_weights_(build_backbone(tc["dense_correspondence_network"]),
@@ -4046,6 +4061,7 @@ def _scan_case(torch, np, dev, ph, tc, ds, cache, what):
 
     from pdc_tpu_torch.data.assembler import AssemblerConfig
     from pdc_tpu_torch.losses.pixelwise_contrastive import LossConfig
+    from pdc_tpu_torch.ops import flash_attention as fa
     from pdc_tpu_torch.training.scanned import (
         make_device_sampled_train_step,
         make_scanned_train_step,
@@ -4085,6 +4101,7 @@ def _scan_case(torch, np, dev, ph, tc, ds, cache, what):
                      "ms": [a.elapsed_time(b) for a, b in events],
                      "host_ms": [1e3 * x for x in host]})
     ph.forward_launches = ph.backward_launches = 0
+    fa.forward_launches = fa.backward_launches = 0
     e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     torch.cuda.synchronize()
     e[0].record()
@@ -4094,6 +4111,7 @@ def _scan_case(torch, np, dev, ph, tc, ds, cache, what):
     e[1].record()
     torch.cuda.synchronize()
     launches = (ph.forward_launches, ph.backward_launches)
+    attention = (fa.forward_launches, fa.backward_launches)
     graph_ms = e[0].elapsed_time(e[1]) / SCAN_K
     losses = [float(x) for x in m["loss"]]
 
@@ -4128,7 +4146,7 @@ def _scan_case(torch, np, dev, ph, tc, ds, cache, what):
         fail(f"scanned {what}: the graph's {SCAN_K} steps disagree with {SCAN_K} eager steps")
     return {"capture_s": capture_s, "eager_ms": eager_ms, "graph_ms": graph_ms,
             "host_ms": host_ms, "eager_host_ms": float(np.mean(runs[0]["host_ms"][1:])),
-            "launches": launches, "spread": got, "f4": f4}
+            "launches": launches, "attention_launches": attention, "spread": got, "f4": f4}
 
 
 def check_scanned(torch, np, dev, bm, ph, tmp, smi):
@@ -4230,6 +4248,172 @@ def check_scanned(torch, np, dev, bm, ph, tmp, smi):
     return out
 
 
+# -- the ViT's attention (K4) ---------------------------------------------------------
+
+# phase 19: (B, heads, N, d) of the ViT cell's attention (8 frames of 1615 tokens)
+ATTN_SHAPE = (8, 16, 1615, 64)
+# Split-fp32 products carry about 2^-21 of relative error a term; over sums of up to
+# 1615 terms and the softmax, o, dq, dk and dv part from float64 by about 1e-6 of their
+# largest magnitude, so 2e-5. Plain TF32 products (2^-11) part by 1e-3 or more.
+ATTN_TOL = 2e-5
+# bfloat16 rounds q, k, v, p and ds to 8 bits (2^-9)
+ATTN_BF16_TOL = 2e-2
+# (c): the published ViT-L widths, this many blocks (the cell has 24)
+ATTN_VIT_DEPTH = 4
+# the rate of split-fp32 products: H100 SXM TF32 (495 TFLOP/s) over three products
+PEAK_SPLIT_FP32_S = 495e12 / 3
+
+
+def attention_errors(torch, fa, qkv, do, heads):
+    """max |kernels - float64| / max |float64| of o, dq, dk, dv; the float64
+    side is the plain version, differentiated by autograd."""
+    scale = (qkv.shape[-1] // 3 // heads) ** -0.5
+    x = qkv.clone().requires_grad_(True)
+    o = fa.flash_attention(x, heads, scale)
+    (g,) = torch.autograd.grad(o, x, do)
+    torch.cuda.synchronize()
+    x64 = qkv.detach().double().requires_grad_(True)
+    o64 = fa.attention_reference(x64, heads, scale)
+    (g64,) = torch.autograd.grad(o64, x64, do.double())
+    C = qkv.shape[-1] // 3
+    pairs = [("o", o, o64)] + list(zip(("dq", "dk", "dv"), g.split(C, -1), g64.split(C, -1)))
+    out = {k: float((a.detach().double() - b).abs().max() / b.abs().max()) for k, a, b in pairs}
+    del x64, o64, g64
+    torch.cuda.empty_cache()
+    return out
+
+
+def attention_bound(B, heads, N, d, backward):
+    """Least time of K4's forward (q k^T, p v) or backward (dp, dv, dk, dq;
+    the recomputed q k^T not counted): 2 N^2 d operations a product and
+    head, at the FFMA peak, against its tensors read and written once.
+    Returns (ms, bound by, ms at the split-fp32 rate)."""
+    products = 4 if backward else 2
+    ops = products * 2 * B * heads * N * N * d
+    C = heads * d
+    nbytes = 4 * B * N * C * (3 + 1 + 1 + 3 if backward else 3 + 1)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_FP32_S
+    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            1e3 * ops / PEAK_SPLIT_FP32_S)
+
+
+def check_attention(torch, np, dev, ph, smi):
+    """The phase "ViT attention": (a)-(c) of the module docstring. Returns
+    K4's numbers for the kernels line."""
+    import copy
+
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from pdc_tpu_torch.data.dataset import SpartanDataset
+    from pdc_tpu_torch.data.device_cache import DeviceCache
+    from pdc_tpu_torch.ops import flash_attention as fa
+
+    B, H, N, d = ATTN_SHAPE
+    g = torch.Generator(device=dev).manual_seed(SEED + 19)
+    qkv = torch.randn((B, N, 3 * H * d), generator=g, device=dev)
+    do = torch.randn((B, N, H * d), generator=g, device=dev)
+    # (a) float32 against float64, and the plain-TF32 fault
+    err = attention_errors(torch, fa, qkv, do, H)
+    fa.FLOAT32_PRECISION = "tf32"
+    try:
+        fault = attention_errors(torch, fa, qkv, do, H)
+    finally:
+        fa.FLOAT32_PRECISION = "tf32x3"
+    # (b) bfloat16
+    err16 = attention_errors(torch, fa, qkv.bfloat16(), do.bfloat16(), H)
+    log(f"K4 at {ATTN_SHAPE} (B, heads, N, d) against the plain version in float64, max "
+        f"error over max magnitude: float32 {err} (bar {ATTN_TOL}); plain TF32 products "
+        f"(the fault) {fault}; bfloat16 {err16} (bar {ATTN_BF16_TOL})")
+    if (max(err.values()) >= ATTN_TOL or min(fault.values()) <= ATTN_TOL
+            or max(err16.values()) >= ATTN_BF16_TOL):
+        fail("K4 disagrees with its plain version, or its plain-TF32 fault passes")
+
+    # (c) the main path: the published widths' ViT on the scanned, graphed step
+    tc = copy.deepcopy(TRAINING_CONFIG)
+    tc["dense_correspondence_network"]["backbone"] = {"model_class": "Dinov2",
+                                                      "depth": ATTN_VIT_DEPTH}
+    ds = SpartanDataset.make_synthetic(**DATASET_RECORD["synthetic"])
+    ds.set_parameters_from_training_config(tc)
+    cache = DeviceCache.from_dataset(ds, device=dev)
+    vit = _scan_case(torch, np, dev, ph, tc, ds, cache, f"ViT-L x {ATTN_VIT_DEPTH} blocks")
+    want = (ATTN_VIT_DEPTH * SCAN_K,) * 2
+    log(f"K4 on the main path: the graphed call of {SCAN_K} steps launched forward and "
+        f"backward {vit['attention_launches']} times ({want} expected: one a block a step)")
+    if vit["attention_launches"] != want:
+        fail("K4: the ViT's graphed train step did not run the attention kernels")
+    del cache, ds
+    torch.cuda.empty_cache()
+
+    # timings at (a)'s shape: the kernels, the plain version, SDPA beside them
+    scale = d ** -0.5
+    o, lse = fa._attention_op(qkv, H, scale)
+    out = {"launches": vit["attention_launches"], "err": err, "fault": fault, "err16": err16}
+    out["fwd_ms"] = time_device(torch, lambda: fa._attention_op(qkv, H, scale), iters=10)
+    out["bwd_ms"] = time_device(
+        torch, lambda: fa._attention_backward_op(do, qkv, o, lse, H, scale), iters=10)
+    out["fwd_wrapper_ms"] = time_cuda(torch, lambda: fa.flash_attention(qkv, H, scale),
+                                      iters=10)
+    out["bwd_wrapper_ms"] = time_cuda(
+        torch, lambda: fa._attention_backward_op(do, qkv, o, lse, H, scale), iters=10)
+    out["split"] = profile_split(
+        torch, lambda: (fa._attention_op(qkv, H, scale),
+                        fa._attention_backward_op(do, qkv, o, lse, H, scale)), iters=5)
+    x = qkv.clone().requires_grad_(True)
+    plain_o = fa.attention_reference(x, H, scale)
+    out["plain_fwd_ms"] = time_device(torch, lambda: fa.attention_reference(qkv, H, scale),
+                                      iters=3)
+    out["plain_bwd_ms"] = time_device(
+        torch, lambda: torch.autograd.grad(plain_o, x, do, retain_graph=True), iters=3)
+    del plain_o, x
+    q, k, v = [t.contiguous().requires_grad_(True)
+               for t in qkv.reshape(B, N, 3, H, d).permute(2, 0, 3, 1, 4)]
+    sdo = do.reshape(B, N, H, d).transpose(1, 2).contiguous()
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        so = torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=scale)
+        out["library_fwd_ms"] = time_device(
+            torch, lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v,
+                                                                            scale=scale),
+            iters=10)
+        out["library_bwd_ms"] = time_device(
+            torch, lambda: torch.autograd.grad(so, (q, k, v), sdo, retain_graph=True), iters=10)
+    del so, q, k, v, sdo
+    for kind, backward in (("fwd", False), ("bwd", True)):
+        out[f"bound_{kind}_ms"], out[f"bound_{kind}_by"], out[f"split_fp32_{kind}_ms"] = (
+            attention_bound(B, H, N, d, backward))
+    log(smi)
+    log(f"K4 device times at {ATTN_SHAPE}: forward {out['fwd_ms']:.5f} ms (wrapper "
+        f"{out['fwd_wrapper_ms']:.5f}), backward {out['bwd_ms']:.5f} ms (wrapper "
+        f"{out['bwd_wrapper_ms']:.5f}); bound at the FFMA peak {out['bound_fwd_ms']:.5f} and "
+        f"{out['bound_bwd_ms']:.5f} ms ({out['bound_fwd_by']}), at "
+        f"{100 * out['bound_fwd_ms'] / out['fwd_ms']:.1f}% and "
+        f"{100 * out['bound_bwd_ms'] / out['bwd_ms']:.1f}% of it; at the split-fp32 rate "
+        f"{out['split_fp32_fwd_ms']:.5f} and {out['split_fp32_bwd_ms']:.5f} ms; plain "
+        f"{out['plain_fwd_ms']:.4f} and {out['plain_bwd_ms']:.4f} ms; SDPA's memory-efficient "
+        f"kernels (never called by the port) {out['library_fwd_ms']:.5f} and "
+        f"{out['library_bwd_ms']:.5f} ms")
+    log(f"K4 {split_text(out['split'])}")
+    del qkv, do, o, lse
+    torch.cuda.empty_cache()
+    return out
+
+
+def attention_entries(k4):
+    """The kernels line's K4 entries, forward and backward."""
+    out = []
+    for kind, what in (("fwd", "flash_fwd"), ("bwd", "flash_bwd_dq + flash_bwd_dkdv")):
+        out.append({"name": f"flash_attention_{kind}", "route": "cuda",
+                    "source": "pdc_tpu_torch/csrc/flash_attention.cu", "kernels": what,
+                    "replaces": None, "launches": k4["launches"][kind == "bwd"],
+                    "launches_by_path": {"ViT scanned step": k4["launches"][kind == "bwd"]},
+                    "max_abs_err": max(k4["err"].values()), "ms": k4[f"{kind}_ms"],
+                    "device_ms": k4[f"{kind}_ms"], "wrapper_ms": k4[f"{kind}_wrapper_ms"],
+                    "plain_ms": k4[f"plain_{kind}_ms"], "bound_ms": k4[f"bound_{kind}_ms"],
+                    "bound_by": k4[f"bound_{kind}_by"],
+                    "split_fp32_ms": k4[f"split_fp32_{kind}_ms"],
+                    "library_ms": k4[f"library_{kind}_ms"]})
+    return out
+
+
 def flatten(tree, prefix=""):
     """{'a/b': leaf} of a nested dict."""
     out = {}
@@ -4289,6 +4473,8 @@ def main():
     log("K2 templates (ptxas): " + templates_text(
         {k: v for k, v in hinge_ptxas.items() if k.startswith("hinge_bwd")}))
     log("K3 templates (ptxas): " + templates_text(kernel_templates(_build, "best_match")))
+    log("K4 templates, float32 at split-fp32, 64-wide head-dim tile (ptxas): "
+        + templates_text(kernel_templates(_build, "flash_attention")))
     phase("build", t0)
 
     # 3. kernel against plain version -------------------------------------------
@@ -4609,6 +4795,11 @@ def main():
         scan18 = check_scanned(torch, np, dev, bm, ph, tree, smi)
         torch.cuda.empty_cache()
         phase("K steps per dispatch", t0)
+
+        # 19. the ViT's attention (K4) ------------------------------------------------
+        t0 = time.perf_counter()
+        k4 = check_attention(torch, np, dev, ph, smi)
+        phase("ViT attention", t0)
     finally:
         shutil.rmtree(tree, ignore_errors=True)
 
@@ -4951,7 +5142,7 @@ def main():
     phase("timings", t0)
 
     faulthandler.cancel_dump_traceback_later()
-    log(json.dumps({"kernels": [entry, k1_entry, k2_entry]}))
+    log(json.dumps({"kernels": [entry, k1_entry, k2_entry, *attention_entries(k4)]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -8,6 +8,9 @@ step: uint8 RGB ``[B, H, W, 3]`` -> divide by 255 -> mean/std normalisation
 float32 ``[B, H, W, D]`` descriptor images. The trained weights are part of
 the program, so ``torch.export.load(path).module()(rgb_u8)`` serves it with
 PyTorch alone: no ``pdc_tpu_torch``, no model code, no checkpoint files.
+A ViT's program (``model_class: Dinov2``) is the exception: it calls the
+attention kernels' operators (``pdc_tpu::flash_attention``), so it loads and
+runs where ``pdc_tpu_torch.ops.flash_attention`` has been imported.
 Like the JAX package's export (and both servers), the program leaves out
 the network's ``normalize`` option.
 

@@ -31,11 +31,14 @@ register tokens and ``G`` the position grid:
      ``Linear(C, D, bias)``, the port's bilinear resize to ``(Hp, Wp)``,
      then the crop to ``[:H, :W]``.
 
-Attention runs through ``F.scaled_dot_product_attention`` restricted to its
-fused backends (memory-efficient and flash), which keep no ``N x N`` tensor
-for the backward; in float32 on an H100 that is the memory-efficient
-kernel. A shape that no fused backend takes raises instead of falling back
-to the plain form.
+Attention runs through :func:`~pdc_tpu_torch.ops.flash_attention.flash_attention`:
+on the card the repository's flash-attention kernels (K4,
+``csrc/flash_attention.cu``: one forward launch a block and a backward of
+two, float32 products at split-fp32), which read q, k and v where the qkv
+projection put them, write o where the output projection reads it and
+keep no ``N x N`` tensor for the backward; on the CPU its plain version. A shape that the kernels do not
+take (a head dim that is not a multiple of 16 up to 128) raises on the
+card instead of falling back to the plain form.
 
 Departures from the hub model: no ``mask_token`` (DINOv2 uses it only in
 pretraining), drop path 0, the zero padding to a multiple of the patch, and
@@ -66,16 +69,14 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
-from torch.nn.attention import SDPBackend, sdpa_kernel
 from torch.profiler import record_function
 
 from pdc_tpu_torch.models.resnet import _truncated_normal_, resize_bilinear
+from pdc_tpu_torch.ops.flash_attention import flash_attention
 
 # the published dinov2_vitl14_reg widths: the defaults of a Dinov2 backbone
 DEFAULTS = {"embed_dim": 1024, "depth": 24, "num_heads": 16, "mlp_ratio": 4, "patch_size": 14,
             "num_register_tokens": 4, "pos_grid": 37, "layer_norm_eps": 1e-6}
-# the backends that keep no N x N attention matrix
-FUSED_ATTENTION = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]
 # the seeded initialisation of the hub's training code (init_weights_vit_timm,
 # DinoVisionTransformer.init_weights, init_values of the hub backbones)
 LINEAR_STD, POS_STD, TOKEN_STD, LAYER_SCALE_INIT = 0.02, 0.02, 1e-6, 1.0
@@ -111,12 +112,9 @@ class Attention(nn.Module):
         self.proj = nn.Linear(dim, dim)
 
     def forward(self, x):
-        B, N, C = x.shape
-        qkv = _linear(x, self.qkv).reshape(B, N, 3, self.num_heads, C // self.num_heads)
-        q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)  # [B, heads, N, C/heads] each
-        with sdpa_kernel(FUSED_ATTENTION):
-            o = F.scaled_dot_product_attention(q, k, v, scale=self.scale)
-        return _linear(o.transpose(1, 2).reshape(B, N, C), self.proj)
+        # qkv [B, N, 3*C] is [B, N, 3, heads, C/heads]; o [B, N, C] is [B, N, heads, C/heads]
+        return _linear(flash_attention(_linear(x, self.qkv), self.num_heads, self.scale),
+                       self.proj)
 
 
 class Mlp(nn.Module):

@@ -5,7 +5,10 @@ loaded with ``ctypes``.
 Each ``pdc_tpu_torch/csrc/<name>.cu`` or ``<name>.cpp`` becomes
 ``build/pdc_tpu_torch_kernels/lib<name>-<hash>.so`` at the repository root,
 where the hash covers the source and the flags, so an edited source or flag
-builds anew and an unchanged one loads at once. A build holds an exclusive
+builds anew and an unchanged one loads at once. A source may be built more
+than once with macros (``defines``, e.g. one library per element type and
+tile width), each its own library, so that a caller builds only what it
+runs. A build holds an exclusive
 lock on ``.<name>.lock`` in the build directory (``fcntl.flock``), so
 processes that reach the first use at once (the ranks of a data-parallel
 run on one host) build it once: the others wait and load the finished
@@ -90,32 +93,44 @@ def _flags(source: Path):
     return NVCC_FLAGS if source.suffix == ".cu" else CXX_FLAGS + CXX_LIBS
 
 
-def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` (or ``.cpp``) is built, keyed by source and
-    flags."""
+def _macros(defines) -> tuple:
+    return tuple(f"-D{d}" for d in defines)
+
+
+def _label(name: str, defines=()) -> str:
+    """``name``, or ``name[A=1,B=2]`` for a build with macros."""
+    return f"{name}[{','.join(defines)}]" if defines else name
+
+
+def library_path(name: str, defines=()) -> Path:
+    """Where ``csrc/<name>.cu`` (or ``.cpp``) is built with the macros
+    ``defines`` (``"NAME=value"`` strings), keyed by source, flags and
+    macros."""
     source = _source(name)
     h = hashlib.sha256()
     h.update(source.read_bytes())
-    h.update("\0".join(_flags(source)).encode())
+    h.update("\0".join(_flags(source) + _macros(defines)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def _start(name: str):
+def _start(name: str, defines=()):
     """Start the compiler on ``csrc/<name>``, writing to a temporary name."""
     source = _source(name)
-    out = library_path(name)
+    out = library_path(name, defines)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.tmp{os.getpid()}-{threading.get_ident()}")
     if source.suffix == ".cu":
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+        cmd = [find_nvcc(), *NVCC_FLAGS, *_macros(defines), "-o", str(tmp), str(source)]
     else:
-        cmd = [find_cxx(), *CXX_FLAGS, "-o", str(tmp), str(source), *CXX_LIBS]
+        cmd = [find_cxx(), *CXX_FLAGS, *_macros(defines), "-o", str(tmp), str(source),
+               *CXX_LIBS]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
     return proc, tmp, out, source.name, os.path.basename(cmd[0])
 
 
 def _finish(name: str, job) -> None:
+    """Wait for a build; ``name`` is its :func:`_label`."""
     proc, tmp, out, source, compiler = job
     try:
         log, _ = proc.communicate(timeout=NVCC_TIMEOUT_S)
@@ -150,12 +165,13 @@ def _log_path(lib: Path) -> Path:
     return lib.with_name(f"{lib.name}.log")
 
 
-def build_log(name: str) -> str:
+def build_log(name: str, defines=()) -> str:
     """The compiler's output for the built ``csrc/<name>`` (kept beside the
     library), or "" if it was never built here."""
-    if name in build_logs:
-        return build_logs[name]
-    path = _log_path(library_path(name))
+    label = _label(name, defines)
+    if label in build_logs:
+        return build_logs[label]
+    path = _log_path(library_path(name, defines))
     return path.read_text() if path.exists() else ""
 
 
@@ -208,18 +224,20 @@ def build_all() -> Dict[str, float]:
     return seconds
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu`` (or ``.cpp``), built first
-    if needed."""
+def load(name: str, defines=()) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (or ``.cpp``) with the
+    macros ``defines``, built first if needed."""
+    defines = tuple(defines)
+    label = _label(name, defines)
     with _lock:
-        lib = _loaded.get(name)
+        lib = _loaded.get(label)
         if lib is not None:
             return lib
-        path = library_path(name)
+        path = library_path(name, defines)
         if not path.exists():
             with _build_lock(name):
                 if not path.exists():  # another process may have built it meanwhile
-                    _finish(name, _start(name))
+                    _finish(label, _start(name, defines))
         lib = ctypes.CDLL(str(path))
-        _loaded[name] = lib
+        _loaded[label] = lib
         return lib

@@ -30,74 +30,28 @@ On CPU tensors both passes run the plain version; on CUDA tensors they
 launch the kernels or raise. There is no fallback.
 
 The kernels may be captured into a CUDA graph, but only inside
-:func:`recording_launches`: a capture launches nothing, so the wrapper
-records each pass there, and whoever replays the graph adds what it
-recorded to the launch counts, once per replay (:func:`count_replays`).
+:func:`pdc_tpu_torch.ops.launches.recording`, whose replays add the
+recorded passes to the launch counts below.
 """
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 
 import torch
 
-from pdc_tpu_torch.ops import _build
+from pdc_tpu_torch.ops import _build, launches
 
 MAX_D = 16
 _MAX_BATCH = 65535
 
 # kernel launches on CUDA tensors, replays of captured launches included
-# (read by chip_smoke.py)
+# (read by chip_smoke.py; counted through ops/launches.py)
 forward_launches = 0
 backward_launches = 0
-# the passes recorded by recording_launches, or None outside it
-_recorded = None
 # devices on which pdc_pooled_hinge_prepare has run
 _prepared = set()
-
-
-@contextlib.contextmanager
-def recording_launches():
-    """Yields ``{"forward": n, "backward": n}``: the passes of the pooled
-    hinge made in the block, kernel launches or (on CPU tensors) plain
-    ones. A CUDA graph captures the kernels only inside this block; their
-    launches are then counted by :func:`count_replays` when the graph is
-    replayed, not at the capture."""
-    global _recorded
-    outer, _recorded = _recorded, {"forward": 0, "backward": 0}
-    try:
-        yield _recorded
-    finally:
-        _recorded = outer
-
-
-def count_replays(recorded: dict, replays: int = 1):
-    """Add the launches of a captured graph that :func:`recording_launches`
-    recorded, ``replays`` times, to the launch counts."""
-    global forward_launches, backward_launches
-    forward_launches += recorded["forward"] * replays
-    backward_launches += recorded["backward"] * replays
-
-
-def _record(kind: str):
-    if _recorded is not None:
-        _recorded[kind] += 1
-
-
-def _count_launch(kind: str):
-    """Count one kernel launch of ``kind``; a capture only records it."""
-    global forward_launches, backward_launches
-    _record(kind)
-    if torch.cuda.is_current_stream_capturing():
-        if _recorded is None:
-            raise RuntimeError("the pooled hinge was captured into a CUDA graph outside "
-                               "recording_launches(): its replays would go uncounted")
-    elif kind == "forward":
-        forward_launches += 1
-    else:
-        backward_launches += 1
 
 
 def _tables(da, db, mu, mv, mvalid, pu, pv, pvalid, M, use_pix, M_pixel):
@@ -231,7 +185,7 @@ def _forward_kernel(da, db, mu, mv, mvalid, pu, pv, pvalid, M, use_pix, M_pixel)
         part_hard.data_ptr(), loss.data_ptr(), hard.data_ptr(),
         B, Nm, P, D, M, int(use_pix), M_pixel, dev.index, stream)
     _raise_on(lib, err, "forward kernel launch")
-    _count_launch("forward")
+    launches.count(__name__, "forward")
     return loss, hard
 
 
@@ -251,7 +205,7 @@ def _backward_kernel(g_loss, da, db, mu, mv, mvalid, pu, pv, pvalid, M, use_pix,
         part_gdb.data_ptr(), gda.data_ptr(), gdb.data_ptr(),
         B, Nm, P, D, M, int(use_pix), M_pixel, dev.index, stream)
     _raise_on(lib, err, "backward kernel launch")
-    _count_launch("backward")
+    launches.count(__name__, "backward")
     return gda, gdb
 
 
@@ -267,7 +221,7 @@ class _PooledHinge(torch.autograd.Function):
             loss = da.new_zeros(da.shape[0])
             hard = torch.zeros(da.shape[0], dtype=torch.int64, device=da.device)
         elif da.device.type == "cpu":
-            _record("forward")
+            launches.record(__name__, "forward")
             loss, hard = pooled_hinge_reference(da, db, mu, mv, mvalid, pu, pv, pvalid,
                                                 M, use_pix, M_pixel)
         else:
@@ -284,7 +238,7 @@ class _PooledHinge(torch.autograd.Function):
         if da.shape[1] == 0 or db.shape[1] == 0:
             gda, gdb = torch.zeros_like(da), torch.zeros_like(db)
         elif da.device.type == "cpu":
-            _record("backward")
+            launches.record(__name__, "backward")
             gda, gdb = pooled_hinge_backward_reference(g_loss, da, db, mu, mv, mvalid,
                                                        pu, pv, pvalid, M, use_pix, M_pixel)
         else:

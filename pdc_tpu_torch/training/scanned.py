@@ -52,7 +52,7 @@ from pdc_tpu_torch.losses.composer import (
     MATCH_TYPE_SINGLE_OBJECT_WITHIN_SCENE,
     MATCH_TYPE_SYNTHETIC_MULTI_OBJECT,
 )
-from pdc_tpu_torch.ops.pooled_hinge import count_replays, recording_launches
+from pdc_tpu_torch.ops import launches, pooled_hinge
 from pdc_tpu_torch.parallel.sharded_train import data_parallel_update
 from pdc_tpu_torch.parallel.tensor_parallel import to_fsdp_state
 from pdc_tpu_torch.training.schedule import make_lr_schedule
@@ -545,7 +545,8 @@ class ScannedTrainStep:
     fails raises. Otherwise (the CPU, a mesh) a call runs the K steps
     eagerly. :attr:`launches_per_dispatch` gives the pooled hinge's
     launches of a call, recorded at the capture (replays count them) or in
-    the eager call."""
+    the eager call; each replay adds every kernel's recorded launches to
+    its counters (``ops/launches.py``)."""
 
     def __init__(self, step: DeviceSampledTrainStep, steps_per_dispatch: int):
         if steps_per_dispatch < 1:
@@ -563,9 +564,9 @@ class ScannedTrainStep:
     def __call__(self, state: TrainState, generator: torch.Generator) -> dict:
         if self.graphed:
             return self._replay(state, generator)
-        with recording_launches() as recorded:
+        with launches.recording() as recorded:
             metrics = [self.step(state, generator) for _ in range(self.steps_per_dispatch)]
-        self.launches_per_dispatch = dict(recorded)
+        self.launches_per_dispatch = launches.passes(recorded, pooled_hinge.__name__)
         return {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
 
     def _replay(self, state: TrainState, generator: torch.Generator) -> dict:
@@ -576,7 +577,7 @@ class ScannedTrainStep:
         self._slot.zero_()
         for _ in range(k):
             self._graph.replay()
-        count_replays(self._recorded, k)
+        launches.count_replays(self._recorded, k)
         state.step += k
         return {name: buf.clone() for name, buf in self._metrics.items()}
 
@@ -617,16 +618,17 @@ class ScannedTrainStep:
         state.optimizer.zero_grad(set_to_none=True)
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(generator)
-        with recording_launches() as recorded, torch.cuda.graph(graph):
+        with launches.recording() as recorded, torch.cuda.graph(graph):
             metrics = step.sampled_update(state, generator)
             for name, value in metrics.items():
                 self._metrics[name].index_copy_(0, self._slot, value.reshape(1).float())
             self._slot += 1
-        self._graph, self._recorded = graph, dict(recorded)
+        self._graph, self._recorded = graph, recorded
         self._bound = _binding(state, generator)
-        self.launches_per_dispatch = {kind: n * k for kind, n in recorded.items()}
-        logger.info("captured the train step into a CUDA graph: pooled hinge %s per step",
-                    self._recorded)
+        self.launches_per_dispatch = {
+            kind: n * k for kind, n in launches.passes(recorded, pooled_hinge.__name__).items()}
+        logger.info("captured the train step into a CUDA graph, kernel launches per step: %s",
+                    dict(recorded))
 
 
 def make_scanned_train_step(training_config: dict, loss_cfg, assembler_cfg, image_width: int,

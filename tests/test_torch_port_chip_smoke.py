@@ -119,3 +119,28 @@ def test_on_disk_tree_and_paeth_file_read_back(tmp_path):
     out = np.zeros_like(frame)
     nl.decode_batch([(path, nl.KIND_RGB8, out)], 48, 64, decoder="zlib")
     np.testing.assert_array_equal(out, frame)
+
+
+def test_attention_bound_is_the_products_at_the_ffma_peak():
+    """K4's bound at the ViT cell's block: 6 products of 2 N^2 d operations a
+    head (2 forward, 4 backward) at 67 TFLOP/s, 3.83 ms a block (91.84 ms
+    for the 24 blocks of a step), bound by operations; 1.55 ms at the
+    split-fp32 rate."""
+    fwd_ms, fwd_by, fwd_split = chip_smoke.attention_bound(8, 16, 1615, 64, backward=False)
+    bwd_ms, bwd_by, bwd_split = chip_smoke.attention_bound(8, 16, 1615, 64, backward=True)
+    assert fwd_by == bwd_by == "operations"
+    assert abs(bwd_ms - 2 * fwd_ms) < 1e-9
+    assert abs(24 * (fwd_ms + bwd_ms) - 91.84) < 0.01
+    assert abs(fwd_split + bwd_split - 1.554) < 0.001
+
+
+def test_attention_entries_name_each_pass():
+    k4 = {"launches": (40, 40), "err": {"o": 1e-6, "dq": 2e-6}}
+    for kind in ("fwd", "bwd"):
+        k4.update({f"{kind}_ms": 1.0, f"{kind}_wrapper_ms": 1.1, f"plain_{kind}_ms": 5.0,
+                   f"bound_{kind}_ms": 0.5, f"bound_{kind}_by": "operations",
+                   f"split_fp32_{kind}_ms": 0.2, f"library_{kind}_ms": 2.0})
+    fwd, bwd = chip_smoke.attention_entries(k4)
+    assert (fwd["name"], bwd["name"]) == ("flash_attention_fwd", "flash_attention_bwd")
+    assert fwd["source"] == bwd["source"] == "pdc_tpu_torch/csrc/flash_attention.cu"
+    assert fwd["launches"] == bwd["launches"] == 40 and fwd["max_abs_err"] == 2e-6

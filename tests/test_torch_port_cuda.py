@@ -1,5 +1,7 @@
-"""The port's CUDA kernels on the card: the best-match kernel (K3) and the
-pooled-hinge forward and backward (K1, K2) against their plain versions,
+"""The port's CUDA kernels on the card: the best-match kernel (K3), the
+pooled-hinge forward and backward (K1, K2) and the ViT's flash attention
+(forward and backward, against float64, in float32 and bfloat16, and in a
+tiny ViT's graphed train step) against their plain versions,
 their launch counters, determinism, the server's batched best match, one
 train step through K1/K2, the device cache and pair sampler on the card,
 three iterations of the training driver, the per-pair loss and synthetic
@@ -1250,3 +1252,216 @@ def test_bf16_forward_and_step_on_the_card_against_bf16_on_the_cpu(cuda, seed):
     assert to_fp32["card16"] <= BF16_TO_FP32_BAR * to_fp32["cpu16"]
     assert g_to_fp32["card16"] <= BF16_TO_FP32_BAR * g_to_fp32["cpu16"]
     assert abs(metrics["card16"] - metrics["cpu16"]) <= 0.05 * abs(metrics["cpu16"])
+
+
+# -- the ViT's flash attention (ops/flash_attention.py) ---------------------------------------
+
+# Split-fp32 products carry about 2^-21 of relative error a term; over sums of up to 1615
+# terms and the softmax the kernels' o, dq, dk and dv part from float64 by up to 3.7e-6 of
+# their largest magnitude (H100, at every shape below), so 2e-5. Plain TF32 products (2^-11)
+# part by 4e-4 to 1e-3 at the cell's shape: the fault fails by over 20 times the limit.
+FLASH_TOL = 2e-5
+# bfloat16 rounds inputs, p and ds to 8 bits (2^-9): up to 4.4e-3 measured, so 2e-2
+FLASH_BF16_TOL = 2e-2
+
+
+def _flash_case(cuda, B, H, N, d, dtype=torch.float32, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    qkv = torch.randn((B, N, 3 * H * d), generator=g, device=cuda).to(dtype)
+    do = torch.randn((B, N, H * d), generator=g, device=cuda).to(dtype)
+    return qkv, do
+
+
+def _flash_scale(qkv, H):
+    return (qkv.shape[-1] // 3 // H) ** -0.5
+
+
+def _flash_errors(qkv, do, H, got_o, got_g):
+    """max |kernel - float64| over max |float64| of o, dq, dk, dv; the
+    float64 side is the plain version's softmax written out."""
+    from pdc_tpu_torch.ops.flash_attention import attention_reference
+
+    x = qkv.detach().double().requires_grad_(True)
+    o = attention_reference(x, H, _flash_scale(qkv, H))
+    (g,) = torch.autograd.grad(o, x, do.double())
+    C = qkv.shape[-1] // 3
+    pairs = [("o", got_o, o)] + list(zip(("dq", "dk", "dv"), got_g.split(C, -1), g.split(C, -1)))
+    return {k: float((a.detach().double() - b).abs().max() / b.abs().max()) for k, a, b in pairs}
+
+
+def _flash_run(qkv, do, H):
+    from pdc_tpu_torch.ops.flash_attention import flash_attention
+
+    x = qkv.clone().requires_grad_(True)
+    o = flash_attention(x, H, _flash_scale(qkv, H))
+    (g,) = torch.autograd.grad(o, x, do)
+    torch.cuda.synchronize()
+    return o, g
+
+
+# (B, heads, N, d): the ViT cell's block; the tiny widths with a ragged N (21: one
+# partial tile); a head dim below its power of two (48) and the largest taken (128)
+FLASH_SHAPES = [(8, 16, 1615, 64), (2, 3, 21, 16), (2, 2, 100, 48), (2, 2, 300, 128)]
+
+
+@pytest.mark.parametrize("B,H,N,d", FLASH_SHAPES, ids=lambda v: str(v))
+def test_flash_attention_matches_float64(cuda, B, H, N, d):
+    from pdc_tpu_torch.ops import flash_attention as fa
+
+    qkv, do = _flash_case(cuda, B, H, N, d)
+    f0, b0 = fa.forward_launches, fa.backward_launches
+    o, g = _flash_run(qkv, do, H)
+    assert (fa.forward_launches - f0, fa.backward_launches - b0) == (1, 1)
+    assert o.shape == (B, N, H * d) and o.is_contiguous() and g.shape == qkv.shape
+    errors = _flash_errors(qkv, do, H, o, g)
+    print(f"flash attention {B, H, N, d} against float64: {errors}")
+    assert max(errors.values()) < FLASH_TOL, errors
+
+
+def test_flash_attention_with_plain_tf32_products_fails(cuda, monkeypatch):
+    """The same kernels with every product in plain TF32 (the fault split-fp32
+    guards against) fail the comparison at the cell's shape."""
+    from pdc_tpu_torch.ops import flash_attention as fa
+
+    monkeypatch.setattr(fa, "FLOAT32_PRECISION", "tf32")
+    qkv, do = _flash_case(cuda, *FLASH_SHAPES[0])
+    errors = _flash_errors(qkv, do, 16, *_flash_run(qkv, do, 16))
+    print(f"flash attention in plain TF32 against float64: {errors}")
+    assert min(errors.values()) > 10 * FLASH_TOL, errors
+
+
+@pytest.mark.parametrize("B,H,N,d", FLASH_SHAPES[:2], ids=lambda v: str(v))
+def test_flash_attention_bf16(cuda, B, H, N, d):
+    qkv, do = _flash_case(cuda, B, H, N, d, torch.bfloat16)
+    o, g = _flash_run(qkv, do, H)
+    assert o.dtype == g.dtype == torch.bfloat16
+    errors = _flash_errors(qkv, do, H, o, g)
+    print(f"flash attention in bf16 {B, H, N, d} against float64: {errors}")
+    assert max(errors.values()) < FLASH_BF16_TOL, errors
+
+
+def test_flash_attention_is_deterministic_and_reads_strided_qkv(cuda):
+    """No atomics: two runs agree bit for bit. A qkv that is a column slice
+    of a wider tensor (its token stride not 3*C) gives the same answer."""
+    from pdc_tpu_torch.ops.flash_attention import flash_attention
+
+    qkv, do = _flash_case(cuda, 2, 3, 77, 16)
+    o1, g1 = _flash_run(qkv, do, 3)
+    o2, g2 = _flash_run(qkv, do, 3)
+    assert torch.equal(o1, o2) and torch.equal(g1, g2)
+    C3 = qkv.shape[-1]
+    wide = torch.zeros((2, 77, C3 + 32), device=cuda)
+    wide[..., 16:16 + C3] = qkv
+    wide.requires_grad_(True)
+    sliced = wide[..., 16:16 + C3]
+    assert sliced.stride(1) == C3 + 32
+    o3 = flash_attention(sliced, 3, _flash_scale(qkv, 3))
+    (g3,) = torch.autograd.grad(o3, wide, do)
+    assert torch.equal(o3, o1) and torch.equal(g3[..., 16:16 + C3], g1)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float16, 16), (torch.float32, 24),
+                                     (torch.float32, 144), (torch.float32, 8)])
+def test_flash_attention_raises_instead_of_falling_back(cuda, dtype, d):
+    from pdc_tpu_torch.ops import flash_attention as fa
+
+    qkv = torch.zeros((1, 20, 3 * 2 * d), device=cuda, dtype=dtype)
+    f0 = fa.forward_launches
+    with pytest.raises((TypeError, ValueError)):
+        fa.flash_attention(qkv, 2, d ** -0.5)
+    assert fa.forward_launches == f0
+
+
+def test_vit_scanned_step_replays_one_graph_as_eager_steps(cuda):
+    """The tiny ViT (width 64, 2 blocks, 4 heads of 16, 25 tokens at 64x48) on
+    make_scanned_train_step, K=3: the first call captures one CUDA graph
+    holding the attention kernels; a call equals K eager steps from clones of
+    the state and generator (as test_scanned_step_replays_one_graph_as_eager_steps
+    holds them), and the attention's launch counter shows the replays went
+    through its kernels: a forward and a backward pass a block a step."""
+    import copy
+
+    from pdc_tpu_torch.data.assembler import AssemblerConfig
+    from pdc_tpu_torch.losses.pixelwise_contrastive import LossConfig
+    from pdc_tpu_torch.models.dcn import init_weights_
+    from pdc_tpu_torch.models.dinov2 import Dinov2FCN
+    from pdc_tpu_torch.ops import flash_attention as fa
+    from pdc_tpu_torch.ops import launches
+    from pdc_tpu_torch.training import scanned
+    from pdc_tpu_torch.training.train import create_train_state
+
+    K, depth = 3, 2
+    tc = {"training": {"learning_rate": 1e-4, "learning_rate_decay": 0.9,
+                       "steps_between_learning_rate_decay": 250, "weight_decay": 1e-4}}
+    cache = _synthetic_cache(cuda)
+    asm = AssemblerConfig(num_matching_attempts=500, masked_pool_size=128,
+                          background_pool_size=128, num_blind_samples=200)
+    vit = Dinov2FCN(3, embed_dim=64, depth=depth, num_heads=4, pos_grid=8)
+    state = create_train_state(init_weights_(vit, torch.Generator().manual_seed(0)), tc)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    call = scanned.make_scanned_train_step(tc, LossConfig(), asm, 64, cache, 2, K)
+    assert call.graphed
+    call.capture(state, gen)
+    eager = scanned.make_device_sampled_train_step(tc, LossConfig(), asm, 64, cache, 2,
+                                                   ((0, 1.0),))
+    runs = []
+    for _ in range(2):
+        s, g = copy.deepcopy(state), torch.Generator(device=cuda)
+        g.set_state(gen.get_state())
+        runs.append((s, g, [float(eager(s, g)["loss"]) for _ in range(K)]))
+    f0, b0 = fa.forward_launches, fa.backward_launches
+    m = call(state, gen)
+    assert (fa.forward_launches - f0, fa.backward_launches - b0) == (depth * K, depth * K)
+    assert launches.passes(call._recorded, fa.__name__) == {"forward": depth, "backward": depth}
+    losses = m["loss"].tolist()
+    (s1, g1, l1), (s2, _, l2) = runs
+    assert torch.equal(gen.get_state(), g1.get_state()) and state.step == s1.step == K
+
+    def worst(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+    spread_l, spread_p = worst(l2, l1), _param_rel(s2.module, s1.module)
+    print(f"ViT graph vs eager: losses {worst(losses, l1):.3g}, parameters "
+          f"{_param_rel(state.module, s1.module):.3g}; two eager runs {spread_l:.3g}, "
+          f"{spread_p:.3g}")
+    assert worst(losses, l1) <= max(4 * spread_l, 1e-6)
+    assert _param_rel(state.module, s1.module) <= max(4 * spread_p, 1e-6)
+
+
+def test_vit_exports_through_the_attention_operator(cuda, tmp_path):
+    """A tiny ViT's serving program (export_inference on the card) traces
+    through the attention's registered operators and gives the live
+    network's descriptors; saved and loaded, it gives the same again."""
+    import copy
+
+    from pdc_tpu_torch.apps.export_serving import (
+        ServingProgram,
+        export_inference,
+        load_exported,
+        save_exported,
+    )
+    from pdc_tpu_torch.models.dcn import DenseCorrespondenceNetwork
+    from pdc_tpu_torch.ops import flash_attention as fa
+
+    cfg = {"descriptor_dimension": 3, "image_width": 64, "image_height": 48,
+           "backbone": {"model_class": "Dinov2", "embed_dim": 64, "depth": 2, "num_heads": 4,
+                        "pos_grid": 8}}
+    dcn = DenseCorrespondenceNetwork.from_config(
+        cfg, generator=torch.Generator().manual_seed(0), device="cuda")
+    exported = export_inference(dcn, batch_size=2)
+    targets = [str(n.target) for n in exported.graph.nodes if n.op == "call_function"]
+    assert sum("pdc_tpu.flash_attention" in t for t in targets) == 2, targets
+    rgb = torch.randint(0, 256, (2, 48, 64, 3), dtype=torch.uint8, device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(1))
+    live = ServingProgram(copy.deepcopy(dcn.module).eval(), dcn.image_mean,
+                          dcn.image_std_dev).to(cuda).eval()
+    with torch.no_grad():
+        want = live(rgb)
+        f0 = fa.forward_launches
+        got = exported.module()(rgb)
+        assert fa.forward_launches - f0 == 2
+        path = str(tmp_path / "vit.pt2")
+        save_exported(exported, path)
+        again = load_exported(path).module()(rgb)
+    assert got.shape == (2, 48, 64, 3)
+    assert float((got - want).abs().max()) <= 1e-5 * max(1.0, float(want.abs().max()))
+    assert torch.equal(again, got)

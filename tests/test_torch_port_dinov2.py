@@ -9,11 +9,17 @@ positions resized bilinearly or without antialias, the wrong attention
 scale) fails the forward comparison. The layers that cannot hold the
 backbone refuse it by name.
 
+The attention's plain version (``ops/flash_attention.py``, which the CPU
+runs; the card runs its kernels) is held to a float64 softmax at the tiny
+widths with a ragged token count, forward and gradient, and the port's
+block to the reference's.
+
 Tolerances: program and reference compute in float32 with different
-summation orders (fused attention against ``softmax(q k^T) v`` written
-out, ``F.linear`` against ``nn.Linear``); their outputs and gradients
-part by about 1e-6 of their largest magnitude here, so the comparisons
-allow 1e-4 of it, while every fault moves them by more than 1e-3."""
+summation orders (the attention's products on ``[B, N, 3, heads, d]``
+views against ``softmax(q k^T) v`` on permuted heads, ``F.linear``
+against ``nn.Linear``); their outputs and gradients part by about 1e-6 of
+their largest magnitude here, so the comparisons allow 1e-4 of it, while
+every fault moves them by more than 1e-3."""
 
 import copy
 import math
@@ -28,6 +34,7 @@ import portbench.reference.dinov2 as reference
 from pdc_tpu_torch.apps.serve import DescriptorServer
 from pdc_tpu_torch.models.dcn import DenseCorrespondenceNetwork, build_backbone
 from pdc_tpu_torch.models.dinov2 import DEFAULTS, Dinov2FCN
+from pdc_tpu_torch.ops import flash_attention as fa
 from portbench import harness
 from portbench.reference.descriptors import best_matches
 from portbench.reference.train_step import normalize
@@ -121,6 +128,78 @@ def test_gradients_match_reference(weights, remat):
     for k, g in grads["ref"].items():
         assert g.abs().max() > 0, k  # every parameter takes part, the positions included
         assert rel_err(grads["port"][k], g) < TOL, k
+
+
+def float64_attention(qkv, heads, scale):
+    """``softmax(q k^T * scale) v`` in float64, each step written out."""
+    B, N, C3 = qkv.shape
+    q, k, v = qkv.double().reshape(B, N, 3, heads, C3 // 3 // heads).unbind(2)
+    s = torch.einsum("bnhd,bmhd->bhnm", q, k) * scale
+    e = torch.exp(s - s.max(-1, keepdim=True).values)
+    return torch.einsum("bhnm,bmhd->bnhd", e / e.sum(-1, keepdim=True), v).reshape(B, N, -1)
+
+
+# the tiny widths' 4 heads of 16 at 25 tokens (64x48), and a ragged 21
+@pytest.mark.parametrize("N", [25, 21])
+def test_plain_attention_matches_float64(N):
+    g = torch.Generator().manual_seed(N)
+    heads, d = 4, 16
+    qkv = torch.randn((2, N, 3 * heads * d), generator=g, requires_grad=True)
+    do = torch.randn((2, N, heads * d), generator=g)
+    before = fa.forward_launches
+    o = fa.flash_attention(qkv, heads, d ** -0.5)
+    assert fa.forward_launches == before  # the CPU runs the plain version: no kernel
+    want = float64_attention(qkv.detach(), heads, d ** -0.5)
+    assert o.shape == (2, N, heads * d) and rel_err(o.detach(), want) < 1e-5
+    (got_g,) = torch.autograd.grad(o, qkv, do)
+    x = qkv.detach().double().requires_grad_(True)
+    (want_g,) = torch.autograd.grad(float64_attention(x, heads, d ** -0.5), x, do.double())
+    assert rel_err(got_g, want_g) < 1e-5
+
+
+def test_plain_attention_bf16_keeps_dtype():
+    g = torch.Generator().manual_seed(0)
+    qkv = torch.randn((2, 21, 3 * 64), generator=g)
+    got = fa.flash_attention(qkv.bfloat16(), 4, 0.25)
+    assert got.dtype == torch.bfloat16
+    # bfloat16 inputs and probabilities: 8 bits of mantissa
+    assert rel_err(got.float(), float64_attention(qkv, 4, 0.25)) < 2e-2
+
+
+def test_block_matches_reference(weights):
+    """One pre-norm block of the port against the reference's, outputs and
+    every parameter's gradient, on random tokens with a ragged count."""
+    port = build_backbone(NET)
+    port.load_state_dict(weights)
+    ref = ref_model(weights)
+    x = torch.randn((2, 21, TINY["embed_dim"]), generator=torch.Generator().manual_seed(2))
+    r = torch.randn_like(x)
+    out, grads = {}, {}
+    for name, block in (("port", port.blocks[1]), ("ref", ref.blocks[1])):
+        xi = x.clone().requires_grad_(True)
+        y = block(xi)
+        block.zero_grad(set_to_none=True)
+        (y * r).sum().backward()
+        out[name] = (y.detach(), xi.grad)
+        grads[name] = {k: p.grad for k, p in block.named_parameters()}
+    assert rel_err(out["port"][0], out["ref"][0]) < TOL
+    assert rel_err(out["port"][1], out["ref"][1]) < TOL
+    assert set(grads["port"]) == set(grads["ref"])
+    for k, g in grads["ref"].items():
+        assert rel_err(grads["port"][k], g) < TOL, k
+
+
+def test_no_library_attention_in_the_port():
+    """The port's attention goes only through ops/flash_attention.py: no
+    ``scaled_dot_product_attention`` call remains in the package."""
+    import pathlib
+
+    import pdc_tpu_torch
+
+    root = pathlib.Path(pdc_tpu_torch.__file__).parent
+    callers = [str(p.relative_to(root)) for p in root.rglob("*.py")
+               if "scaled_dot_product_attention(" in p.read_text()]
+    assert callers == []
 
 
 def drop_registers(monkeypatch, model):

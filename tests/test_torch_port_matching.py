@@ -207,11 +207,18 @@ def test_nvcc_lookup_order(monkeypatch, tmp_path):
 
 
 def test_library_path_keyed_by_source_and_flags(monkeypatch):
-    assert [p.name for p in _build.sources()] == ["best_match.cu", "pooled_hinge.cu"]
+    assert [p.name for p in _build.sources()] == ["best_match.cu", "flash_attention.cu",
+                                                  "pooled_hinge.cu"]
     p = _build.library_path("best_match")
     assert p.parent == _build.BUILD_DIR and p.parent.name == "pdc_tpu_torch_kernels"
     assert p.parent.parent.parent == _build.SOURCE_DIR.parent.parent  # <repo>/build/
     assert "code=sm_90a" in " ".join(_build.NVCC_FLAGS)
+    # a build with macros is a library of its own
+    fa = _build.library_path("flash_attention", ("FLASH_MODE=0", "FLASH_DIM=64"))
+    assert fa != _build.library_path("flash_attention")
+    assert fa != _build.library_path("flash_attention", ("FLASH_MODE=0", "FLASH_DIM=16"))
+    assert fa == _build.library_path("flash_attention", ["FLASH_MODE=0", "FLASH_DIM=64"])
+    assert _build._label("flash_attention", ("FLASH_DIM=64",)) == "flash_attention[FLASH_DIM=64]"
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
     assert _build.library_path("best_match") != p
 
